@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's decode-serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's decode-serving and GPT training paths on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds every kernel of the path from ``paddle_tpu_torch/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, times it,
-then serves generations at GPT-base widths through ``DecodeServer`` and
-``SpeculativeDecodeServer`` and checks every token against the dense
-oracle and against the JAX reference's golden tokens
-(``paddle_tpu_torch/testdata/decode_golden.json``). Prints one JSON object
-per line; the line before the last is the ``{"kernels": [...]}`` summary,
-the last is ``{"ok": true, "device": {...}}``. Any failed check raises, so
-the script exits non-zero and never prints ``"ok": true``. Without a CUDA
-device it fails at once. Imports torch, numpy and ``paddle_tpu_torch``
-only.
+Builds every kernel from ``paddle_tpu_torch/csrc`` with nvcc (one process
+per source, all started together), then:
+
+- serving: holds the paged-attention kernel against its plain PyTorch
+  version, times it, and serves generations at GPT-base widths through
+  ``DecodeServer`` and ``SpeculativeDecodeServer``, checking every token
+  against the dense oracle and the JAX reference's golden tokens
+  (``paddle_tpu_torch/testdata/decode_golden.json``);
+- training: holds the three flash-attention kernels (forward, dq, dk/dv)
+  against their plain versions and times them at GPT-base; trains GPT-base
+  widths at depth 2 in float32 against the JAX reference's golden losses
+  (``paddle_tpu_torch/testdata/gpt_train_golden.json``); then runs the
+  main path, full GPT-base training steps in bfloat16 (bench.py's
+  ``fused_b8``), and profiles three of them.
+
+Prints one JSON object per line; the line before the last is the
+``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero and never
+prints ``"ok": true``. Without a CUDA device it fails at once. Imports
+torch, numpy and ``paddle_tpu_torch`` only.
 """
 from __future__ import annotations
 
@@ -38,10 +48,20 @@ ATOL, RTOL = 1e-4, 1e-4
 PARITY_TQ = (1, 2, 4, 5, 8, 16, 32)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # bf16 dense tensor cores
 
 SRC = "paddle_tpu_torch/csrc/paged_attention.cu"
+FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
+SOURCES = (SRC, FLASH_SRC)
 REPLACES = {"decode": "paddle_tpu/ops/pallas/paged_attention.py:141",
-            "verify": "paddle_tpu/ops/pallas/paged_attention.py:191"}
+            "verify": "paddle_tpu/ops/pallas/paged_attention.py:191",
+            "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:102",
+            "flash_dq": "paddle_tpu/ops/pallas/flash_attention.py:205",
+            "flash_dkv": "paddle_tpu/ops/pallas/flash_attention.py:247"}
+# flash kernel vs plain: float32 math in both, sums in other orders
+# (float32); one bfloat16 rounding of each output (bfloat16)
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+FLASH_SEED = 7
 
 
 def emit(**kw):
@@ -220,6 +240,38 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
     return [[int(t) for t in warm[0]]] + outs, report
 
 
+def _device_time(prof):
+    """Kernel time on the card from a torch.profiler run: per kernel name
+    (device us, launches), largest first, and the busy time, the union of
+    all device intervals in us (host-side op rows are not counted, so no
+    kernel is counted twice)."""
+    from torch.autograd import DeviceType
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + end - start, n + 1)
+        spans.append((start, end))
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    rows = sorted(((us, name, n) for name, (us, n) in by_name.items()),
+                  reverse=True)
+    return rows, busy
+
+
+def _profile_report(prof, wall):
+    rows, busy_us = _device_time(prof)
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "busy_share": busy_us / 1e6 / wall if rows else None,
+            "top": [{"name": k[:80], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in rows[:8]]}, rows
+
+
 def profile_serving(params, prompts, max_new, dm, kvc, serving):
     """Device time by kernel and the device's busy share over a steady
     serving window (torch.profiler); the serve() set-up, not timed here."""
@@ -242,19 +294,329 @@ def profile_serving(params, prompts, max_new, dm, kvc, serving):
                 r.result(timeout=600)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    device_s = sum(r[0] for r in rows) / 1e6
-    return {"wall_s": wall, "device_s": device_s,
-            "busy_share": device_s / wall if rows else None,
-            "top": [{"name": k[:80], "device_ms": us / 1e3, "count": c}
-                    for us, k, c in rows[:8]]}
+    return _profile_report(prof, wall)[0]
+
+
+# ---------------------------------------------------------------------------
+# training: flash kernels and GPT-base steps
+# ---------------------------------------------------------------------------
+
+def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
+                      split_qkv=False):
+    """Kernel vs plain on the card: forward (out, lse) and, through the
+    autograd Function, backward (dq, dk, dv). With ``split_qkv`` q, k and v
+    are what GPTAttention hands the kernels: strided views of one
+    (B, S, H, 3*D) tensor, split per head. Returns the max abs errors."""
+    dev = "cuda"
+    rand = lambda *shape: torch.as_tensor(  # noqa: E731
+        rs.randn(*shape).astype(np.float32), device=dev).to(dtype)
+    if split_qkv:
+        qkv = rand(b, s, h, 3 * d)
+        q, k, v = torch.split(qkv, d, dim=-1)
+        check(not q.is_contiguous() and q.stride(2) == 3 * d,
+              f"q is not the QKV split's view: strides {q.stride()}")
+        qkv_g = qkv.clone().requires_grad_()
+        leaves = (qkv_g,)
+        qg, kg, vg = torch.split(qkv_g, d, dim=-1)
+    else:
+        q, k, v = rand(b, s, h, d), rand(b, s, h, d), rand(b, s, h, d)
+        qg, kg, vg = leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    do = rand(b, s, h, d)
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    seed = FLASH_SEED
+    blocks = fa.keying_blocks(dtype, d, s, s)
+    out, lse = fa.flash_attention_fwd(q, k, v, ln, seed, None, causal, rate,
+                                      blocks)
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, ln, seed, None,
+                                                    causal, rate, blocks)
+    out2 = fa.flash_attention(qg, kg, vg, causal=causal, kv_lens=ln,
+                              dropout_rate=rate, dropout_seed=seed)
+    grads = torch.autograd.grad(out2, leaves, do)
+    if split_qkv:
+        grads = torch.split(grads[0], d, dim=-1)
+    ref_grads = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, ln,
+                                             seed, None, causal, rate, blocks)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    errs = {}
+    for name, g, r in zip(("out", "lse", "out_autograd", "dq", "dk", "dv"),
+                          (out, lse, out2, *grads),
+                          (ref_out, ref_lse, ref_out, *ref_grads)):
+        g, r = g.float(), r.float()
+        check(torch.isfinite(g).all().item(), f"kernel {name} not finite")
+        errs[name] = (g - r).abs().max().item()
+        check(torch.allclose(g, r, atol=atol, rtol=rtol),
+              f"flash {name} s={s} d={d} causal={causal} lens={lens} "
+              f"{dtype} rate={rate} split_qkv={split_qkv}: max err "
+              f"{errs[name]}")
+    return errs
+
+
+def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
+    """Each kernel, its plain version and the library call at GPT-base
+    (bf16, causal; q, k, v the QKV split's strided views, as the main path
+    gives them), with each kernel's bound on this card."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    qkv, do = [torch.randn(b, s, h, n * d, device=dev, generator=gen,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for n in (3, 1)]
+    q, k, v = torch.split(qkv, d, dim=-1)
+    blocks = fa.keying_blocks(q.dtype, d, s, s)
+    out, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, True, 0.0,
+                                      blocks)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    rest = (None, 0, None, True, 0.0, blocks)
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(
+              q, k, v, *rest), flush=flush),
+          "flash_dq": time_ms(lambda: fa._launch_dq(
+              q, k, v, do, lse, delta, *rest), flush=flush),
+          "flash_dkv": time_ms(lambda: fa._launch_dkv(
+              q, k, v, do, lse, delta, *rest), flush=flush)}
+
+    # each kernel's plain version; both backward ones recompute ds
+    def plain_dq():
+        ds, _, scale = fa._plain_ds(q, k, v, out, lse, do, *rest)
+        return fa._plain_dq(ds, q, k, scale)
+
+    def plain_dkv():
+        ds, p_drop, scale = fa._plain_ds(q, k, v, out, lse, do, *rest)
+        return fa._plain_dkv(ds, p_drop, q, k, v, do, scale)
+
+    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_plain_fwd(
+                 q, k, v, *rest), reps=5, flush=flush),
+             "flash_dq": time_ms(plain_dq, reps=5, flush=flush),
+             "flash_dkv": time_ms(plain_dkv, reps=5, flush=flush)}
+    plain_bwd = time_ms(lambda: fa.flash_attention_plain_bwd(
+        q, k, v, out, lse, do, *rest), reps=5, flush=flush)
+    # library yardstick, (B, H, S, D) layout; the port never calls it
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = [x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v)]
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush=flush)
+    o_lib = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+    lib_fwdbwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), flush=flush)
+    e = q.element_size()
+    tensor = b * s * h * d * e                 # one (B, S, H, D) tensor
+    stat = b * h * s * 4                       # lse or delta, float32
+    prod = b * h * s * s * d                   # one causal S x S x D product
+    work = {"flash_fwd": (2 * prod, 3 * tensor + tensor + stat),
+            "flash_dq": (3 * prod, 4 * tensor + 2 * stat + tensor),
+            "flash_dkv": (4 * prod, 4 * tensor + 2 * stat + 2 * tensor)}
+    # no library call computes dq alone or dk/dv alone: the backward rows
+    # carry library_ms null, and the whole backward (SDPA's, the plain one,
+    # dq + dk/dv) under keys of its own
+    whole_bwd = {"bwd_ms": ms["flash_dq"] + ms["flash_dkv"],
+                 "plain_bwd_ms": plain_bwd, "library_bwd_ms": lib_bwd}
+    res = {}
+    for name, (flops, moved) in work.items():
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = moved / H100_BYTES_PER_S * 1e3
+        res[name] = {
+            "ms": ms[name], "flops": flops, "bytes": moved,
+            "plain_ms": plain[name],
+            "library_ms": lib_fwd if name == "flash_fwd" else None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / ms[name] / 1e9,
+            **({} if name == "flash_fwd" else whole_bwd)}
+    # the backward as one minimal pass (scores, dp, dq, dk, dv: 5 products)
+    bwd_bound = max(5 * prod / H100_BF16_FLOPS,
+                    (5 * tensor + 3 * tensor + 2 * stat) / H100_BYTES_PER_S)
+    return res, {"bwd_minimal_bound_ms": bwd_bound * 1e3,
+                 "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                 "sdpa_fwd_bwd_ms": lib_fwdbwd, "plain_bwd_ms": plain_bwd}
+
+
+def golden_weights(names_shapes, seed):
+    """The golden file's weight recipe (tests/torch_gpt_train_golden.py):
+    every parameter in state_dict order from one RandomState(seed);
+    biases zeros, 1-d (LayerNorm) weights ones, else normal(0, 0.02)."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for name, shape in names_shapes:
+        if name.endswith(".bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif len(shape) == 1:
+            out[name] = np.ones(shape, np.float32)
+        else:
+            out[name] = rs.normal(0.0, 0.02, shape).astype(np.float32)
+    return out
+
+
+def golden_data(vocab, batch, seq, seed):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    labels = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    return ids, labels
+
+
+def fused_loss_layer(nn, model, chunk):
+    """(ids, labels) -> loss Layer around ``fused_head_loss``, as bench.py
+    wraps the model for ParallelTrainer."""
+    class FusedLoss(nn.Layer):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, batch):
+            ids, lbl = batch
+            return self.inner.fused_head_loss(ids, lbl, chunk=chunk,
+                                              ce_kernel="chunked")
+
+    return FusedLoss(model)
+
+
+def train_golden(fa, nn, gpt, engine, optim):
+    """GPT-base widths at depth 2, fp32: step-0 loss and grad norm, then
+    four train_step losses, against the JAX package's golden file."""
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "gpt_train_golden.json")) as f:
+        gold = json.load(f)
+    cfg = gold["config"]
+    check(cfg["hidden_size"] == 768 and cfg["num_heads"] == 12 and
+          cfg["vocab_size"] == 50304, f"golden config is not GPT-base: {cfg}")
+    model = gpt.GPTForPretraining(tensor_parallel=False, **cfg)
+    names_shapes = [(n, tuple(t.shape)) for n, t in model.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port state names/shapes differ from the golden file")
+    model.set_state_dict_from_numpy(golden_weights(
+        names_shapes, gold["recipe"]["weights"]["seed"]))
+    ids, labels = golden_data(cfg["vocab_size"], gold["batch"], gold["seq"],
+                              gold["recipe"]["data"]["seed"])
+    wrapped = fused_loss_layer(nn, model, gold["loss"]["fused_head_loss_chunk"])
+    opt = gold["optimizer"]
+    trainer = engine.ParallelTrainer(
+        wrapped, optim.AdamW(opt["learning_rate"],
+                             weight_decay=opt["weight_decay"]),
+        lambda out, _lbl: out)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    loss0 = wrapped(batch)
+    grads = torch.autograd.grad(loss0, list(trainer.params.values()))
+    gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
+    loss0 = loss0.item()
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    losses = [trainer.train_step(batch, 0.0) for _ in gold["losses"]]
+    losses = [x.item() for x in losses]
+    launches = dict(fa.LAUNCHES)
+    n_layers = cfg["num_layers"]
+    check(all(n == n_layers * len(losses) for n in launches.values()),
+          f"flash launches {launches} != {n_layers} per step")
+    check(abs(loss0 - gold["losses"][0]) <= 1e-4 * abs(gold["losses"][0]),
+          f"step-0 loss {loss0} vs golden {gold['losses'][0]}")
+    check(abs(gnorm - gold["step0_grad_norm"]) <=
+          1e-4 * gold["step0_grad_norm"],
+          f"step-0 grad norm {gnorm} vs golden {gold['step0_grad_norm']}")
+    check(abs(losses[0] - gold["losses"][0]) <= 1e-4 * abs(gold["losses"][0]),
+          f"train_step 0 loss {losses[0]} vs golden {gold['losses'][0]}")
+    for i in range(1, len(losses)):
+        check(abs(losses[i] - gold["losses"][i]) <=
+              1e-3 * abs(gold["losses"][i]),
+              f"loss after {i} updates {losses[i]} vs golden "
+              f"{gold['losses'][i]}")
+    return {"loss0": loss0, "grad_norm": gnorm, "losses": losses,
+            "golden_losses": gold["losses"],
+            "golden_grad_norm": gold["step0_grad_norm"],
+            "launches": launches}
+
+
+def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024):
+    """bench.py's fused_b8 variant: GPT-base, bf16 params, AdamW(3e-4),
+    chunked CE (chunk 8192), dropout 0, one fixed batch of random ids."""
+    framework.seed(0)
+    model = gpt.GPTForPretraining(
+        tensor_parallel=False, vocab_size=50304, hidden_size=768,
+        num_layers=12, num_heads=12, max_position_embeddings=seq,
+        attn_dropout=0.0, hidden_dropout=0.0)
+    model.bfloat16()
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = engine.ParallelTrainer(fused_loss_layer(nn, model, 8192),
+                                     optim.AdamW(3e-4), lambda out, _l: out)
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                           .astype(np.int32)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                              .astype(np.int32)).cuda()
+    return trainer, (ids, labels), n_params
+
+
+def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10):
+    """The main path: warm-up, then timed steps synced on the last loss
+    (bench.py's _timed_steps); the flash counts are zeroed just before the
+    timed steps and read just after."""
+    b, s = batch[0].shape
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmup):
+        loss = trainer.train_step(batch, 0.0)
+    float(loss)
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    tuner.FALLBACKS.clear()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        losses.append(trainer.train_step(batch, 0.0))
+    last = float(losses[-1])
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    fallbacks = tuner.FALLBACKS["flash_attention"]
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(last < losses[0], f"loss did not fall: {losses}")
+    check(trainer.skipped_steps() == 0, "the NaN guard skipped a step")
+    check(fallbacks == 0, f"{fallbacks} flash fallbacks")
+    check(all(n == 12 * iters for n in launches.values()),
+          f"flash launches {launches} != 12 per step")
+    tokens = b * s * iters
+    # model FLOPs per token: 6 N (matmuls fwd + bwd) + 6 L S d_model
+    # (causal attention QK^T and PV, fwd + bwd)
+    flops = (6 * n_params + 6 * 12 * s * 768) * tokens
+    return {"batch": b, "seq": s, "timed_steps": iters, "losses": losses,
+            "tokens_per_s": tokens / dt, "ms_per_step": dt / iters * 1e3,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "params": n_params, "model_flops_per_step": flops / iters,
+            "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
+            "launches": launches, "flash_fallbacks": fallbacks,
+            "skipped_steps": 0}
+
+
+def profile_train(trainer, batch, steps=3):
+    """Device busy share and the top device kernels over ``steps`` steps
+    of the main path (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    float(trainer.train_step(batch, 0.0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = trainer.train_step(batch, 0.0)
+        float(loss)
+        wall = time.perf_counter() - t0
+    report, rows = _profile_report(prof, wall)
+    check(rows, "the profiler saw no kernel on the card")
+    groups = {}
+    for us, name, n in rows:
+        if "flash_" in name:
+            key = "flash kernels"
+        elif "sgemm" in name or "f32f32_f32f32" in name:
+            key = "float32 GEMMs (chunked CE)"
+        elif "gemm" in name.lower() or name.startswith("nvjet"):
+            key = "other GEMMs"     # cuBLAS's Hopper GEMMs are nvjet_*
+        else:
+            key = "the rest"
+        ms, launches = groups.get(key, (0.0, 0))
+        groups[key] = (ms + us / 1e3 / steps, launches + n)
+    groups = {k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
+              for k, v in groups.items()}
+    return dict(steps=steps, by_group=groups, **report)
 
 
 def main() -> int:
@@ -262,13 +624,17 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card only")
     sys.path.insert(0, HERE)
+    from paddle_tpu_torch import framework, nn, optimizer as optim
+    from paddle_tpu_torch.distributed import engine
     from paddle_tpu_torch.inference import decode_model as dm
     from paddle_tpu_torch.inference import kv_cache as kvc
     from paddle_tpu_torch.inference import serving
     from paddle_tpu_torch.inference.spec_decode import (
         DraftModelDrafter, NGramDrafter, SpeculativeDecodeServer)
     from paddle_tpu_torch.ops import _build, tuner
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.text.models import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -285,9 +651,11 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    # 2. build (the path has one kernel source)
+    # 2. build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
+    _build.build([os.path.splitext(os.path.basename(s))[0] for s in SOURCES])
     pa.load_kernel()
+    fa.load_kernel()
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln.strip() for ln in i["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -384,7 +752,60 @@ def main() -> int:
     emit(phase="profile", card=card,
          **profile_serving(params, prompts, max_new, dm, kvc, serving))
 
-    # 8. kernels
+    # 8. flash kernels against their plain versions on the card
+    flash_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(s, d, causal, lens, f32, 0.0)
+             for s in (128, 200, 1024) for d in (64, 128)
+             for causal in (True, False) for lens in (None, [s, 37])]
+    cases += [(200, 64, True, [0, 37], f32, 0.0),
+              (200, 64, False, [0, 37], f32, 0.0)]
+    cases += [(s, d, causal, [s, 37], bf16, 0.0)
+              for s in (200, 1024) for d in (64, 128)
+              for causal in (True, False)]
+    cases += [(256, 64, True, None, f32, 0.1),
+              (1024, 64, True, None, bf16, 0.1)]
+    cases = [c + (dict(),) for c in cases]
+    # the main path's call: GPT-base, q/k/v the QKV split's strided views
+    cases.append((1024, 64, True, None, bf16, 0.0,
+                  dict(b=8, h=12, split_qkv=True)))
+    for s, d, causal, lens, dtype, rate, kw in cases:
+        errs = flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate,
+                                 **kw)
+        flash_err["flash_fwd"] = max(flash_err["flash_fwd"], errs["out"],
+                                     errs["lse"], errs["out_autograd"])
+        flash_err["flash_dq"] = max(flash_err["flash_dq"], errs["dq"])
+        flash_err["flash_dkv"] = max(flash_err["flash_dkv"], errs["dk"],
+                                     errs["dv"])
+        emit(phase="flash_parity", s=s, d=d, causal=causal, lens=lens,
+             dtype=str(dtype).split(".")[-1], dropout=rate, **kw,
+             max_abs_err=errs, atol_rtol=FLASH_TOL[dtype][0])
+
+    # 9. flash timing at GPT-base (B=8, H=12, S=1024, D=64, bf16, causal)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ftiming, fextra = flash_timing(fa, flush)
+    del flush
+    for name, t in ftiming.items():
+        emit(phase="flash_timing", card=card, kernel=name, **t)
+    emit(phase="flash_timing_library", card=card, **fextra)
+
+    # 10. GPT-base widths, depth 2, fp32, against the JAX golden losses
+    emit(phase="train_golden", card=card,
+         **train_golden(fa, nn, gpt, engine, optim))
+
+    # 11. the main path: full GPT-base training steps (bench.py fused_b8)
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework)
+    rep = train(fa, tuner, trainer, batch, n_params)
+    train_launches = rep["launches"]
+    emit(phase="train", card=card, **rep)
+
+    # 12. where the time of a GPT-base step goes
+    emit(phase="train_profile", card=card,
+         **profile_train(trainer, batch))
+    del trainer, batch
+
+    # 13. kernels
     kernels = []
     for key, tq in (("decode", 1), ("verify", 32)):
         t = timing[tq]
@@ -395,6 +816,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    for name, t in ftiming.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SRC,
+            "replaces": REPLACES[name], "launches": train_launches[name],
+            "max_abs_err": flash_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{key: t[key] for key in ("bwd_ms", "plain_bwd_ms",
+                                       "library_bwd_ms") if key in t}})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,10 @@ Entry points place their state on the card unless the caller passes
 ``device="cpu"``; without a card they raise.
 
 Ported so far: decode serving on the paged KV cache (``inference``), with
-the paged decode/verify attention kernel.
+the paged decode/verify attention kernel; GPT training on one device
+(``text.models.gpt``, ``nn``, ``optimizer``, ``distributed.engine``,
+``framework.random``), with the flash-attention forward, dq and dk/dv
+kernels.
 """
-__all__ = ["inference", "ops", "telemetry", "resilience"]
+__all__ = ["distributed", "framework", "inference", "nn", "ops",
+           "optimizer", "resilience", "telemetry", "text"]

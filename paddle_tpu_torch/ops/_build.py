@@ -10,8 +10,9 @@ The library name carries a hash of the source, so an edited source is
 never served by a stale build. Builds go to ``paddle_tpu_torch/_build/``
 (git-ignored), from the sources in the checkout only. ``load`` builds what
 is missing and returns the loaded library; the kernel's module keeps it.
-``BUILD_INFO[name]`` keeps each build's wall seconds and ptxas report
-(registers, shared memory, spills).
+``build`` compiles several sources at once, one nvcc process each, all
+started together. ``BUILD_INFO[name]`` keeps each build's wall seconds and
+ptxas report (registers, shared memory, spills).
 """
 from __future__ import annotations
 
@@ -22,9 +23,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
-__all__ = ["BUILD_DIR", "load", "BUILD_INFO"]
+__all__ = ["BUILD_DIR", "build", "load", "BUILD_INFO"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -43,24 +44,43 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Load the library for ``csrc/<name>.cu``, compiling it first if no
-    current build exists. Raises with the compiler's output on failure.
-    The caller serializes calls for one name."""
+def _target(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
-    if not out.exists():
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` that has no current build, all
+    nvcc processes started together, then wait for each. Raises with the
+    compiler's output on the first failure. The caller serializes calls
+    for one name."""
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {res.returncode}):\n{res.stdout}")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, out)
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                            "log": res.stdout}
-    return ctypes.CDLL(str(out))
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load the library for ``csrc/<name>.cu``, compiling it first if no
+    current build exists."""
+    build([name])
+    return ctypes.CDLL(str(_target(name)))

@@ -1,8 +1,14 @@
-"""Shape bucketing and kernel-fallback accounting.
+"""Shape bucketing, the flash-attention rows of the tuning DB, and
+kernel-fallback accounting.
 
-Port of two pieces of ``paddle_tpu/ops/pallas/tuner.py``: ``shape_bucket``
+Port of pieces of ``paddle_tpu/ops/pallas/tuner.py``: ``shape_bucket``
 (the power-of-two bucket axis that keeps the serving batch shapes in a
-closed set) and ``record_fallback``. The tuning DB waits for a later slice.
+closed set), ``flash_dims``, ``resolve`` over the DB's device-generic
+(``"any"``) ``flash_attention`` rows, copied here as data, and
+``record_fallback``. The port needs those rows only for the blocks that
+key the flash kernels' dropout mask (``ops/flash_attention.py``); its own
+CUDA tiling is its own. ``resolve`` answers as the reference does off a
+TPU: a generic row if one matches, else the defaults.
 
 ``record_fallback(kernel)`` is called when a dispatcher sends a shape that
 the kernel's gate rejects to the plain path. It always bumps
@@ -13,11 +19,32 @@ from __future__ import annotations
 
 import collections
 import threading
+from typing import Dict, Tuple
 
-__all__ = ["shape_bucket", "record_fallback", "FALLBACKS"]
+__all__ = ["shape_bucket", "flash_dims", "make_key", "resolve", "DB_ROWS",
+           "record_fallback", "FALLBACKS"]
 
 FALLBACKS: "collections.Counter[str]" = collections.Counter()
 _lock = threading.Lock()
+
+GENERIC_DEVICE = "any"
+
+# the "any"-device flash_attention rows of paddle_tpu/ops/pallas/
+# tuning_db.json: key -> config
+DB_ROWS: Dict[str, Dict[str, int]] = {
+    "flash_attention|any|bfloat16|d64,sk1024,sq1024":
+        {"block_q": 256, "block_k": 512},
+    "flash_attention|any|bfloat16|d64,sk128,sq128":
+        {"block_q": 128, "block_k": 128},
+    "flash_attention|any|bfloat16|d64,sk2048,sq2048":
+        {"block_q": 256, "block_k": 512},
+    "flash_attention|any|float32|d64,sk128,sq128":
+        {"block_q": 128, "block_k": 128},
+    "flash_attention|any|float32|d64,sk256,sq256":
+        {"block_q": 128, "block_k": 128},
+    "flash_attention|any|float32|d64,sk512,sq512":
+        {"block_q": 256, "block_k": 512},
+}
 
 
 def shape_bucket(n: int, floor: int = 128) -> int:
@@ -27,6 +54,34 @@ def shape_bucket(n: int, floor: int = 128) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+def flash_dims(d: int, sq: int, sk: int) -> Dict[str, int]:
+    """Bucketed dims of a flash-attention call: head_dim exact, sq bucketed
+    with floor 1 (decode-shaped calls keep exact keys), sk with floor 128."""
+    return {"d": int(d), "sq": shape_bucket(sq, floor=1),
+            "sk": shape_bucket(sk)}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def make_key(kernel: str, device: str, dtype, dims: Dict[str, int]) -> str:
+    dim_s = ",".join(f"{k}{int(v)}" for k, v in sorted(dims.items()))
+    return f"{kernel}|{device}|{_dtype_name(dtype)}|{dim_s}"
+
+
+def resolve(kernel: str, dtype, dims: Dict[str, int],
+            defaults: Dict[str, int]) -> Tuple[Dict[str, int], str]:
+    """(config, source): the generic DB row for the key ("db"), else
+    ``defaults`` ("default")."""
+    row = DB_ROWS.get(make_key(kernel, GENERIC_DEVICE, dtype, dims))
+    if row is None:
+        return dict(defaults), "default"
+    cfg = dict(defaults)
+    cfg.update(row)
+    return cfg, "db"
 
 
 def record_fallback(kernel: str):

@@ -1,0 +1,148 @@
+"""Optimizers: ``Optimizer``, ``Adam`` and ``AdamW``.
+
+Port of ``paddle_tpu/optimizer/optimizer.py``'s functional core. An
+optimizer is two functions over ``{name: tensor}`` dicts that the trainer
+calls: ``init_state(params)`` and ``apply_gradients(params, grads, state,
+lr) -> (new_params, new_state)``. The math is the reference's:
+
+- grads and params are upcast to float32; the update runs in float32 and
+  the result is cast back to each parameter's dtype (a bfloat16 model
+  keeps bfloat16 weights and no master copy);
+- Adam's moments are stored in ``slot_dtype`` (float32 by default) and
+  updated in float32;
+- AdamW's decoupled decay is ``p - lr * wd * p32`` on the PRE-step float32
+  parameter;
+- the step count is a 0-d int32 tensor on the parameters' device, so bias
+  correction reads no host value.
+
+``torch.optim.AdamW`` is not used: on bfloat16 parameters its math runs in
+bfloat16. The learning rate is a float; ``LRScheduler`` waits for a later
+slice (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .clip import clip_grads
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+
+class Optimizer:
+    _decoupled_wd = False   # True for AdamW-style decoupled decay
+
+    def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, multi_precision=False):
+        # parameters: accepted as the reference takes it; the trainer hands
+        # apply_gradients the parameters by name (no eager step() here)
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                "learning_rate must be a float: LR schedulers wait in "
+                "ROADMAP.md (Queue 1)")
+        self._lr = float(learning_rate)
+        self.regularization = weight_decay
+        self._grad_clip = grad_clip
+
+    def get_lr(self) -> float:
+        return self._lr
+
+    def set_lr(self, value: float):
+        self._lr = float(value)
+
+    def _wd_coeff(self):
+        wd = self.regularization
+        if wd is None:
+            return 0.0, False
+        if isinstance(wd, (int, float)):
+            return float(wd), self._decoupled_wd
+        raise NotImplementedError(
+            "weight_decay must be a float: regularizer objects wait in "
+            "ROADMAP.md (Queue 1)")
+
+    def init_slots(self, value: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def update(self, p, g, slots, lr, step):
+        """Per-parameter float32 update -> (new_p, new_slots)."""
+        raise NotImplementedError
+
+    def init_state(self, params: Dict[str, torch.Tensor]):
+        dev = next(iter(params.values())).device if params else "cpu"
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "slots": {k: self.init_slots(v) for k, v in params.items()}}
+
+    def apply_gradients(self, params: Dict[str, torch.Tensor],
+                        grads: Dict[str, Optional[torch.Tensor]], state,
+                        lr: Optional[float] = None):
+        """(params, grads, state) -> (new_params, new_state); reads and
+        writes no tensor in place."""
+        lr = self.get_lr() if lr is None else float(lr)
+        grads = clip_grads(grads, self._grad_clip)
+        wd, decoupled = self._wd_coeff()
+        step = state["step"] + 1
+        new_params, new_slots = {}, {}
+        for k, p in params.items():
+            g = grads.get(k)
+            if g is None:
+                new_params[k] = p
+                new_slots[k] = state["slots"][k]
+                continue
+            g = g.float()
+            p32 = p.float()
+            if wd and not decoupled:
+                g = g + wd * p32
+            np_, ns = self.update(p32, g, state["slots"][k], lr, step)
+            if wd and decoupled:
+                np_ = np_ - lr * wd * p32
+            new_params[k] = np_.to(p.dtype)
+            new_slots[k] = ns
+        return new_params, {"step": step, "slots": new_slots}
+
+
+class Adam(Optimizer):
+    """slot_dtype: storage dtype of the m/v moments (math is float32)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 slot_dtype=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._slot_dtype = slot_dtype or torch.float32
+
+    def init_slots(self, value):
+        return {"m": torch.zeros(value.shape, dtype=self._slot_dtype,
+                                 device=value.device),
+                "v": torch.zeros(value.shape, dtype=self._slot_dtype,
+                                 device=value.device)}
+
+    def update(self, p, g, slots, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["m"].float() + (1 - b1) * g
+        v = b2 * slots["v"].float() + (1 - b2) * g.square()
+        t = step.float()
+        mhat = m / (1 - torch.pow(b1, t))
+        vhat = v / (1 - torch.pow(b2, t))
+        p = p - lr * mhat / (vhat.sqrt() + self._epsilon)
+        return p, {"m": m.to(self._slot_dtype), "v": v.to(self._slot_dtype)}
+
+
+class AdamW(Adam):
+    """Decoupled weight decay, applied to every parameter."""
+
+    _decoupled_wd = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
+                 multi_precision=False, slot_dtype=None, name=None):
+        if apply_decay_param_fun is not None:
+            raise NotImplementedError(
+                "apply_decay_param_fun waits in ROADMAP.md (Queue 1): every "
+                "parameter decays")
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         slot_dtype, name)

@@ -1,7 +1,7 @@
 """paddle_tpu_torch.telemetry — the metrics registry and its on/off switch.
 
 Port of the parts of ``paddle_tpu/telemetry/__init__.py`` that serving
-uses: ``enable``/``enabled``, ``get_registry`` and the
+and the trainer use: ``enable``/``enabled``, ``get_registry`` and the
 ``counter``/``gauge``/``histogram`` accessors. Instrumentation sites call
 ``enabled()`` first (one module-global read) and touch the registry only
 when it returns True.
@@ -19,7 +19,8 @@ The serving sites record: ``serving_requests_total{outcome}``,
 ``spec_*`` (speculative decoding), ``kernel_fallbacks_total{kernel}``,
 ``resilience_faults_injected_total{kind,site}``, ``spans_recorded_total``,
 ``traces_kept_total{reason}``, ``flight_dumps_total{reason}`` and
-``slo_alerts_total{rule}``.
+``slo_alerts_total{rule}``. The trainer (``distributed/engine.py``)
+records ``step_time_seconds`` and ``tokens_per_sec``.
 
 The JAX package's MFU denominator (a TPU peak) is deliberately not carried
 over: the port states no TPU number as its own.

@@ -8,15 +8,19 @@ card has no JAX), so it runs there without the repository's conftest::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerance: atol = rtol = 1e-4 (float32 math in both versions, sums taken
-in different orders; bfloat16 pools are upcast exactly by both).
+in different orders; bfloat16 pools are upcast exactly by both). The flash
+kernels' bfloat16 cases: 2e-2 (one bfloat16 rounding of each output).
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import framework
 from paddle_tpu_torch.inference import decode_model as dm
 from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -102,3 +106,138 @@ def test_decode_server_on_card_matches_oracle(cuda_device):
                 == dm.dense_generate(params, p, 6)
         assert srv.accounted()
     assert pa.LAUNCHES["decode"] > n0["decode"]
+
+
+# -- flash attention: forward, dq and dk/dv kernels ---------------------------
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _flash_inputs(dev, s, d, dtype, b=2, h=4, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.as_tensor(rs.randn(b, s, h, d).astype(np.float32),
+                            device=dev).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (s, d, causal, lens, torch.float32, 0.0)
+    for s in (128, 200, 1024) for d in (64, 128) for causal in (True, False)
+    for lens in (None, "s37")] + [
+    (200, 64, True, [0, 37], torch.float32, 0.0),
+    (200, 128, True, "s37", torch.bfloat16, 0.0),
+    (1024, 64, False, "s37", torch.bfloat16, 0.0),
+    (256, 64, True, None, torch.float32, 0.1),
+    (1024, 64, True, None, torch.bfloat16, 0.1)])
+def test_flash_kernels_match_plain(cuda_device, case):
+    s, d, causal, lens, dtype, rate = case
+    q, k, v, do = _flash_inputs(cuda_device, s, d, dtype, seed=s + d)
+    if lens == "s37":
+        lens = [s, 37]
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda_device)
+    blocks = fa.keying_blocks(dtype, d, s, s)
+    n0 = dict(fa.LAUNCHES)
+    qg, kg, vg = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(qg, kg, vg, causal=causal, kv_lens=ln,
+                             dropout_rate=rate, dropout_seed=7)
+    out.backward(do)
+    _, lse = fa.flash_attention_fwd(q, k, v, ln, 7, None, causal, rate,
+                                    blocks)
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, ln, 7, None,
+                                                    causal, rate, blocks)
+    ref = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, ln, 7,
+                                       None, causal, rate, blocks)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": n0["flash_fwd"] + 2,
+                           "flash_dq": n0["flash_dq"] + 1,
+                           "flash_dkv": n0["flash_dkv"] + 1}
+    for g, r in zip((out, lse, qg.grad, kg.grad, vg.grad),
+                    (ref_out, ref_lse, *ref)):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(), **FLASH_TOL[dtype])
+    if lens is not None and 0 in lens:
+        row = lens.index(0)       # no visible key: out 0, lse 0, no K/V grad
+        assert out[row].abs().max().item() == 0.0
+        assert lse[row].abs().max().item() == 0.0
+        assert kg.grad[row].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_on_the_qkv_split(cuda_device):
+    """The main path's call: GPT-base (B=8, H=12, S=1024, D=64), bf16,
+    causal, no kv_lens, no dropout; q, k and v are the strided views that
+    GPTAttention's per-head QKV split makes, read by the kernels in place."""
+    b, s, h, d = 8, 1024, 12, 64
+    rs = np.random.RandomState(1)
+    qkv = torch.as_tensor(rs.randn(b, s, h, 3 * d).astype(np.float32),
+                          device=cuda_device).to(torch.bfloat16)
+    do = torch.as_tensor(rs.randn(b, s, h, d).astype(np.float32),
+                         device=cuda_device).to(torch.bfloat16)
+    q, k, v = torch.split(qkv, d, dim=-1)
+    assert not q.is_contiguous() and q.stride(2) == 3 * d
+    qkv_g = qkv.clone().requires_grad_()
+    n0 = dict(fa.LAUNCHES)
+    out = fa.flash_attention(*torch.split(qkv_g, d, dim=-1), causal=True)
+    (grad,) = torch.autograd.grad(out, (qkv_g,), do)
+    blocks = fa.keying_blocks(q.dtype, d, s, s)
+    _, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, True, 0.0, blocks)
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, None, 0, None,
+                                                    True, 0.0, blocks)
+    ref = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, None, 0,
+                                       None, True, 0.0, blocks)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": n0["flash_fwd"] + 2,
+                           "flash_dq": n0["flash_dq"] + 1,
+                           "flash_dkv": n0["flash_dkv"] + 1}
+    for g, r in zip((out, lse, *torch.split(grad, d, dim=-1)),
+                    (ref_out, ref_lse, *ref)):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, do = _flash_inputs(cuda_device, 128, 64, torch.float32)
+    with pytest.raises(ValueError):            # a CPU tensor among CUDA ones
+        fa.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, q, torch.zeros(2, 4, 128,
+                                                       device=cuda_device),
+                               do.cpu())
+    q96, k96, v96, _ = _flash_inputs(cuda_device, 128, 96, torch.float32)
+    with pytest.raises(ValueError):            # head_dim the kernels lack
+        fa.flash_attention(q96, k96, v96)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, dropout_rate=-0.5)
+    with pytest.raises(ValueError):            # mixed dtypes
+        fa.flash_attention_fwd(q, k.to(torch.bfloat16), v)
+    assert fa.flash_supported(q, k) and not fa.flash_supported(q96, k96)
+
+
+@pytest.mark.cuda
+def test_sdpa_dropout_runs_the_kernel_with_a_device_seed(cuda_device):
+    """The GPT attention path on the card: the gate sends S >= 512 to the
+    kernels, whose dropout seed is drawn on the card's generator; re-seeding
+    reproduces it, and the plain version with that seed agrees."""
+    q, k, v, _ = _flash_inputs(cuda_device, 512, 64, torch.float32)
+    n0 = dict(fa.LAUNCHES)
+    framework.seed(3)
+    out = scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                       is_causal=True)
+    framework.seed(3)
+    seed = framework.draw_seed(cuda_device)
+    again = scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                         is_causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 2
+    assert not torch.equal(out, again)      # the generator moved on
+    blocks = fa.keying_blocks(q.dtype, 64, 512, 512)
+    ref, _ = fa.flash_attention_plain_fwd(q, k, v, None, int(seed), None,
+                                          True, 0.1, blocks)
+    torch.testing.assert_close(out, ref, **FLASH_TOL[torch.float32])
+    undropped = scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                             is_causal=True, training=False)
+    assert not torch.equal(out, undropped)

@@ -88,6 +88,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError):
         dm.make_step_fn(params, cache)
     assert cache.k.device.type == "cpu"
+    from paddle_tpu_torch.distributed.engine import ParallelTrainer
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelTrainer(Linear(4, 4), AdamW(1e-3), lambda out, _: out.sum())
+    trainer = ParallelTrainer(Linear(4, 4), AdamW(1e-3),
+                              lambda out, _: out.sum(), device="cpu")
+    assert trainer.get_param("weight").device.type == "cpu"
 
 
 def _run_smoke(cwd):
