@@ -13,11 +13,17 @@ per source, all started together), then:
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
 - training: holds the three flash-attention kernels (forward, dq, dk/dv)
-  against their plain versions and times them at GPT-base; trains GPT-base
-  widths at depth 2 in float32 against the JAX reference's golden losses
-  (``paddle_tpu_torch/testdata/gpt_train_golden.json``); then runs the
-  main path, full GPT-base training steps in bfloat16 (bench.py's
-  ``fused_b8``), and profiles three of them.
+  and the three fused-CE kernels (forward, dh, dw) against their plain
+  versions and times them at GPT-base; trains GPT-base widths at depth 2
+  in float32 against the JAX reference's golden losses
+  (``paddle_tpu_torch/testdata/gpt_train_golden.json``) through the three
+  routes of the head loss (chunked CE, fused CE kernels, dense logits +
+  ``cross_entropy``); runs full GPT-base training steps in bfloat16,
+  bench.py's ``fused_b8`` (chunked CE) and this slice's main path
+  ``fused_b8_pallas_ce`` (the fused CE kernels), profiling three steps of
+  each; then bench.py's other single-card variants (``dense_b8``,
+  ``fused_b32``, ``fused_b32_remat``, and ``fused_b8`` with gradient merge
+  over two chunks).
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -52,16 +58,26 @@ H100_BF16_FLOPS = 989e12         # bf16 dense tensor cores
 
 SRC = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
-SOURCES = (SRC, FLASH_SRC)
+CE_SRC = "paddle_tpu_torch/csrc/fused_ce.cu"
+SOURCES = (SRC, FLASH_SRC, CE_SRC)
 REPLACES = {"decode": "paddle_tpu/ops/pallas/paged_attention.py:141",
             "verify": "paddle_tpu/ops/pallas/paged_attention.py:191",
             "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:102",
             "flash_dq": "paddle_tpu/ops/pallas/flash_attention.py:205",
-            "flash_dkv": "paddle_tpu/ops/pallas/flash_attention.py:247"}
+            "flash_dkv": "paddle_tpu/ops/pallas/flash_attention.py:247",
+            "ce_fwd": "paddle_tpu/ops/pallas/fused_ce.py:59",
+            "ce_dh": "paddle_tpu/ops/pallas/fused_ce.py:109",
+            "ce_dw": "paddle_tpu/ops/pallas/fused_ce.py:138"}
 # flash kernel vs plain: float32 math in both, sums in other orders
 # (float32); one bfloat16 rounding of each output (bfloat16)
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 FLASH_SEED = 7
+# fused-CE kernel vs plain, as errors normalized by the plain tensor's
+# largest magnitude (the 1/denom factor makes dh and dw small): float32
+# math in both (float32), one bfloat16 rounding of each output (bfloat16);
+# lse and tgt are float32 in both: atol 1e-4
+CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+CE_STAT_ATOL = 1e-4
 
 
 def emit(**kw):
@@ -434,6 +450,138 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
                  "sdpa_fwd_bwd_ms": lib_fwdbwd, "plain_bwd_ms": plain_bwd}
 
 
+# ---------------------------------------------------------------------------
+# fused LM-head cross entropy: forward, dh and dw kernels
+# ---------------------------------------------------------------------------
+
+def ce_inputs(rs, n, h, v, dtype, ignore, transposed):
+    """hid (n, h), w (h, v) (the .T view of a (v, h) tensor when
+    ``transposed``, as the tied head gives it), labels with a share
+    ``ignore`` of -100, and the backward's scale g * valid / denom."""
+    dev = "cuda"
+    hid = torch.as_tensor(rs.randn(n, h).astype(np.float32),
+                          device=dev).to(dtype)
+    w = torch.as_tensor((rs.randn(v, h) * 0.05).astype(np.float32),
+                        device=dev).to(dtype)
+    w = w.T if transposed else w.T.contiguous()
+    lbl = rs.randint(0, v, n)
+    lbl[rs.rand(n) < ignore] = -100
+    lbl = torch.as_tensor(lbl, device=dev)
+    valid = (lbl != -100).float()
+    return hid, w, lbl, valid / valid.sum().clamp(min=1.0)
+
+
+def ce_parity_case(fc, hid, w, lbl, scale):
+    """Each kernel against its plain version on the same inputs; returns
+    the max abs and normalized errors per kernel output."""
+    lse, tgt = fc.ce_fwd(hid, w, lbl)
+    ref_lse, ref_tgt = fc.fused_ce_plain_fwd(hid, w, lbl)
+    dh = fc.ce_dh(hid, w, lbl, ref_lse, scale)
+    dw = fc.ce_dw(hid, w, lbl, ref_lse, scale)
+    ref_dh = fc.fused_ce_plain_dh(hid, w, lbl, ref_lse, scale)
+    ref_dw = fc.fused_ce_plain_dw(hid, w, lbl, ref_lse, scale)
+    torch.cuda.synchronize()
+    check(dh.dtype == hid.dtype and dw.dtype == w.dtype and
+          dw.shape == w.shape, "dh/dw dtype or shape")
+    tol = CE_TOL[hid.dtype]
+    errs = {}
+    for name, g, r in (("lse", lse, ref_lse), ("tgt", tgt, ref_tgt),
+                       ("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        g, r = g.float(), r.float()
+        check(torch.isfinite(g).all().item(), f"kernel {name} not finite")
+        err = (g - r).abs().max().item()
+        norm = err / max(r.abs().max().item(), 1e-30)
+        errs[name] = {"abs": err, "norm": norm}
+        if name in ("lse", "tgt"):
+            check(err <= CE_STAT_ATOL, f"ce {name}: max err {err}")
+        else:
+            check(norm <= tol, f"ce {name}: normalized err {norm} > {tol}")
+    ignored = lbl == -100
+    if ignored.any():
+        check(dh[ignored].abs().max().item() == 0.0,
+              "ignored rows have a nonzero dh")
+    return errs
+
+
+def ce_main_inputs(model_seed=0):
+    """The main path's head call: GPT-base, 8 x 1024 tokens of hidden
+    states, labels from the train phase's recipe, w the tied embedding's
+    (768, 50304) .T view."""
+    n, h, v = 8 * 1024, 768, 50304
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(model_seed)
+    emb = (torch.randn(v, h, device="cuda", generator=gen) * 0.02).to(
+        torch.bfloat16)
+    hid = torch.randn(n, h, device="cuda", generator=gen).to(torch.bfloat16)
+    rs = np.random.RandomState(0)
+    rs.randint(0, v, (8, 1024))                  # the recipe's ids
+    lbl = torch.from_numpy(rs.randint(0, v, (8, 1024)).astype(np.int32)
+                           ).cuda().reshape(-1)
+    scale = torch.full((n,), 1.0 / n, device="cuda")
+    return hid, emb.T, lbl, scale
+
+
+def ce_timing(fc, chunked_ce, flush):
+    """Each kernel and its plain version at the main path's call, with
+    each kernel's bound on this card; the whole function four ways: the
+    port's kernels, its chunked CE, its plain versions and the library
+    (cuBLAS bf16 hid @ w + F.cross_entropy)."""
+    hid, w, lbl, scale = ce_main_inputs()
+    n, h = hid.shape
+    v = w.shape[1]
+    lse, _ = fc.ce_fwd(hid, w, lbl)
+    ms = {"ce_fwd": time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush),
+          "ce_dh": time_ms(lambda: fc.ce_dh(hid, w, lbl, lse, scale),
+                           flush=flush),
+          "ce_dw": time_ms(lambda: fc.ce_dw(hid, w, lbl, lse, scale),
+                           flush=flush)}
+    plain = {"ce_fwd": time_ms(lambda: fc.fused_ce_plain_fwd(hid, w, lbl),
+                               reps=5, flush=flush),
+             "ce_dh": time_ms(lambda: fc.fused_ce_plain_dh(
+                 hid, w, lbl, lse, scale), reps=5, flush=flush),
+             "ce_dw": time_ms(lambda: fc.fused_ce_plain_dw(
+                 hid, w, lbl, lse, scale), reps=5, flush=flush)}
+    hg = hid.clone().requires_grad_()
+    wg = w.T.clone().requires_grad_()            # the embedding, (V, H)
+
+    def fwd_bwd(loss_fn):
+        def run():
+            loss = loss_fn(hg, wg.T)
+            torch.autograd.grad(loss, (hg, wg))
+        return run
+
+    fused = lambda a, b: fc.fused_lm_ce(a, b, lbl)  # noqa: E731
+    chunk = lambda a, b: chunked_ce.chunked_lm_ce(a, b, lbl)  # noqa: E731
+    lib = lambda a, b: torch.nn.functional.cross_entropy(  # noqa: E731
+        a @ b, lbl.long())
+    whole = {
+        "fused_fwd_ms": time_ms(lambda: fused(hid, w), flush=flush),
+        "fused_fwd_bwd_ms": time_ms(fwd_bwd(fused), flush=flush),
+        "chunked_fwd_ms": time_ms(lambda: chunk(hid, w), reps=5,
+                                  flush=flush),
+        "chunked_fwd_bwd_ms": time_ms(fwd_bwd(chunk), reps=5, flush=flush),
+        "library_fwd_ms": time_ms(lambda: lib(hid, w), flush=flush),
+        "library_fwd_bwd_ms": time_ms(fwd_bwd(lib), flush=flush)}
+    e = hid.element_size()
+    stats = n * 4                                # one (N,) float32 vector
+    work = {"ce_fwd": (2 * n * h * v, (n * h + h * v) * e + stats + 2 * stats),
+            "ce_dh": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
+                      n * h * e),
+            "ce_dw": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
+                      h * v * e)}
+    res = {}
+    for name, (flops, moved) in work.items():
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = moved / H100_BYTES_PER_S * 1e3
+        res[name] = {
+            "ms": ms[name], "flops": flops, "bytes": moved,
+            "plain_ms": plain[name], "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / ms[name] / 1e9, **whole}
+    return res
+
+
 def golden_weights(names_shapes, seed):
     """The golden file's weight recipe (tests/torch_gpt_train_golden.py):
     every parameter in state_dict order from one RandomState(seed);
@@ -457,7 +605,7 @@ def golden_data(vocab, batch, seq, seed):
     return ids, labels
 
 
-def fused_loss_layer(nn, model, chunk):
+def fused_loss_layer(nn, model, chunk, ce_kernel="chunked"):
     """(ids, labels) -> loss Layer around ``fused_head_loss``, as bench.py
     wraps the model for ParallelTrainer."""
     class FusedLoss(nn.Layer):
@@ -468,14 +616,16 @@ def fused_loss_layer(nn, model, chunk):
         def forward(self, batch):
             ids, lbl = batch
             return self.inner.fused_head_loss(ids, lbl, chunk=chunk,
-                                              ce_kernel="chunked")
+                                              ce_kernel=ce_kernel)
 
     return FusedLoss(model)
 
 
-def train_golden(fa, nn, gpt, engine, optim):
+def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     """GPT-base widths at depth 2, fp32: step-0 loss and grad norm, then
-    four train_step losses, against the JAX package's golden file."""
+    four train_step losses, against the JAX package's golden file. head:
+    the chunked CE, the fused CE kernels ("pallas") or the dense logits +
+    ``cross_entropy`` ("dense"): one loss, three routes."""
     with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
                            "gpt_train_golden.json")) as f:
         gold = json.load(f)
@@ -490,25 +640,37 @@ def train_golden(fa, nn, gpt, engine, optim):
         names_shapes, gold["recipe"]["weights"]["seed"]))
     ids, labels = golden_data(cfg["vocab_size"], gold["batch"], gold["seq"],
                               gold["recipe"]["data"]["seed"])
-    wrapped = fused_loss_layer(nn, model, gold["loss"]["fused_head_loss_chunk"])
     opt = gold["optimizer"]
-    trainer = engine.ParallelTrainer(
-        wrapped, optim.AdamW(opt["learning_rate"],
-                             weight_decay=opt["weight_decay"]),
-        lambda out, _lbl: out)
-    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
-    loss0 = wrapped(batch)
+    opt = optim.AdamW(opt["learning_rate"], weight_decay=opt["weight_decay"])
+    ids, labels = torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda()
+    if head == "dense":
+        trainer = engine.ParallelTrainer(
+            model, opt,
+            lambda logits, lbl: nn.functional.cross_entropy(logits, lbl))
+        inputs, lbls = ids, labels
+        loss0 = nn.functional.cross_entropy(model(ids), labels)
+    else:
+        wrapped = fused_loss_layer(
+            nn, model, gold["loss"]["fused_head_loss_chunk"], ce_kernel=head)
+        trainer = engine.ParallelTrainer(wrapped, opt, lambda out, _lbl: out)
+        inputs, lbls = (ids, labels), 0.0
+        loss0 = wrapped(inputs)
     grads = torch.autograd.grad(loss0, list(trainer.params.values()))
     gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
     loss0 = loss0.item()
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
-    losses = [trainer.train_step(batch, 0.0) for _ in gold["losses"]]
+    for counts in (fa.LAUNCHES, fc.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    losses = [trainer.train_step(inputs, lbls) for _ in gold["losses"]]
     losses = [x.item() for x in losses]
     launches = dict(fa.LAUNCHES)
+    ce_launches = dict(fc.LAUNCHES)
     n_layers = cfg["num_layers"]
     check(all(n == n_layers * len(losses) for n in launches.values()),
           f"flash launches {launches} != {n_layers} per step")
+    want_ce = len(losses) if head == "pallas" else 0
+    check(all(n == want_ce for n in ce_launches.values()),
+          f"fused CE launches {ce_launches} != {want_ce} ({head})")
     check(abs(loss0 - gold["losses"][0]) <= 1e-4 * abs(gold["losses"][0]),
           f"step-0 loss {loss0} vs golden {gold['losses'][0]}")
     check(abs(gnorm - gold["step0_grad_norm"]) <=
@@ -521,15 +683,19 @@ def train_golden(fa, nn, gpt, engine, optim):
               1e-3 * abs(gold["losses"][i]),
               f"loss after {i} updates {losses[i]} vs golden "
               f"{gold['losses'][i]}")
-    return {"loss0": loss0, "grad_norm": gnorm, "losses": losses,
-            "golden_losses": gold["losses"],
+    return {"head": head, "loss0": loss0, "grad_norm": gnorm,
+            "losses": losses, "golden_losses": gold["losses"],
             "golden_grad_norm": gold["step0_grad_norm"],
-            "launches": launches}
+            "launches": launches, "ce_launches": ce_launches}
 
 
-def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024):
-    """bench.py's fused_b8 variant: GPT-base, bf16 params, AdamW(3e-4),
-    chunked CE (chunk 8192), dropout 0, one fixed batch of random ids."""
+def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
+                     head="chunked", **trainer_kw):
+    """bench.py's GPT-base variants: bf16 params, AdamW(3e-4), dropout 0,
+    one fixed batch of random ids. head: "chunked" (fused_b*: chunked CE,
+    chunk 8192), "pallas" (fused_b8_pallas_ce: the fused CE kernels) or
+    "dense" (dense_b*: logits + cross_entropy). Returns (trainer, (inputs,
+    labels), n_params)."""
     framework.seed(0)
     model = gpt.GPTForPretraining(
         tensor_parallel=False, vocab_size=50304, hidden_size=768,
@@ -537,43 +703,64 @@ def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024):
         attn_dropout=0.0, hidden_dropout=0.0)
     model.bfloat16()
     n_params = sum(p.numel() for p in model.parameters())
-    trainer = engine.ParallelTrainer(fused_loss_layer(nn, model, 8192),
-                                     optim.AdamW(3e-4), lambda out, _l: out)
     rs = np.random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
                            .astype(np.int32)).cuda()
     labels = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
                               .astype(np.int32)).cuda()
-    return trainer, (ids, labels), n_params
+    if head == "dense":
+        trainer = engine.ParallelTrainer(
+            model, optim.AdamW(3e-4),
+            lambda logits, lbl: nn.functional.cross_entropy(logits, lbl),
+            **trainer_kw)
+        return trainer, (ids, labels), n_params
+    trainer = engine.ParallelTrainer(
+        fused_loss_layer(nn, model, 8192, ce_kernel=head), optim.AdamW(3e-4),
+        lambda out, _l: out, **trainer_kw)
+    return trainer, ((ids, labels), 0.0), n_params
 
 
-def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10):
-    """The main path: warm-up, then timed steps synced on the last loss
-    (bench.py's _timed_steps); the flash counts are zeroed just before the
-    timed steps and read just after."""
-    b, s = batch[0].shape
+def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
+    """A GPT-base run: warm-up, then timed steps synced on the last loss
+    (bench.py's _timed_steps); the flash (and, given ``fc``, fused-CE)
+    counts are zeroed just before the timed steps and read just after.
+    ``batch`` is (inputs, labels) as ``gpt_base_trainer`` returns it."""
+    inputs, lbls = batch
+    ids = inputs[0] if isinstance(inputs, tuple) else inputs
+    b, s = ids.shape
     torch.cuda.reset_peak_memory_stats()
     for _ in range(warmup):
-        loss = trainer.train_step(batch, 0.0)
+        loss = trainer.train_step(inputs, lbls)
     float(loss)
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
+    counts = [fa.LAUNCHES] + ([fc.LAUNCHES] if fc is not None else [])
+    for c in counts:
+        for key in c:
+            c[key] = 0
     tuner.FALLBACKS.clear()
     losses = []
     t0 = time.perf_counter()
     for _ in range(iters):
-        losses.append(trainer.train_step(batch, 0.0))
+        losses.append(trainer.train_step(inputs, lbls))
     last = float(losses[-1])
     dt = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    ce_launches = dict(fc.LAUNCHES) if fc is not None else {}
     fallbacks = tuner.FALLBACKS["flash_attention"]
+    ce_fallbacks = tuner.FALLBACKS["fused_ce"]
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(last < losses[0], f"loss did not fall: {losses}")
     check(trainer.skipped_steps() == 0, "the NaN guard skipped a step")
     check(fallbacks == 0, f"{fallbacks} flash fallbacks")
-    check(all(n == 12 * iters for n in launches.values()),
-          f"flash launches {launches} != 12 per step")
+    check(ce_fallbacks == 0, f"{ce_fallbacks} fused_ce fallbacks")
+    per_step = 12 * trainer.accumulate_steps      # layers x chunks
+    # remat runs each forward twice: once in the step, once in backward
+    want = {"flash_fwd": per_step * (2 if trainer.remat else 1),
+            "flash_dq": per_step, "flash_dkv": per_step}
+    check(launches == {k: n * iters for k, n in want.items()},
+          f"flash launches {launches} != {want} per step")
+    check(all(n == iters for n in ce_launches.values()),
+          f"fused CE launches {ce_launches} != 1 per step")
     tokens = b * s * iters
     # model FLOPs per token: 6 N (matmuls fwd + bwd) + 6 L S d_model
     # (causal attention QK^T and PV, fwd + bwd)
@@ -584,20 +771,22 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10):
                 torch.cuda.max_memory_allocated() / 2 ** 30,
             "params": n_params, "model_flops_per_step": flops / iters,
             "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
-            "launches": launches, "flash_fallbacks": fallbacks,
+            "launches": launches, "ce_launches": ce_launches,
+            "flash_fallbacks": fallbacks, "fused_ce_fallbacks": ce_fallbacks,
             "skipped_steps": 0}
 
 
 def profile_train(trainer, batch, steps=3):
     """Device busy share and the top device kernels over ``steps`` steps
-    of the main path (torch.profiler)."""
+    of a GPT-base run (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
-    float(trainer.train_step(batch, 0.0))
+    inputs, lbls = batch
+    float(trainer.train_step(inputs, lbls))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            loss = trainer.train_step(batch, 0.0)
+            loss = trainer.train_step(inputs, lbls)
         float(loss)
         wall = time.perf_counter() - t0
     report, rows = _profile_report(prof, wall)
@@ -606,6 +795,9 @@ def profile_train(trainer, batch, steps=3):
     for us, name, n in rows:
         if "flash_" in name:
             key = "flash kernels"
+        elif "ce_fwd_kernel" in name or "ce_dh_kernel" in name or \
+                "ce_dw_kernel" in name:
+            key = "fused CE kernels"
         elif "sgemm" in name or "f32f32_f32f32" in name:
             key = "float32 GEMMs (chunked CE)"
         elif "gemm" in name.lower() or name.startswith("nvjet"):
@@ -631,8 +823,9 @@ def main() -> int:
     from paddle_tpu_torch.inference import serving
     from paddle_tpu_torch.inference.spec_decode import (
         DraftModelDrafter, NGramDrafter, SpeculativeDecodeServer)
-    from paddle_tpu_torch.ops import _build, tuner
+    from paddle_tpu_torch.ops import _build, chunked_ce, tuner
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.text.models import gpt
 
@@ -656,6 +849,7 @@ def main() -> int:
     _build.build([os.path.splitext(os.path.basename(s))[0] for s in SOURCES])
     pa.load_kernel()
     fa.load_kernel()
+    fc.load_kernel()
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln.strip() for ln in i["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -789,23 +983,103 @@ def main() -> int:
         emit(phase="flash_timing", card=card, kernel=name, **t)
     emit(phase="flash_timing_library", card=card, **fextra)
 
-    # 10. GPT-base widths, depth 2, fp32, against the JAX golden losses
-    emit(phase="train_golden", card=card,
-         **train_golden(fa, nn, gpt, engine, optim))
+    # 10. fused-CE kernels against their plain versions on the card
+    ce_err = {k: {"abs": 0.0, "norm": 0.0} for k in ("ce_fwd", "ce_dh",
+                                                     "ce_dw")}
+    cases = [(shape, dtype, ignore, transposed)
+             for shape in ((128, 64, 512), (200, 32, 500), (1000, 768, 50304))
+             for dtype in (f32, bf16) for ignore in (0.0, 0.3, 1.0)
+             for transposed in (False, True)]
+    cases += [((300, 2048, 5000), bf16, 0.3, True),
+              ((300, 2048, 5000), f32, 0.3, False)]
+    # the last: the main path's own call (labels from the train recipe)
+    cases.append(("main path", bf16, 0.0, True))
+    for shape, dtype, ignore, transposed in cases:
+        args = ce_main_inputs() if shape == "main path" else \
+            ce_inputs(rs, *shape, dtype, ignore, transposed)
+        errs = ce_parity_case(fc, *args)
+        for key, outs in (("ce_fwd", ("lse", "tgt")), ("ce_dh", ("dh",)),
+                          ("ce_dw", ("dw",))):
+            for o in outs:
+                for m in ("abs", "norm"):
+                    ce_err[key][m] = max(ce_err[key][m], errs[o][m])
+        emit(phase="ce_parity", shape=shape, dtype=str(dtype).split(".")[-1],
+             ignore=ignore, transposed=transposed, errors=errs,
+             tol=CE_TOL[dtype], stat_atol=CE_STAT_ATOL)
+    del args
 
-    # 11. the main path: full GPT-base training steps (bench.py fused_b8)
+    # 11. fused-CE timing at the main path's call (N = 8192, H = 768,
+    # V = 50304, bf16, w the tied embedding's .T view)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ctiming = ce_timing(fc, chunked_ce, flush)
+    del flush
+    for name, t in ctiming.items():
+        emit(phase="ce_timing", card=card, kernel=name, **t)
+
+    # 12. GPT-base widths, depth 2, fp32, against the JAX golden losses,
+    # through the three routes of the head loss
+    for head in ("chunked", "pallas", "dense"):
+        emit(phase="train_golden", card=card,
+             **train_golden(fa, fc, nn, gpt, engine, optim, head))
+
+    # 13. full GPT-base training steps, bench.py fused_b8 (chunked CE)
     trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
                                                 framework)
     rep = train(fa, tuner, trainer, batch, n_params)
     train_launches = rep["launches"]
+    fused_b8_losses = rep["losses"]
     emit(phase="train", card=card, **rep)
 
-    # 12. where the time of a GPT-base step goes
+    # 14. where the time of a GPT-base step goes
     emit(phase="train_profile", card=card,
          **profile_train(trainer, batch))
     del trainer, batch
 
-    # 13. kernels
+    # 15. this slice's main path: bench.py fused_b8_pallas_ce, the head
+    # loss on the fused CE kernels
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    rep = train(fa, tuner, trainer, batch, n_params, fc=fc)
+    ce_launches = rep["ce_launches"]
+    emit(phase="train_fused_ce", card=card, **rep)
+    prof = profile_train(trainer, batch)
+    groups = prof["by_group"]
+    check("fused CE kernels" in groups, "the profiler saw no fused CE kernel")
+    f32_gemm = groups.get("float32 GEMMs (chunked CE)", {}).get(
+        "ms_per_step", 0.0)
+    check(f32_gemm < 1.0, f"float32 GEMMs left on the fused path: "
+          f"{f32_gemm} ms per step")
+    emit(phase="train_fused_ce_profile", card=card, **prof)
+    del trainer, batch
+
+    # 16. bench.py's other single-card variants, 2 warm-up + 3 timed steps
+    variants = {}
+    for name, kw in (("dense_b8", dict(head="dense")),
+                     ("fused_b32", dict(batch=32)),
+                     ("fused_b32_remat", dict(batch=32, remat=True)),
+                     ("fused_b8_accumulate2", dict(accumulate_steps=2))):
+        trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                    framework, **kw)
+        rep = train(fa, tuner, trainer, batch, n_params, iters=3)
+        variants[name] = rep
+        emit(phase="train_variants", card=card, variant=name, **rep)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    remat, b32 = variants["fused_b32_remat"], variants["fused_b32"]
+    check(np.allclose(remat["losses"], b32["losses"], rtol=1e-2),
+          f"remat losses {remat['losses']} vs {b32['losses']}")
+    # the reference checkpoints the whole model call, so the backward
+    # recomputes every activation before it frees any: the peak can only
+    # match the plain step's, not fall below it
+    check(remat["max_memory_allocated_gb"] <=
+          b32["max_memory_allocated_gb"] + 0.01,
+          "remat raised peak memory")
+    acc = variants["fused_b8_accumulate2"]
+    check(np.allclose(acc["losses"], fused_b8_losses[:3], rtol=1e-2),
+          f"gradient-merge losses {acc['losses']} vs fused_b8 "
+          f"{fused_b8_losses[:3]}")
+
+    # 17. kernels
     kernels = []
     for key, tq in (("decode", 1), ("verify", 32)):
         t = timing[tq]
@@ -825,6 +1099,16 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in ("bwd_ms", "plain_bwd_ms",
                                        "library_bwd_ms") if key in t}})
+    for name, t in ctiming.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": CE_SRC,
+            "replaces": REPLACES[name], "launches": ce_launches[name],
+            "max_abs_err": ce_err[name]["abs"],
+            "max_norm_err": ce_err[name]["norm"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{key: t[key] for key in t if key.endswith("fwd_ms") or
+               key.endswith("fwd_bwd_ms")}})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@ Entry points place their state on the card unless the caller passes
 
 Ported so far: decode serving on the paged KV cache (``inference``), with
 the paged decode/verify attention kernel; GPT training on one device
-(``text.models.gpt``, ``nn``, ``optimizer``, ``distributed.engine``,
+(``text.models.gpt``, ``nn``, ``optimizer`` with its LR schedulers,
+``regularizer``, ``distributed.engine`` with remat and gradient merge,
 ``framework.random``), with the flash-attention forward, dq and dk/dv
-kernels.
+kernels and the fused LM-head cross-entropy forward, dh and dw kernels.
 """
 __all__ = ["distributed", "framework", "inference", "nn", "ops",
-           "optimizer", "resilience", "telemetry", "text"]
+           "optimizer", "regularizer", "resilience", "telemetry", "text"]

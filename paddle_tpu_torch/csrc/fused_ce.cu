@@ -1,0 +1,767 @@
+// Fused LM-head cross entropy for Hopper (sm_90a): forward (lse, target
+// logit), dh and dw, with plain C entry points loaded through ctypes
+// (paddle_tpu_torch/ops/fused_ce.py).
+//
+// Replaces paddle_tpu/ops/pallas/fused_ce.py: _ce_fwd_kernel (forward),
+// _ce_bwd_dh_kernel (dh) and _ce_bwd_dw_kernel (dw).
+//
+// What each computes, with hid (N, H) contiguous, w (H, V) read through its
+// element strides (sh, sv) (the tied head is the (V, H) embedding's .T view,
+// sh = 1), labels (N,) int32, inputs float32 or bfloat16, logits float32:
+//   forward  logits = hid @ w over vocab tiles; online logsumexp
+//            (m, s, alpha rescaling); lse = m + log(s, with s == 0 read as
+//            1); tgt = the label's logit, 0 for a label outside [0, V)
+//            (ignore_index included). lse, tgt: (N,) float32.
+//   dh       dl = (exp(logits - lse) - onehot(label)) * scale;
+//            dh = dl @ w^T, (N, H) in hid's dtype.
+//   dw       dw = hid^T @ dl, written as its transpose, a contiguous (V, H)
+//            buffer in w's dtype (the wrapper hands back the (H, V) view).
+// scale = g * valid / max(#valid, 1) comes from the caller, as the
+// reference's host epilogue computes it; ignored and padded rows have
+// scale 0 and give exact zeros. Columns >= V are masked as the reference's
+// finite NEG_INF columns are: they enter no max, no sum and no pick.
+//
+// Design. The TPU kernels keep a (block_tokens, H) or (H, block_vocab)
+// float32 sum in VMEM (768 KB and 6 MB at GPT-base with the DB's 256/2048
+// blocks); a Hopper block has 227 KB. So the sums shrink along the other
+// axis: the dh block owns 32 tokens (16 above H = 1024) against all of H and
+// loops over every vocab tile; the dw block owns 32 vocab rows (16 above
+// H = 1024) against all of H and loops over every token block. Each
+// (token, vocab) logit is recomputed once per kernel, as in the reference;
+// the sums live in shared memory, each element owned by one thread and
+// summed in one fixed order: no atomics, bit-reproducible runs.
+//
+// Every operand tile is staged in shared memory in the inputs' dtype (zero
+// past the edges), 256 threads per block. The products are warp tiles of
+// 16 rows: on bfloat16 inputs each 16x8x16 step is one mma.sync.m16n8k16
+// bf16 with float32 accumulation, its fragments read straight from shared
+// memory as bf16 pairs. hid and w are bfloat16, so every product hid*w is
+// exact and the logits are the reference's up to summation order. The
+// float32 dl of the gradient products is stored as two bfloat16 terms
+// (hi = bf16(dl), lo = bf16(dl - hi), two MMAs, about 16 bits of dl). On
+// float32 inputs the same steps run as float32 FMAs (no TF32 anywhere).
+//
+// Bound on this card: the operations, 2*N*H*V for the forward and 4*N*H*V
+// for each gradient kernel (logits recomputed, then the product), against
+// the bf16 tensor-core rate. This first design issues mma.sync, one block
+// of 8 warps per SM, with the next chunk's global loads held in registers
+// while the current chunk computes (one stage of prefetch): no wgmma, no
+// TMA, no shared-memory ring. What holds it back is the operand traffic:
+// each block re-reads w for every token block and hid for every vocab tile
+// (and dh/dw read their gradient product's B operand a second time), a few
+// tens of operations per byte, where the tensor cores need hundreds. Tiles
+// that keep operands resident, and a deeper load pipeline, are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNegInf = -1e30f;
+constexpr int HC = 64;        // H chunk of a gradient product
+constexpr int FWD_BT = 64;    // forward: tokens per block
+constexpr int FWD_BV = 128;   // forward: vocab tile
+constexpr int DH_BV = 128;    // dh: vocab tile (tokens per block 32 or 16)
+constexpr int DW_BT = 64;     // dw: token tile (vocab rows per block 32 or 16)
+constexpr size_t kSmemLimit = 232448;
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+// H chunk of a logits product: 64 bf16 or 32 float32 (128 bytes a row)
+template <typename T>
+__host__ __device__ constexpr int kc() {
+  return is_bf16<T>() ? 64 : 32;
+}
+// row stride of a staged tile of width w: 8 more elements, so that the
+// rows of a fragment fall in different banks
+__host__ __device__ constexpr int ld_of(int w) { return w + 8; }
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int padded_h(int H) {
+  return (H + HC - 1) / HC * HC + 8;  // stride of the float32 sums
+}
+
+struct Params {
+  const void* hid;     // (N, H) contiguous
+  const void* w;       // (H, V), element strides sh, sv
+  long long sh, sv;
+  const int* lbl;      // (N,)
+  float* lse;          // (N,): written by the forward, read by the backward
+  float* tgt;          // (N,): forward
+  const float* scale;  // (N,): backward
+  void* out;           // dh (N, H) or dw^T (V, H)
+  int N, H, V;
+};
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T>
+struct PairOf;
+template <>
+struct PairOf<float> {
+  using P = float2;
+  __device__ static P make(float a, float b) { return make_float2(a, b); }
+  __device__ static float zero() { return 0.f; }
+};
+template <>
+struct PairOf<__nv_bfloat16> {
+  using P = __nv_bfloat162;
+  __device__ static P make(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __halves2bfloat162(a, b);
+  }
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16(0.f); }
+};
+
+__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+// two bf16 as one register, the lower k index in the low half
+__device__ __forceinline__ unsigned pack16(__nv_bfloat16 lo,
+                                           __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k step of 16 of a warp's product: acc[j] (16 rows, columns
+// 8j..8j+7) += A (16 x 16) B (16 x 8). A is row-major [m][k] at a (stride
+// lda); B is [n][k] (kNK) or [k][n] at b (stride ldb). The accumulator
+// layout is mma.sync's: lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8, columns 2t and 2t + 1. bf16: tensor-core MMAs, fragments read as
+// bf16 pairs; kSplit adds a second A (a2, the lo half of a split float32
+// operand) against the same B. float32: FMAs into the same layout.
+template <typename T, int NT, bool kNK, bool kSplit>
+__device__ __forceinline__ void kstep(float (&acc)[NT][4], const T* a,
+                                      const T* a2, int lda, const T* b,
+                                      int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (is_bf16<T>()) {
+    unsigned hi[4], lo[4];
+    hi[0] = ld32(a + g * lda + 2 * t);
+    hi[1] = ld32(a + (g + 8) * lda + 2 * t);
+    hi[2] = ld32(a + g * lda + 2 * t + 8);
+    hi[3] = ld32(a + (g + 8) * lda + 2 * t + 8);
+    if constexpr (kSplit) {
+      lo[0] = ld32(a2 + g * lda + 2 * t);
+      lo[1] = ld32(a2 + (g + 8) * lda + 2 * t);
+      lo[2] = ld32(a2 + g * lda + 2 * t + 8);
+      lo[3] = ld32(a2 + (g + 8) * lda + 2 * t + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      unsigned b0, b1;
+      if constexpr (kNK) {
+        const T* bj = b + (8 * j + g) * ldb + 2 * t;
+        b0 = ld32(bj);
+        b1 = ld32(bj + 8);
+      } else {
+        const T* bj = b + 2 * t * ldb + 8 * j + g;
+        b0 = pack16(bj[0], bj[ldb]);
+        b1 = pack16(bj[8 * ldb], bj[9 * ldb]);
+      }
+      mma_bf16(acc[j], hi, b0, b1);
+      if constexpr (kSplit) mma_bf16(acc[j], lo, b0, b1);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < 16; ++k) {
+      const float a0 = a[g * lda + k], a1 = a[(g + 8) * lda + k];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + 2 * t;
+        const float b0 = kNK ? b[n * ldb + k] : b[k * ldb + n];
+        const float b1 = kNK ? b[(n + 1) * ldb + k] : b[k * ldb + n + 1];
+        acc[j][0] = fmaf(a0, b0, acc[j][0]);
+        acc[j][1] = fmaf(a0, b1, acc[j][1]);
+        acc[j][2] = fmaf(a1, b0, acc[j][2]);
+        acc[j][3] = fmaf(a1, b1, acc[j][3]);
+      }
+    }
+  }
+}
+
+// One operand tile, staged in two halves so that its global loads overlap
+// the previous tile's products: fetch() loads src[(i0 + i) * si +
+// (j0 + j) * sj] for i < I, j < J into registers, pairs along j (zero where
+// i0 + i >= ni or j0 + j >= nj); put() stores them to dst[i * ld + j]. Where
+// sj is the unit stride a pair is one load, and a warp walks j first;
+// otherwise it walks i first (si the unit stride) and loads each element.
+template <typename T, int I, int J>
+struct Stage {
+  using PO = PairOf<T>;
+  using P = typename PO::P;
+  static constexpr int JP = J / 2;
+  static_assert(J % 2 == 0 && (I * JP) % kThreads == 0, "stage shape");
+  static constexpr int PER = I * JP / kThreads;
+  P v[PER];
+  bool i_fast;
+
+  __device__ __forceinline__ void fetch(const T* src, long long si,
+                                        long long sj, int i0, int ni, int j0,
+                                        int nj) {
+    i_fast = sj != 1;
+    const T z = PO::zero();
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int i = i_fast ? e % I : e / JP;
+      const int j = 2 * (i_fast ? e / I : e % JP);
+      const int gi = i0 + i, gj = j0 + j;
+      if (gi < ni) {
+        const T* q = src + gi * si + gj * sj;
+        if (!i_fast && gj + 1 < nj &&
+            reinterpret_cast<uintptr_t>(q) % sizeof(P) == 0)
+          v[u] = *reinterpret_cast<const P*>(q);
+        else
+          v[u] = PO::make(gj < nj ? q[0] : z, gj + 1 < nj ? q[sj] : z);
+      } else {
+        v[u] = PO::make(z, z);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void put(T* dst, int ld) const {
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int i = i_fast ? e % I : e / JP;
+      const int j = 2 * (i_fast ? e / I : e % JP);
+      *reinterpret_cast<P*>(dst + i * ld + j) = v[u];
+    }
+  }
+};
+
+// warp tiling of a (BT x BV) tile: BT/16 warp rows
+template <int BT, int BV>
+struct Tile {
+  static constexpr int MW = BT / 16;
+  static constexpr int NW = kWarps / MW;
+  static constexpr int NT = BV / NW / 8;   // n tiles of 8 per warp
+  static_assert(MW * NW == kWarps && NT * NW * 8 == BV, "tile shape");
+};
+
+// The staged operands of one logits tile: hid rows x an H chunk, and w
+// columns x the same chunk (read through w's strides), both [row][k].
+template <typename T, int BT, int BV>
+struct LogitsStage {
+  Stage<T, BT, kc<T>()> hid;
+  Stage<T, BV, kc<T>()> w;
+
+  __device__ __forceinline__ void fetch(const Params& p, int t0, int v0,
+                                        int k0) {
+    hid.fetch(static_cast<const T*>(p.hid), p.H, 1, t0, p.N, k0, p.H);
+    w.fetch(static_cast<const T*>(p.w), p.sv, p.sh, v0, p.V, k0, p.H);
+  }
+};
+
+// logits of tokens [t0, t0 + BT) x vocab [v0, v0 + BV) into the warp's
+// accumulators (Tile's layout). st holds this tile's first H chunk,
+// fetched; on return it holds the first chunk of the tile at (nt0, nv0)
+// when has_next.
+template <typename T, int BT, int BV>
+__device__ __forceinline__ void logits_tile(float (&acc)[Tile<BT, BV>::NT][4],
+                                            LogitsStage<T, BT, BV>& st,
+                                            T* hid_s, T* w_s, const Params& p,
+                                            int t0, int v0, bool has_next,
+                                            int nt0, int nv0) {
+  using L = Tile<BT, BV>;
+  constexpr int KC = kc<T>(), KS = ld_of(KC);
+  const int wi = threadIdx.x >> 5;
+  const int r0 = (wi / L::NW) * 16, c0 = (wi % L::NW) * L::NT * 8;
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int k0 = 0; k0 < p.H; k0 += KC) {
+    __syncthreads();  // the previous chunk's readers are done
+    st.hid.put(hid_s, KS);
+    st.w.put(w_s, KS);
+    __syncthreads();
+    if (k0 + KC < p.H)
+      st.fetch(p, t0, v0, k0 + KC);  // in flight while this chunk computes
+    else if (has_next)
+      st.fetch(p, nt0, nv0, 0);
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 16)
+      kstep<T, L::NT, true, false>(acc, hid_s + r0 * KS + ks, nullptr, KS,
+                                   w_s + c0 * KS + ks, KS);
+  }
+}
+
+// d loss / d logit of one logit x at (row, vocab column v)
+__device__ __forceinline__ float dlogit(float x, int v, int V, float lse,
+                                        int lbl, float scale) {
+  if (v >= V) return 0.f;  // a masked column: p = 0, never the label
+  const float pr = x > kNegInf * 0.5f ? expf(x - lse) : 0.f;
+  return (pr - (v == lbl ? 1.f : 0.f)) * scale;
+}
+
+// dl as the gradient product's A operand: bf16 hi and lo halves, or
+// float32 as it is (lo unused)
+template <typename T>
+__device__ __forceinline__ void put_dl(T* hi, T* lo, int i, float x) {
+  if constexpr (is_bf16<T>()) {
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    hi[i] = h;
+    lo[i] = __float2bfloat16_rn(x - __bfloat162float(h));
+  } else {
+    hi[i] = x;
+  }
+}
+
+// per-row inputs of the backward for tokens [t0, t0 + rows): zero scale
+// (and no label) past N
+__device__ __forceinline__ void load_stats(float* lse_s, float* sc_s,
+                                           int* lbl_s, const Params& p, int t0,
+                                           int rows) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const bool in = t0 + r < p.N;
+    lse_s[r] = in ? p.lse[t0 + r] : 0.f;
+    sc_s[r] = in ? p.scale[t0 + r] : 0.f;
+    lbl_s[r] = in ? p.lbl[t0 + r] : -1;
+  }
+}
+
+// the (rows x HC) chunk [h0, h0 + HC) of float32 sums at acc_s (stride HP)
+// in and out of a warp's mma layout
+template <int NT>
+__device__ __forceinline__ void sums_in(float (&c)[NT][4], const float* acc_s,
+                                        int HP, int r2, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+    const float2 lo = *reinterpret_cast<const float2*>(
+        &acc_s[(r2 + g) * HP + col]);
+    const float2 hi = *reinterpret_cast<const float2*>(
+        &acc_s[(r2 + g + 8) * HP + col]);
+    c[j][0] = lo.x;
+    c[j][1] = lo.y;
+    c[j][2] = hi.x;
+    c[j][3] = hi.y;
+  }
+}
+template <int NT>
+__device__ __forceinline__ void sums_out(const float (&c)[NT][4],
+                                         float* acc_s, int HP, int r2,
+                                         int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(&acc_s[(r2 + g) * HP + col]) =
+        make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(&acc_s[(r2 + g + 8) * HP + col]) =
+        make_float2(c[j][2], c[j][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// shared-memory layouts (bytes), one per kernel
+// ---------------------------------------------------------------------------
+template <typename T>
+struct FwdSmem {
+  static constexpr int KS = ld_of(kc<T>()), SS = FWD_BV + 8;
+  __host__ __device__ static constexpr size_t hid() {
+    return align16(sizeof(T) * FWD_BT * KS);
+  }
+  __host__ __device__ static constexpr size_t w() {
+    return align16(sizeof(T) * FWD_BV * KS);
+  }
+  __host__ __device__ static constexpr size_t bytes() {
+    return hid() + w() + sizeof(float) * FWD_BT * SS;
+  }
+};
+
+// dh and dw share one shape: a logits tile of BT tokens x BV vocab, a dl
+// tile (two bf16 halves or one float32 array) as the gradient product's A,
+// a staged B chunk, the float32 sums of R rows against all of H, and the
+// per-token statistics
+template <typename T, int BT, int BV, int DL_ROWS, int DL_COLS, int B_ROWS,
+          int R, int STATS>
+struct BwdSmem {
+  static constexpr int KS = ld_of(kc<T>()), DS = ld_of(DL_COLS),
+                       BS = ld_of(HC);
+  static constexpr int ND = is_bf16<T>() ? 2 : 1;
+  __host__ __device__ static constexpr size_t hid() {
+    return align16(sizeof(T) * BT * KS);
+  }
+  __host__ __device__ static constexpr size_t w() {
+    return align16(sizeof(T) * BV * KS);
+  }
+  __host__ __device__ static constexpr size_t dl() {
+    return align16(sizeof(T) * DL_ROWS * DS);
+  }
+  __host__ __device__ static constexpr size_t bop() {
+    return align16(sizeof(T) * B_ROWS * BS);
+  }
+  __host__ __device__ static constexpr size_t sums(int H) {
+    return align16(sizeof(float) * R * static_cast<size_t>(padded_h(H)));
+  }
+  __host__ __device__ static constexpr size_t bytes(int H) {
+    return hid() + w() + ND * dl() + bop() + sums(H) + 3 * 4 * STATS;
+  }
+};
+// dh: BT tokens; dl [BT][DH_BV]; w chunk [DH_BV v][HC h]; sums [BT][H]
+template <typename T, int BT>
+using DhSmem = BwdSmem<T, BT, DH_BV, BT, DH_BV, DH_BV, BT, BT>;
+// dw: BV vocab rows; dl^T [BV][DW_BT]; hid chunk [DW_BT t][HC h];
+// sums [BV][H]
+template <typename T, int BV>
+using DwSmem = BwdSmem<T, DW_BT, BV, BV, DW_BT, DW_BT, BV, DW_BT>;
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ce_fwd_kernel(const Params p) {
+  constexpr int BT = FWD_BT, BV = FWD_BV;
+  using L = Tile<BT, BV>;
+  using S = FwdSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* hid_s = reinterpret_cast<T*>(smem);
+  T* w_s = reinterpret_cast<T*>(smem + S::hid());
+  float* s_s = reinterpret_cast<float*>(smem + S::hid() + S::w());
+
+  const int t0 = blockIdx.x * BT;
+  const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (wi / L::NW) * 16, c0 = (wi % L::NW) * L::NT * 8;
+  // TPR consecutive threads (lanes of one warp) own a row's running
+  // statistics
+  constexpr int TPR = kThreads / BT;
+  static_assert(TPR <= 32 && (TPR & (TPR - 1)) == 0, "threads per row");
+  const int row = threadIdx.x / TPR, q = threadIdx.x % TPR;
+  const int grow = t0 + row;
+  const int lbl = grow < p.N ? p.lbl[grow] : -1;
+  float m = kNegInf, s = 0.f, tg = 0.f;
+
+  LogitsStage<T, BT, BV> st;
+  st.fetch(p, t0, 0, 0);
+  for (int v0 = 0; v0 < p.V; v0 += BV) {
+    float acc[L::NT][4];
+    // its first barrier also orders the last tile's readers of s_s
+    logits_tile<T, BT, BV>(acc, st, hid_s, w_s, p, t0, v0, v0 + BV < p.V,
+                           t0, v0 + BV);
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s_s[(r0 + g + 8 * (e >> 1)) * S::SS + c0 + 8 * j + 2 * t + (e & 1)] =
+            acc[j][e];
+    __syncthreads();
+
+    float mx = kNegInf;
+    for (int c = q; c < BV; c += TPR)
+      if (v0 + c < p.V) mx = fmaxf(mx, s_s[row * S::SS + c]);
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    const float m_new = fmaxf(m, mx);
+    float ps = 0.f, th = 0.f;
+    for (int c = q; c < BV; c += TPR) {
+      const int v = v0 + c;
+      if (v < p.V) {
+        const float x = s_s[row * S::SS + c];
+        if (x > kNegInf * 0.5f) ps += expf(x - m_new);
+        if (v == lbl) th += x;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) {
+      ps += __shfl_xor_sync(kFull, ps, o);
+      th += __shfl_xor_sync(kFull, th, o);
+    }
+    s = expf(m - m_new) * s + ps;  // NEG_INF start -> alpha 0
+    m = m_new;
+    tg += th;
+  }
+  if (q == 0 && grow < p.N) {
+    p.lse[grow] = m + logf(s == 0.f ? 1.f : s);
+    p.tgt[grow] = tg;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dh: one block per BT tokens against all of H, looping over vocab tiles
+// ---------------------------------------------------------------------------
+template <typename T, int BT>
+__global__ void __launch_bounds__(kThreads) ce_dh_kernel(const Params p) {
+  constexpr int BV = DH_BV;
+  using L = Tile<BT, BV>;
+  using L2 = Tile<BT, HC>;   // the (BT x HC) chunks of dh
+  using S = DhSmem<T, BT>;
+  constexpr bool kSplit = is_bf16<T>();
+  const int HP = padded_h(p.H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* at = smem;
+  T* hid_s = reinterpret_cast<T*>(at);
+  T* w_s = reinterpret_cast<T*>(at += S::hid());
+  T* dhi_s = reinterpret_cast<T*>(at += S::w());      // [BT][DS]
+  T* dlo_s = reinterpret_cast<T*>(at += (S::ND - 1) * S::dl());
+  T* wv_s = reinterpret_cast<T*>(at += S::dl());      // [BV v][BS]: w chunk
+  float* acc_s = reinterpret_cast<float*>(at += S::bop());  // [BT][HP]
+  float* lse_s = reinterpret_cast<float*>(at += S::sums(p.H));
+  float* sc_s = lse_s + BT;
+  int* lbl_s = reinterpret_cast<int*>(sc_s + BT);
+
+  const int t0 = blockIdx.x * BT;
+  const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (wi / L::NW) * 16, c0 = (wi % L::NW) * L::NT * 8;
+  const int r2 = (wi / L2::NW) * 16, c2 = (wi % L2::NW) * L2::NT * 8;
+  const T* w = static_cast<const T*>(p.w);
+  for (int e = threadIdx.x; e < BT * HP; e += kThreads) acc_s[e] = 0.f;
+  load_stats(lse_s, sc_s, lbl_s, p, t0, BT);
+
+  LogitsStage<T, BT, BV> st;
+  Stage<T, BV, HC> sw;   // w[h0.., v0..] as [v][h], the dh product's B
+  st.fetch(p, t0, 0, 0);
+  for (int v0 = 0; v0 < p.V; v0 += BV) {
+    float acc[L::NT][4];
+    sw.fetch(w, p.sv, p.sh, v0, p.V, 0, p.H);
+    logits_tile<T, BT, BV>(acc, st, hid_s, w_s, p, t0, v0, v0 + BV < p.V,
+                           t0, v0 + BV);
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + 8 * j + 2 * t + (e & 1);
+        put_dl(dhi_s, dlo_s, r * S::DS + c,
+               dlogit(acc[j][e], v0 + c, p.V, lse_s[r], lbl_s[r], sc_s[r]));
+      }
+    for (int h0 = 0; h0 < p.H; h0 += HC) {
+      __syncthreads();  // dl written; the last chunk's readers of wv_s done
+      sw.put(wv_s, S::BS);
+      __syncthreads();
+      if (h0 + HC < p.H) sw.fetch(w, p.sv, p.sh, v0, p.V, h0 + HC, p.H);
+      float c[L2::NT][4];
+      sums_in(c, acc_s, HP, r2, h0 + c2);
+#pragma unroll
+      for (int ks = 0; ks < BV; ks += 16)
+        kstep<T, L2::NT, false, kSplit>(
+            c, dhi_s + r2 * S::DS + ks, dlo_s + r2 * S::DS + ks, S::DS,
+            wv_s + ks * S::BS + c2, S::BS);
+      sums_out(c, acc_s, HP, r2, h0 + c2);
+    }
+  }
+  __syncthreads();
+  T* dh = static_cast<T*>(p.out);
+  for (int e = threadIdx.x; e < BT * p.H; e += kThreads) {
+    const int r = e / p.H, h = e % p.H;
+    if (t0 + r < p.N)
+      store(dh + static_cast<long long>(t0 + r) * p.H + h, acc_s[r * HP + h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dw: one block per BV vocab rows against all of H, looping over tokens
+// ---------------------------------------------------------------------------
+template <typename T, int BV>
+__global__ void __launch_bounds__(kThreads) ce_dw_kernel(const Params p) {
+  constexpr int BT = DW_BT;
+  using L = Tile<BT, BV>;
+  using L2 = Tile<BV, HC>;   // the (BV x HC) chunks of dw^T
+  using S = DwSmem<T, BV>;
+  constexpr bool kSplit = is_bf16<T>();
+  const int HP = padded_h(p.H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* at = smem;
+  T* hid_s = reinterpret_cast<T*>(at);
+  T* w_s = reinterpret_cast<T*>(at += S::hid());
+  T* dhi_s = reinterpret_cast<T*>(at += S::w());      // [BV][DS]: dl^T
+  T* dlo_s = reinterpret_cast<T*>(at += (S::ND - 1) * S::dl());
+  T* ht_s = reinterpret_cast<T*>(at += S::dl());      // [BT t][BS]: hid chunk
+  float* acc_s = reinterpret_cast<float*>(at += S::bop());  // [BV][HP]
+  float* lse_s = reinterpret_cast<float*>(at += S::sums(p.H));
+  float* sc_s = lse_s + BT;
+  int* lbl_s = reinterpret_cast<int*>(sc_s + BT);
+
+  const int v0 = blockIdx.x * BV;
+  const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (wi / L::NW) * 16, c0 = (wi % L::NW) * L::NT * 8;
+  const int r2 = (wi / L2::NW) * 16, c2 = (wi % L2::NW) * L2::NT * 8;
+  const T* hid = static_cast<const T*>(p.hid);
+  for (int e = threadIdx.x; e < BV * HP; e += kThreads) acc_s[e] = 0.f;
+
+  LogitsStage<T, BT, BV> st;
+  Stage<T, BT, HC> sh;   // hid[t0.., h0..] as [t][h], the dw product's B
+  st.fetch(p, 0, v0, 0);
+  for (int t0 = 0; t0 < p.N; t0 += BT) {
+    __syncthreads();  // the last block's readers of the stats and dl done
+    load_stats(lse_s, sc_s, lbl_s, p, t0, BT);
+    float acc[L::NT][4];
+    sh.fetch(hid, p.H, 1, t0, p.N, 0, p.H);
+    logits_tile<T, BT, BV>(acc, st, hid_s, w_s, p, t0, v0, t0 + BT < p.N,
+                           t0 + BT, v0);
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1), c = c0 + 8 * j + 2 * t + (e & 1);
+        put_dl(dhi_s, dlo_s, c * S::DS + r,
+               dlogit(acc[j][e], v0 + c, p.V, lse_s[r], lbl_s[r], sc_s[r]));
+      }
+    for (int h0 = 0; h0 < p.H; h0 += HC) {
+      __syncthreads();  // dl written; the last chunk's readers of ht_s done
+      sh.put(ht_s, S::BS);
+      __syncthreads();
+      if (h0 + HC < p.H) sh.fetch(hid, p.H, 1, t0, p.N, h0 + HC, p.H);
+      float c[L2::NT][4];
+      sums_in(c, acc_s, HP, r2, h0 + c2);
+#pragma unroll
+      for (int ks = 0; ks < BT; ks += 16)
+        kstep<T, L2::NT, false, kSplit>(
+            c, dhi_s + r2 * S::DS + ks, dlo_s + r2 * S::DS + ks, S::DS,
+            ht_s + ks * S::BS + c2, S::BS);
+      sums_out(c, acc_s, HP, r2, h0 + c2);
+    }
+  }
+  __syncthreads();
+  T* dwt = static_cast<T*>(p.out);
+  for (int e = threadIdx.x; e < BV * p.H; e += kThreads) {
+    const int r = e / p.H, h = e % p.H;
+    if (v0 + r < p.V)
+      store(dwt + static_cast<long long>(v0 + r) * p.H + h, acc_s[r * HP + h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+cudaError_t launch(void (*kernel)(const Params), int blocks, size_t smem,
+                   const Params& p, cudaStream_t stream) {
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+enum Which { kFwd = 0, kDh = 1, kDw = 2 };
+
+template <typename T>
+cudaError_t dispatch(Which w, const Params& p, cudaStream_t s) {
+  if (w == kFwd)
+    return launch(ce_fwd_kernel<T>, (p.N + FWD_BT - 1) / FWD_BT,
+                  FwdSmem<T>::bytes(), p, s);
+  if (w == kDh) {
+    if (DhSmem<T, 32>::bytes(p.H) <= kSmemLimit)
+      return launch(ce_dh_kernel<T, 32>, (p.N + 31) / 32,
+                    DhSmem<T, 32>::bytes(p.H), p, s);
+    return launch(ce_dh_kernel<T, 16>, (p.N + 15) / 16,
+                  DhSmem<T, 16>::bytes(p.H), p, s);
+  }
+  if (DwSmem<T, 32>::bytes(p.H) <= kSmemLimit)
+    return launch(ce_dw_kernel<T, 32>, (p.V + 31) / 32,
+                  DwSmem<T, 32>::bytes(p.H), p, s);
+  return launch(ce_dw_kernel<T, 16>, (p.V + 15) / 16,
+                DwSmem<T, 16>::bytes(p.H), p, s);
+}
+
+template <typename T>
+int max_hidden() {
+  int h = HC;
+  while (DhSmem<T, 16>::bytes(h + HC) <= kSmemLimit &&
+         DwSmem<T, 16>::bytes(h + HC) <= kSmemLimit)
+    h += HC;
+  return h;
+}
+
+int run(Which w, Params& p, int bf16, void* stream) {
+  if (p.N <= 0 || p.H <= 0 || p.V <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? dispatch<__nv_bfloat16>(w, p, s) : dispatch<float>(w, p, s);
+  return static_cast<int>(e);
+}
+
+Params make(const void* hid, const void* w, long long sh, long long sv,
+            const void* lbl, int N, int H, int V) {
+  Params p = {};
+  p.hid = hid;
+  p.w = w;
+  p.sh = sh;
+  p.sv = sv;
+  p.lbl = static_cast<const int*>(lbl);
+  p.N = N;
+  p.H = H;
+  p.V = V;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns 0 on success, else the cudaError_t of the refused launch.
+// hid (N, H) contiguous; w (H, V) with element strides sh (along H) and sv
+// (along V); labels (N,) int32; bf16: 0 for float32 inputs, 1 for bfloat16
+// (hid and w of one dtype).
+int fused_ce_fwd(const void* hid, const void* w, long long sh, long long sv,
+                 const void* lbl, void* lse, void* tgt, int N, int H, int V,
+                 int bf16, void* stream) {
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = static_cast<float*>(lse);
+  p.tgt = static_cast<float*>(tgt);
+  return run(kFwd, p, bf16, stream);
+}
+
+// dh (N, H) in the inputs' dtype
+int fused_ce_dh(const void* hid, const void* w, long long sh, long long sv,
+                const void* lbl, const void* lse, const void* scale, void* dh,
+                int N, int H, int V, int bf16, void* stream) {
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.scale = static_cast<const float*>(scale);
+  p.out = dh;
+  return run(kDh, p, bf16, stream);
+}
+
+// dw^T (V, H) contiguous in the inputs' dtype
+int fused_ce_dw(const void* hid, const void* w, long long sh, long long sv,
+                const void* lbl, const void* lse, const void* scale, void* dwt,
+                int N, int H, int V, int bf16, void* stream) {
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.scale = static_cast<const float*>(scale);
+  p.out = dwt;
+  return run(kDw, p, bf16, stream);
+}
+
+// the largest H (a multiple of 64) whose float32 sums fit a block's shared
+// memory, for bfloat16 (bf16 = 1) or float32 inputs
+int fused_ce_max_hidden(int bf16) {
+  return bf16 ? max_hidden<__nv_bfloat16>() : max_hidden<float>();
+}
+
+const char* fused_ce_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

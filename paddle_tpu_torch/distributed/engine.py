@@ -18,11 +18,31 @@ model (and makes the optimizer state) on its device and updates the
 parameters in place, where the reference keeps donated copies. A
 parameter that gets no gradient is left as it was.
 
+Two knobs of the reference's single-device step:
+
+- ``remat=True`` runs the model call under
+  ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` and keeps only
+  its output, as the reference wraps it in ``jax.checkpoint``. The port's
+  dropout masks and flash dropout seeds come from its own per-device
+  generator (``framework/random.py``), which ``checkpoint`` does not
+  restore; :class:`_RngReplay` puts that generator back to its state at
+  the forward for the recompute, then returns it to where the step had
+  left it, so the recompute draws the same masks and seeds.
+- ``accumulate_steps=K`` (gradient merge) splits every input and label
+  tensor along dim 0 into K sequential chunks, runs forward and backward
+  per chunk, and averages the losses and the gradients, as the reference
+  does; a batch that does not divide by K raises ``ValueError``. The
+  reference splits one dropout key K ways; here the chunks draw one after
+  another from the device generator, so each chunk gets fresh masks.
+
+``train_step(lr=None)`` takes ``optimizer.get_lr()``, an ``LRScheduler``'s
+value when the optimizer has one.
+
 ``device=None`` means the card; without one the trainer raises unless
 ``device="cpu"`` is passed. Data parallelism (``mesh``), ``grad_sync``
-policies other than fp32, ZeRO (``zero_stage``), pipeline micro-batches,
-remat, gradient merge (``accumulate_steps``) and loss scaling (``scaler``)
-wait in ``ROADMAP.md`` (Queue 1) and raise ``NotImplementedError``.
+policies other than fp32, ZeRO (``zero_stage``), pipeline micro-batches
+and loss scaling (``scaler``) wait in ``ROADMAP.md`` (Queue 1) and raise
+``NotImplementedError``.
 
 With telemetry on, each step records ``step_time_seconds`` (wall time
 synced on the device) and ``tokens_per_sec`` (the lead input's first two
@@ -36,9 +56,11 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import telemetry as _telemetry
 from .._device import resolve_device
+from ..framework.random import get_generator
 from ..resilience.guard import all_finite
 
 __all__ = ["ParallelTrainer"]
@@ -73,6 +95,40 @@ def _lead(x):
     return None
 
 
+def _split(x, k):
+    """Every tensor of ``x`` (nested tuples/lists) with a leading dim cut
+    into ``k`` chunks along dim 0 -> a list of ``k`` such structures; other
+    leaves are repeated."""
+    if isinstance(x, torch.Tensor) and x.dim() > 0:
+        return list(torch.chunk(x, k, dim=0))
+    if isinstance(x, (tuple, list)):
+        parts = [_split(v, k) for v in x]
+        return [type(x)(p[i] for p in parts) for i in range(k)]
+    return [x] * k
+
+
+class _RngReplay:
+    """Wraps the model call checkpointed by remat: the first call records
+    the device generator's state; the recompute runs from that state and
+    then gives the generator back the state it found."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.gen = get_generator(device)
+        self.state = None
+
+    def __call__(self, *args):
+        if self.state is None:
+            self.state = self.gen.get_state()
+            return self.fn(*args)
+        now = self.gen.get_state()
+        self.gen.set_state(self.state)
+        try:
+            return self.fn(*args)
+        finally:
+            self.gen.set_state(now)
+
+
 class ParallelTrainer:
     """model: a Layer; optimizer: an ``Optimizer``; loss_fn(outputs, labels)
     -> scalar."""
@@ -95,10 +151,9 @@ class ParallelTrainer:
                    "data parallelism over torch.distributed")
         if micro_batches > 1:
             _waits(f"micro_batches={micro_batches}", "pipeline parallelism")
-        if remat:
-            _waits("remat=True", "remat")
-        if accumulate_steps > 1:
-            _waits(f"accumulate_steps={accumulate_steps}", "gradient merge")
+        if accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got "
+                             f"{accumulate_steps}")
         if scaler is not None:
             _waits("a loss scaler", "AMP GradScaler")
         self.device = resolve_device(device)
@@ -106,6 +161,8 @@ class ParallelTrainer:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.nan_guard = nan_guard
+        self.remat = bool(remat)
+        self.accumulate_steps = int(accumulate_steps)
         self.params = OrderedDict((n, p) for n, p in model.named_parameters()
                                   if p.requires_grad)
         self.opt_state = optimizer.init_state(
@@ -116,14 +173,30 @@ class ParallelTrainer:
                    grad_taint: Optional[float] = None) -> torch.Tensor:
         """One step; returns the 0-d loss on the device (no host sync
         unless telemetry is on)."""
+        lr = self.optimizer.get_lr() if lr is None else lr
+        k = self.accumulate_steps
         tel = _telemetry.enabled()
         t0 = time.perf_counter() if tel else 0.0
         inputs = _to_device(inputs, self.device)
         labels = _to_device(labels, self.device)
-        loss = self.loss_fn(self.model(inputs), labels)
+        lead = _lead(inputs)
+        if k > 1 and lead is not None and lead.dim() and lead.shape[0] % k:
+            raise ValueError(f"batch size {lead.shape[0]} is not divisible "
+                             f"by accumulate_steps={k}")
         names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[n] for n in names],
-                                    allow_unused=True)
+        if k > 1:
+            # gradient merge: the mean of K sequential chunks' losses and
+            # gradients (the reference sums l_i / K, then the grads / K)
+            loss, grads = 0.0, None
+            for ins, lbs in zip(_split(inputs, k), _split(labels, k)):
+                l_i, g_i = self._grads(names, ins, lbs)
+                loss = loss + l_i / k
+                grads = g_i if grads is None else [
+                    a if b is None else (b if a is None else a + b)
+                    for a, b in zip(grads, g_i)]
+            grads = [None if g is None else g / k for g in grads]
+        else:
+            loss, grads = self._grads(names, inputs, labels)
         grads = dict(zip(names, grads))
         if grad_taint is not None and names and grads[names[0]] is not None:
             grads[names[0]] = grads[names[0]] * grad_taint
@@ -147,6 +220,18 @@ class ParallelTrainer:
                 torch.cuda.synchronize(self.device)
             self._record_step_telemetry(time.perf_counter() - t0, inputs)
         return loss
+
+    def _grads(self, names, inputs, labels):
+        """(loss, grads in ``names`` order) of one forward and backward."""
+        if self.remat:
+            out = checkpoint(_RngReplay(self.model, self.device), inputs,
+                             use_reentrant=False)
+        else:
+            out = self.model(inputs)
+        loss = self.loss_fn(out, labels)
+        grads = torch.autograd.grad(loss, [self.params[n] for n in names],
+                                    allow_unused=True)
+        return loss, list(grads)
 
     def _record_step_telemetry(self, dt, inputs):
         _telemetry.histogram(

@@ -3,7 +3,9 @@
 ``paged_attention`` holds the paged decode/verify kernel
 (``csrc/paged_attention.cu``); ``flash_attention`` the flash-attention
 forward, dq and dk/dv kernels (``csrc/flash_attention.cu``);
-``chunked_ce`` the chunked LM-head cross entropy (plain PyTorch);
-``_build`` compiles kernels with nvcc at first use; ``tuner`` keeps the
-shape buckets, the flash rows of the tuning DB and the fallback counter.
+``fused_ce`` the fused LM-head cross-entropy forward, dh and dw kernels
+(``csrc/fused_ce.cu``); ``chunked_ce`` the chunked LM-head cross entropy
+(plain PyTorch); ``_build`` compiles kernels with nvcc at first use;
+``tuner`` keeps the shape buckets, the flash and fused-CE rows of the
+tuning DB and the fallback counter.
 """

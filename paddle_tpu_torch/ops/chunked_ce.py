@@ -9,7 +9,8 @@ are float32 whatever the input dtype; peak extra memory is
 O(tokens * chunk). The last chunk is simply narrower where the reference
 pads the weight with zero columns and masks them to -inf: both give the
 same sums. The matmuls are plain ``torch.matmul`` (the reference leaves
-them to XLA; the fused Pallas CE kernels are a later slice).
+them to XLA); the fused kernels of ``ops/fused_ce.py`` are the other
+route, and this function is their parity oracle in the tests.
 """
 from __future__ import annotations
 

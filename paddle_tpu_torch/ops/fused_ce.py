@@ -1,0 +1,328 @@
+"""Fused LM-head cross entropy: the three Hopper kernels, their plain
+PyTorch versions, and the ``torch.autograd.Function`` that reaches them.
+
+Port of ``paddle_tpu/ops/pallas/fused_ce.py``. Public API:
+``fused_lm_ce(hidden, weight, labels, block_tokens=None, block_vocab=None,
+ignore_index=-100, interpret=None)``: hidden ``(..., H)``, weight ``(H, V)``,
+labels ``(...)``; the mean float32 softmax cross entropy of
+``hidden @ weight`` over the labels that are not ``ignore_index``, with
+gradients to hidden and weight. The ``(tokens, vocab)`` logits never reach
+device memory.
+
+- **The kernels** are ``csrc/fused_ce.cu`` for ``sm_90a``: ``ce_fwd``
+  (per-token lse and target logit by an online logsumexp over vocab tiles),
+  ``ce_dh`` and ``ce_dw`` (the two gradients, each recomputing its logits
+  tiles), replacing the TPU's ``_ce_fwd_kernel``, ``_ce_bwd_dh_kernel`` and
+  ``_ce_bwd_dw_kernel``. Logits are float32; on bfloat16 inputs the
+  products run on the tensor cores (exact bfloat16 products, float32 sums),
+  on float32 inputs as float32 FMAs. ``weight`` is read through its
+  strides, so the tied head's ``embedding.weight.T`` needs no copy; ``dw``
+  is written as a ``(V, H)`` buffer and returned as its ``(H, V)`` view.
+- **The plain versions** :func:`fused_ce_plain_fwd`,
+  :func:`fused_ce_plain_dh` and :func:`fused_ce_plain_dw` compute the same
+  over the full float32 logits.
+- **Dispatch.** :func:`ce_fwd`, :func:`ce_dh` and :func:`ce_dw` take the
+  plain versions only for tensors on the CPU; on a CUDA tensor they launch
+  the kernels or raise. ``LAUNCHES`` counts launches.
+- **Host epilogue**, as the reference's ``_ce_fwd``: ``valid = labels !=
+  ignore_index``, ``loss = sum(valid * (lse - tgt)) / max(sum(valid), 1)``;
+  the backward scale ``g * valid / denom`` makes ignored rows exact zeros.
+- **Blocks.** ``block_tokens``/``block_vocab`` resolve from the tuning-DB
+  rows (``ops/tuner.py``) and are clamped as the reference does
+  (:func:`resolve_blocks`), but they change no result: the kernels' own
+  tiles are fixed by the card's shared memory.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .tuner import ce_dims, resolve
+
+__all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
+           "fused_lm_ce", "fused_ce_supported", "resolve_blocks", "ce_fwd",
+           "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_dh",
+           "fused_ce_plain_dw", "load_kernel", "max_hidden"]
+
+# the reference's interpret-validated defaults (a DB miss resolves to them)
+DEFAULT_BLOCK_TOKENS = 256
+DEFAULT_BLOCK_VOCAB = 1024
+LANES = 128
+
+LAUNCHES = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+_launch_lock = threading.Lock()
+
+
+def fused_ce_supported(t: torch.Tensor) -> bool:
+    """The kernels' gate: a CUDA tensor."""
+    return t.is_cuda
+
+
+def _clamp_blocks(n, v, block_tokens, block_vocab):
+    """The reference's clamp: token blocks on the sublane quantum (8),
+    vocab blocks on the lane quantum (128), no larger than the problem."""
+    bt = max(8, min(int(block_tokens), int(-(-n // 8) * 8)))
+    bt = (bt // 8) * 8
+    bv = max(LANES, min(int(block_vocab), int(-(-v // LANES) * LANES)))
+    bv = (bv // LANES) * LANES
+    return bt, bv
+
+
+def resolve_blocks(dtype, n: int, h: int, v: int,
+                   block_tokens: Optional[int] = None,
+                   block_vocab: Optional[int] = None) -> Tuple[int, int]:
+    """The reference's effective (block_tokens, block_vocab) for a call:
+    explicit values, else the tuning-DB row (defaults on a miss), then
+    clamped. The port's kernels do not read them."""
+    if block_tokens is None or block_vocab is None:
+        cfg, _ = resolve("fused_ce", dtype, ce_dims(h, v, n),
+                         {"block_tokens": DEFAULT_BLOCK_TOKENS,
+                          "block_vocab": DEFAULT_BLOCK_VOCAB})
+        block_tokens = block_tokens or cfg["block_tokens"]
+        block_vocab = block_vocab or cfg["block_vocab"]
+    return _clamp_blocks(n, v, block_tokens, block_vocab)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _logits(hid, w):
+    return hid.float() @ w.float()
+
+
+def _in_vocab(lbl, v):
+    return (lbl >= 0) & (lbl < v)
+
+
+def fused_ce_plain_fwd(hid, w, labels):
+    """What ``ce_fwd`` computes, over the full float32 logits: per-token
+    ``lse`` and target logit ``tgt`` (0 for a label outside [0, V)), both
+    (N,) float32."""
+    logits = _logits(hid, w)
+    v = logits.shape[1]
+    m = logits.amax(dim=1, keepdim=True)
+    s = torch.exp(logits - m).sum(dim=1)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    lse = m[:, 0] + torch.log(s)
+    lbl = labels.long()
+    ok = _in_vocab(lbl, v)
+    picked = logits.gather(1, torch.where(ok, lbl, 0)[:, None])[:, 0]
+    return lse, torch.where(ok, picked, torch.zeros_like(picked))
+
+
+def _plain_dl(logits, labels, lse, scale):
+    """d loss / d logits = (softmax - onehot) * scale, (N, V) float32."""
+    v = logits.shape[1]
+    lbl = labels.long()
+    p = torch.exp(logits - lse.float()[:, None])
+    cols = torch.arange(v, device=logits.device)
+    onehot = (cols[None, :] == lbl[:, None]) & _in_vocab(lbl, v)[:, None]
+    return (p - onehot.float()) * scale.float()[:, None]
+
+
+def fused_ce_plain_dh(hid, w, labels, lse, scale):
+    """What ``ce_dh`` computes: ``dl @ w^T`` in hid's dtype."""
+    dl = _plain_dl(_logits(hid, w), labels, lse, scale)
+    return (dl @ w.float().T).to(hid.dtype)
+
+
+def fused_ce_plain_dw(hid, w, labels, lse, scale):
+    """What ``ce_dw`` computes: ``hid^T @ dl`` in w's dtype, (H, V)."""
+    dl = _plain_dl(_logits(hid, w), labels, lse, scale)
+    return (hid.float().T @ dl).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use, with nvcc) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = _build.load("fused_ce")
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            head = [p, p, ll, ll, p]
+            tail = [i, i, i, i, p]
+            lib.fused_ce_fwd.argtypes = head + [p, p] + tail
+            lib.fused_ce_dh.argtypes = head + [p, p, p] + tail
+            lib.fused_ce_dw.argtypes = head + [p, p, p] + tail
+            for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw):
+                fn.restype = ctypes.c_int
+            lib.fused_ce_max_hidden.argtypes = [ctypes.c_int]
+            lib.fused_ce_max_hidden.restype = ctypes.c_int
+            lib.fused_ce_error_string.argtypes = [ctypes.c_int]
+            lib.fused_ce_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def max_hidden(dtype) -> int:
+    """The largest H the backward kernels take: their float32 sums of 16
+    rows against the whole of H must fit a block's shared memory (asked of
+    the built library)."""
+    return int(load_kernel().fused_ce_max_hidden(
+        int(dtype == torch.bfloat16)))
+
+
+def _check(hid, w, labels):
+    dev = hid.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ce: unsupported device {dev}")
+    if hid.dim() != 2 or w.dim() != 2 or w.shape[0] != hid.shape[1]:
+        raise ValueError(f"fused_ce: hid {tuple(hid.shape)} and w "
+                         f"{tuple(w.shape)} are not (N, H) and (H, V)")
+    if hid.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_ce kernel: dtype {hid.dtype}")
+    if w.dtype != hid.dtype:
+        raise ValueError(f"fused_ce kernel: w is {w.dtype}, hid is "
+                         f"{hid.dtype}")
+    for name, t in (("w", w), ("labels", labels)):
+        if t.device != dev:
+            raise ValueError(f"fused_ce: {name} on {t.device}, hid on {dev}")
+    if labels.shape != hid.shape[:1]:
+        raise ValueError("fused_ce: labels do not match hid's rows")
+    if hid.shape[1] > max_hidden(hid.dtype):
+        raise ValueError(f"fused_ce kernel: H {hid.shape[1]} > "
+                         f"{max_hidden(hid.dtype)}")
+    return hid.contiguous(), labels.to(torch.int32).contiguous()
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.fused_ce_error_string(err).decode()
+        raise RuntimeError(f"fused_ce {what} kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def _count(key):
+    with _launch_lock:
+        LAUNCHES[key] += 1
+
+
+def _launch(entry, key, hid, w, lbl, extra):
+    n, h = hid.shape
+    v = w.shape[1]
+    lib = load_kernel()
+    with torch.cuda.device(hid.device):
+        stream = torch.cuda.current_stream(hid.device).cuda_stream
+        err = getattr(lib, entry)(
+            hid.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+            lbl.data_ptr(), *[t.data_ptr() for t in extra], n, h, v,
+            int(hid.dtype == torch.bfloat16), stream)
+    _raise_on(lib, err, key)
+    _count(key)
+
+
+def ce_fwd(hid, w, labels):
+    """The forward kernel's wrapper: ``(lse, tgt)`` as
+    :func:`fused_ce_plain_fwd` defines them. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, or raise."""
+    if hid.device.type == "cpu":
+        return fused_ce_plain_fwd(hid, w, labels)
+    hid, lbl = _check(hid, w, labels)
+    n = hid.shape[0]
+    lse = torch.empty(n, dtype=torch.float32, device=hid.device)
+    tgt = torch.empty(n, dtype=torch.float32, device=hid.device)
+    if n and w.shape[1]:
+        _launch("fused_ce_fwd", "ce_fwd", hid, w, lbl, (lse, tgt))
+    else:
+        lse.zero_()
+        tgt.zero_()
+    return lse, tgt
+
+
+def _bwd(entry, key, plain, hid, w, labels, lse, scale):
+    if hid.device.type == "cpu":
+        return plain(hid, w, labels, lse, scale)
+    hid, lbl = _check(hid, w, labels)
+    n, h = hid.shape
+    v = w.shape[1]
+    lse = lse.to(device=hid.device, dtype=torch.float32).contiguous()
+    scale = scale.to(device=hid.device, dtype=torch.float32).contiguous()
+    if key == "ce_dh":
+        out = torch.empty((n, h), dtype=hid.dtype, device=hid.device)
+    else:   # written (V, H), handed back as its (H, V) view
+        out = torch.empty((v, h), dtype=w.dtype, device=hid.device)
+    if out.numel() == 0 or n == 0 or v == 0:
+        out.zero_()
+    else:
+        _launch(entry, key, hid, w, lbl, (lse, scale, out))
+    return out if key == "ce_dh" else out.T
+
+
+def ce_dh(hid, w, labels, lse, scale):
+    """The dh kernel's wrapper: (N, H) in hid's dtype, as
+    :func:`fused_ce_plain_dh` defines it."""
+    return _bwd("fused_ce_dh", "ce_dh", fused_ce_plain_dh, hid, w, labels,
+                lse, scale)
+
+
+def ce_dw(hid, w, labels, lse, scale):
+    """The dw kernel's wrapper: (H, V) in w's dtype, as
+    :func:`fused_ce_plain_dw` defines it (on the card, the ``.T`` view of
+    a contiguous (V, H) buffer)."""
+    return _bwd("fused_ce_dw", "ce_dw", fused_ce_plain_dw, hid, w, labels,
+                lse, scale)
+
+
+class _FusedCE(torch.autograd.Function):
+    """loss = mean CE over valid labels; the backward runs the dh and dw
+    kernels on the saved (hid, w, labels, lse)."""
+
+    @staticmethod
+    def forward(ctx, hid, w, lbl, ignore_index):
+        lse, tgt = ce_fwd(hid, w, lbl)
+        valid = (lbl != ignore_index).float()
+        denom = valid.sum().clamp(min=1.0)
+        loss = (valid * (lse - tgt)).sum() / denom
+        ctx.save_for_backward(hid, w, lbl, lse, valid, denom)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        hid, w, lbl, lse, valid, denom = ctx.saved_tensors
+        scale = (g.float() / denom) * valid
+        dh = ce_dh(hid, w, lbl, lse, scale) \
+            if ctx.needs_input_grad[0] else None
+        dw = ce_dw(hid, w, lbl, lse, scale) \
+            if ctx.needs_input_grad[1] else None
+        return dh, dw, None, None
+
+
+def fused_lm_ce(hidden, weight, labels, block_tokens=None, block_vocab=None,
+                ignore_index=-100, interpret=None):
+    """Fused LM-head softmax cross entropy (mean over valid labels).
+
+    hidden: (..., H) activations; weight: (H, V) LM-head matrix (any
+    strides); labels: (...) int targets (int32 or int64), ``ignore_index``
+    entries excluded from the mean. Returns a 0-d float32 loss; gradients
+    flow to hidden and weight. ``block_tokens``/``block_vocab`` resolve and
+    clamp as the reference's (:func:`resolve_blocks`) and change no result;
+    ``interpret`` is the reference's Pallas switch, accepted and ignored.
+    """
+    del interpret
+    h = hidden.shape[-1]
+    hid = hidden.reshape(-1, h)
+    lbl = torch.as_tensor(labels).to(device=hid.device).reshape(-1)
+    if weight.dim() != 2 or weight.shape[0] != h:
+        raise ValueError(
+            f"weight must be (H, V) with H={h}, got {tuple(weight.shape)}")
+    if lbl.shape[0] != hid.shape[0]:
+        raise ValueError(f"labels hold {lbl.shape[0]} entries for "
+                         f"{hid.shape[0]} tokens")
+    resolve_blocks(hid.dtype, hid.shape[0], h, weight.shape[1],
+                   block_tokens, block_vocab)
+    loss = _FusedCE.apply(hid, weight, lbl.to(torch.int32),
+                          int(ignore_index))
+    return loss

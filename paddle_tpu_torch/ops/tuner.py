@@ -3,12 +3,14 @@ kernel-fallback accounting.
 
 Port of pieces of ``paddle_tpu/ops/pallas/tuner.py``: ``shape_bucket``
 (the power-of-two bucket axis that keeps the serving batch shapes in a
-closed set), ``flash_dims``, ``resolve`` over the DB's device-generic
-(``"any"``) ``flash_attention`` rows, copied here as data, and
-``record_fallback``. The port needs those rows only for the blocks that
-key the flash kernels' dropout mask (``ops/flash_attention.py``); its own
-CUDA tiling is its own. ``resolve`` answers as the reference does off a
-TPU: a generic row if one matches, else the defaults.
+closed set), ``flash_dims``, ``ce_dims``, ``resolve`` over the DB's
+device-generic (``"any"``) ``flash_attention`` and ``fused_ce`` rows,
+copied here as data, and ``record_fallback``. The port needs the flash
+rows only for the blocks that key the flash kernels' dropout mask
+(``ops/flash_attention.py``) and the fused-CE rows only to answer as the
+reference does (``ops/fused_ce.py``); its own CUDA tiling is its own.
+``resolve`` answers as the reference does off a TPU: a generic row if one
+matches, else the defaults.
 
 ``record_fallback(kernel)`` is called when a dispatcher sends a shape that
 the kernel's gate rejects to the plain path. It always bumps
@@ -21,16 +23,16 @@ import collections
 import threading
 from typing import Dict, Tuple
 
-__all__ = ["shape_bucket", "flash_dims", "make_key", "resolve", "DB_ROWS",
-           "record_fallback", "FALLBACKS"]
+__all__ = ["shape_bucket", "flash_dims", "ce_dims", "make_key", "resolve",
+           "DB_ROWS", "record_fallback", "FALLBACKS"]
 
 FALLBACKS: "collections.Counter[str]" = collections.Counter()
 _lock = threading.Lock()
 
 GENERIC_DEVICE = "any"
 
-# the "any"-device flash_attention rows of paddle_tpu/ops/pallas/
-# tuning_db.json: key -> config
+# the "any"-device flash_attention and fused_ce rows of
+# paddle_tpu/ops/pallas/tuning_db.json: key -> config
 DB_ROWS: Dict[str, Dict[str, int]] = {
     "flash_attention|any|bfloat16|d64,sk1024,sq1024":
         {"block_q": 256, "block_k": 512},
@@ -44,6 +46,12 @@ DB_ROWS: Dict[str, Dict[str, int]] = {
         {"block_q": 128, "block_k": 128},
     "flash_attention|any|float32|d64,sk512,sq512":
         {"block_q": 256, "block_k": 512},
+    "fused_ce|any|bfloat16|h768,t8192,v50304":
+        {"block_tokens": 256, "block_vocab": 2048},
+    "fused_ce|any|float32|h128,t512,v1024":
+        {"block_tokens": 256, "block_vocab": 1024},
+    "fused_ce|any|float32|h64,t128,v512":
+        {"block_tokens": 128, "block_vocab": 512},
 }
 
 
@@ -61,6 +69,12 @@ def flash_dims(d: int, sq: int, sk: int) -> Dict[str, int]:
     with floor 1 (decode-shaped calls keep exact keys), sk with floor 128."""
     return {"d": int(d), "sq": shape_bucket(sq, floor=1),
             "sk": shape_bucket(sk)}
+
+
+def ce_dims(h: int, v: int, tokens: int) -> Dict[str, int]:
+    """Bucketed dims of a fused-CE call: hidden and vocab exact (vocab is a
+    model constant, not a batch axis), the token count bucketed."""
+    return {"h": int(h), "v": int(v), "t": shape_bucket(tokens)}
 
 
 def _dtype_name(dtype) -> str:

@@ -16,8 +16,10 @@ lr) -> (new_params, new_state)``. The math is the reference's:
   correction reads no host value.
 
 ``torch.optim.AdamW`` is not used: on bfloat16 parameters its math runs in
-bfloat16. The learning rate is a float; ``LRScheduler`` waits for a later
-slice (``ROADMAP.md``).
+bfloat16. The learning rate is a float or an ``LRScheduler``
+(``optimizer/lr.py``), whose value ``get_lr`` reads; ``set_lr`` raises under
+a scheduler. ``weight_decay`` is a float or an ``L1Decay``/``L2Decay``
+(``regularizer.py``), read as the reference reads them.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from .clip import clip_grads
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -37,18 +40,19 @@ class Optimizer:
                  grad_clip=None, name=None, multi_precision=False):
         # parameters: accepted as the reference takes it; the trainer hands
         # apply_gradients the parameters by name (no eager step() here)
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning_rate must be a float: LR schedulers wait in "
-                "ROADMAP.md (Queue 1)")
-        self._lr = float(learning_rate)
+        self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self.regularization = weight_decay
         self._grad_clip = grad_clip
 
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return self._lr
 
     def set_lr(self, value: float):
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = float(value)
 
     def _wd_coeff(self):
@@ -57,9 +61,10 @@ class Optimizer:
             return 0.0, False
         if isinstance(wd, (int, float)):
             return float(wd), self._decoupled_wd
-        raise NotImplementedError(
-            "weight_decay must be a float: regularizer objects wait in "
-            "ROADMAP.md (Queue 1)")
+        coeff = getattr(wd, "coeff", None)
+        if coeff is None:
+            coeff = getattr(wd, "_regularization_coeff", 0.0)
+        return float(coeff), self._decoupled_wd
 
     def init_slots(self, value: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
@@ -92,7 +97,11 @@ class Optimizer:
             g = g.float()
             p32 = p.float()
             if wd and not decoupled:
-                g = g + wd * p32
+                reg = self.regularization
+                if callable(reg) and getattr(reg, "kind", "l2") != "l2":
+                    g = g + reg(p32, g)      # L1Decay: coeff * sign(p)
+                else:
+                    g = g + wd * p32
             np_, ns = self.update(p32, g, state["slots"][k], lr, step)
             if wd and decoupled:
                 np_ = np_ - lr * wd * p32

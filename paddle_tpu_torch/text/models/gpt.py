@@ -6,7 +6,11 @@ Port of ``paddle_tpu/text/models/gpt.py`` for ``tensor_parallel=False``:
 ``forward`` and ``fused_head_loss``, and the ``gpt_tiny``/``gpt_1p3b``
 configs. Attention goes through ``F.scaled_dot_product_attention``, so on
 the card at S >= 512 it runs the flash kernels
-(``csrc/flash_attention.cu``); the head loss takes the chunked CE.
+(``csrc/flash_attention.cu``). ``fused_head_loss`` takes the chunked CE by
+default, as the reference does, and the fused CE kernels
+(``csrc/fused_ce.cu``) with ``ce_kernel="pallas"`` or, on the card,
+``"auto"``. The dense path is ``forward`` (bf16 logits) and
+``nn.functional.cross_entropy``.
 
 The QKV projection is split per head, interleaved, as the reference splits
 it: ``reshape(b, s, heads, 3*hd)`` then three ``hd`` slices, so that
@@ -193,9 +197,12 @@ class GPTForPretraining(Layer):
     def fused_head_loss(self, input_ids, labels, chunk: int = 8192,
                         attn_mask=None, ce_kernel: str = "chunked"):
         """Trunk -> head + CE without materializing the (B, S, vocab)
-        logits. ce_kernel: ``"chunked"`` (``ops/chunked_ce.py``),
-        ``"auto"`` (chunked, counted as a fallback) or ``"pallas"`` (not
-        ported yet: raises)."""
+        logits. ce_kernel: ``"chunked"`` (``ops/chunked_ce.py``, ``chunk``
+        classes per step), ``"pallas"`` (the fused CE kernels,
+        ``ops/fused_ce.py``; their plain versions on CPU tensors) or
+        ``"auto"`` (the kernels on the card, else chunked, counted as a
+        fallback). The head weight goes in as the tied embedding's
+        ``(H, V)`` view; the kernels read it in place."""
         h = self.gpt(input_ids, attn_mask)
         w = self.lm_head.weight.T                      # (H, V)
         return F.fused_linear_cross_entropy(h, w, labels, chunk=chunk,

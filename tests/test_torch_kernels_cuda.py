@@ -9,7 +9,9 @@ card has no JAX), so it runs there without the repository's conftest::
 
 Tolerance: atol = rtol = 1e-4 (float32 math in both versions, sums taken
 in different orders; bfloat16 pools are upcast exactly by both). The flash
-kernels' bfloat16 cases: 2e-2 (one bfloat16 rounding of each output).
+kernels' bfloat16 cases: 2e-2 (one bfloat16 rounding of each output). The
+fused-CE kernels: lse and tgt atol 1e-4; dh and dw ``max|err| <= tol *
+max|plain|`` with tol 1e-4 in float32, 1e-2 in bfloat16.
 """
 import numpy as np
 import pytest
@@ -19,8 +21,10 @@ from paddle_tpu_torch import framework
 from paddle_tpu_torch.inference import decode_model as dm
 from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce
 from paddle_tpu_torch.ops import paged_attention as pa
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -241,3 +245,120 @@ def test_sdpa_dropout_runs_the_kernel_with_a_device_seed(cuda_device):
     undropped = scaled_dot_product_attention(q, k, v, dropout_p=0.1,
                                              is_causal=True, training=False)
     assert not torch.equal(out, undropped)
+
+
+# -- fused LM-head cross entropy: forward, dh and dw kernels ------------------
+
+# max|kernel - plain| <= tol * max|plain| for dh and dw; lse and tgt atol
+CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _ce_inputs(dev, n, h, v, dtype, ignore=0.3, transposed=False, seed=0):
+    rs = np.random.RandomState(seed)
+    hid = torch.as_tensor(rs.randn(n, h).astype(np.float32),
+                          device=dev).to(dtype)
+    w = torch.as_tensor((rs.randn(v, h) * 0.05).astype(np.float32),
+                        device=dev).to(dtype)
+    w = w.T if transposed else w.T.contiguous()
+    lbl = rs.randint(0, v, n)
+    lbl[rs.rand(n) < ignore] = -100
+    lbl = torch.as_tensor(lbl, device=dev)
+    valid = (lbl != -100).float()
+    return hid, w, lbl, valid / valid.sum().clamp(min=1.0)
+
+
+def _ce_check(hid, w, lbl, scale, dtype):
+    n0 = dict(fused_ce.LAUNCHES)
+    lse, tgt = fused_ce.ce_fwd(hid, w, lbl)
+    rl, rt = fused_ce.fused_ce_plain_fwd(hid, w, lbl)
+    dh = fused_ce.ce_dh(hid, w, lbl, rl, scale)
+    dw = fused_ce.ce_dw(hid, w, lbl, rl, scale)
+    rdh = fused_ce.fused_ce_plain_dh(hid, w, lbl, rl, scale)
+    rdw = fused_ce.fused_ce_plain_dw(hid, w, lbl, rl, scale)
+    torch.cuda.synchronize()
+    assert fused_ce.LAUNCHES == {k: n0[k] + 1 for k in n0}
+    torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(tgt, rt, rtol=1e-5, atol=1e-4)
+    assert dh.dtype == hid.dtype and dw.dtype == w.dtype
+    assert dw.shape == w.shape
+    tol = CE_TOL[dtype]
+    for got, want in ((dh, rdh), (dw, rdw)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), err
+    ignored = lbl == -100
+    assert dh[ignored].abs().max().item() == 0.0 if ignored.any() else True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 64, 512), (200, 32, 500),
+                                   (1000, 768, 50304), (300, 2048, 5000)])
+def test_fused_ce_kernels_match_plain(cuda_device, shape, dtype, transposed):
+    args = _ce_inputs(cuda_device, *shape, dtype, transposed=transposed,
+                      seed=sum(shape))
+    _ce_check(*args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ignore", [0.0, 1.0])
+def test_fused_ce_kernels_with_no_and_all_rows_ignored(cuda_device, ignore):
+    args = _ce_inputs(cuda_device, 200, 32, 500, torch.float32,
+                      ignore=ignore)
+    _ce_check(*args, torch.float32)
+    if ignore == 1.0:
+        hid, w, lbl, _ = args
+        h = hid.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        loss = fused_ce.fused_lm_ce(h, ww, lbl)
+        loss.backward()
+        assert loss.item() == 0.0
+        assert not h.grad.any() and not ww.grad.any()
+
+
+@pytest.mark.cuda
+def test_fused_ce_kernels_on_the_main_path_call(cuda_device):
+    """GPT-base's head: N = 8192, H = 768, V = 50304, bf16, w the tied
+    embedding's .T view, through the autograd Function."""
+    hid, w, lbl, scale = _ce_inputs(cuda_device, 8192, 768, 50304,
+                                    torch.bfloat16, ignore=0.0,
+                                    transposed=True)
+    _ce_check(hid, w, lbl, scale, torch.bfloat16)
+    emb = w.T.clone().requires_grad_()
+    h = hid.clone().requires_grad_()
+    loss = fused_ce.fused_lm_ce(h, emb.T, lbl)
+    loss.backward()
+    ref = torch.nn.functional.cross_entropy(hid.float() @ w.float(), lbl)
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
+    assert emb.grad.is_contiguous() and emb.grad.shape == (50304, 768)
+
+
+@pytest.mark.cuda
+def test_fused_ce_failed_load_raises(cuda_device, monkeypatch):
+    hid, w, lbl, _ = _ce_inputs(cuda_device, 64, 32, 300, torch.float32)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(fused_ce, "_lib", None)
+    monkeypatch.setattr(fused_ce._build, "load", broken)
+    n0 = dict(fused_ce.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_ce.fused_lm_ce(hid, w, lbl)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        F.fused_linear_cross_entropy(hid, w, lbl, kernel="auto")
+    assert fused_ce.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_fused_ce_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
+    hid, w, lbl, scale = _ce_inputs(cuda_device, 64, 32, 300, torch.float32)
+    with pytest.raises(ValueError):               # mixed dtypes
+        fused_ce.ce_fwd(hid, w.to(torch.bfloat16), lbl)
+    with pytest.raises(ValueError):               # w on the CPU
+        fused_ce.ce_fwd(hid, w.cpu(), lbl)
+    with pytest.raises(ValueError):               # H the kernels lack room for
+        big = torch.zeros(4, 4096, device=cuda_device)
+        fused_ce.ce_fwd(big, torch.zeros(4096, 8, device=cuda_device),
+                        lbl[:4])
+    assert fused_ce.fused_ce_supported(hid)
