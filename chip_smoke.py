@@ -13,17 +13,19 @@ per source, all started together), then:
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
 - training: holds the three flash-attention kernels (forward, dq, dk/dv)
-  and the three fused-CE kernels (forward, dh, dw) against their plain
-  versions and times them at GPT-base; trains GPT-base widths at depth 2
+  and the three fused-CE kernels (forward, dh, dw; dh and dw on both their
+  routes, tiled and staged) against their plain versions and times them at
+  GPT-base; trains GPT-base widths at depth 2
   in float32 against the JAX reference's golden losses
   (``paddle_tpu_torch/testdata/gpt_train_golden.json``) through the three
   routes of the head loss (chunked CE, fused CE kernels, dense logits +
   ``cross_entropy``); runs full GPT-base training steps in bfloat16,
   bench.py's ``fused_b8`` (chunked CE) and this slice's main path
   ``fused_b8_pallas_ce`` (the fused CE kernels), profiling three steps of
-  each; then bench.py's other single-card variants (``dense_b8``,
-  ``fused_b32``, ``fused_b32_remat``, and ``fused_b8`` with gradient merge
-  over two chunks).
+  each, and the latter again with dh and dw on the staged route as a
+  yardstick for its losses; then bench.py's other single-card variants
+  (``dense_b8``, ``fused_b32``, ``fused_b32_remat``, and ``fused_b8`` with
+  gradient merge over two chunks).
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -33,6 +35,7 @@ torch, numpy and ``paddle_tpu_torch`` only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -471,9 +474,12 @@ def ce_inputs(rs, n, h, v, dtype, ignore, transposed):
     return hid, w, lbl, valid / valid.sum().clamp(min=1.0)
 
 
-def ce_parity_case(fc, hid, w, lbl, scale):
-    """Each kernel against its plain version on the same inputs; returns
-    the max abs and normalized errors per kernel output."""
+def ce_parity_case(fc, hid, w, lbl, scale, twice=False):
+    """Each kernel against its plain version on the same inputs; dh and
+    dw must take the route ``bwd_route`` names for (dtype, H), and with
+    ``twice`` a second launch must give them bit for bit. Returns the max
+    abs and normalized errors per kernel output."""
+    r0 = dict(fc.ROUTES)
     lse, tgt = fc.ce_fwd(hid, w, lbl)
     ref_lse, ref_tgt = fc.fused_ce_plain_fwd(hid, w, lbl)
     dh = fc.ce_dh(hid, w, lbl, ref_lse, scale)
@@ -481,8 +487,17 @@ def ce_parity_case(fc, hid, w, lbl, scale):
     ref_dh = fc.fused_ce_plain_dh(hid, w, lbl, ref_lse, scale)
     ref_dw = fc.fused_ce_plain_dw(hid, w, lbl, ref_lse, scale)
     torch.cuda.synchronize()
+    route = fc.bwd_route(hid.dtype, hid.shape[1])
+    routes = {k: fc.ROUTES[k] - r0[k] for k in r0}
+    check(routes == {k: int(k in (f"ce_dh_{route}", f"ce_dw_{route}"))
+                     for k in r0}, f"routes {routes}, expected {route}")
     check(dh.dtype == hid.dtype and dw.dtype == w.dtype and
           dw.shape == w.shape, "dh/dw dtype or shape")
+    check(dw.T.is_contiguous(), "dw is not the .T view of a (V, H) buffer")
+    if twice:
+        check(torch.equal(dh, fc.ce_dh(hid, w, lbl, ref_lse, scale)) and
+              torch.equal(dw, fc.ce_dw(hid, w, lbl, ref_lse, scale)),
+              "a second launch changed dh or dw")
     tol = CE_TOL[hid.dtype]
     errs = {}
     for name, g, r in (("lse", lse, ref_lse), ("tgt", tgt, ref_tgt),
@@ -500,6 +515,7 @@ def ce_parity_case(fc, hid, w, lbl, scale):
     if ignored.any():
         check(dh[ignored].abs().max().item() == 0.0,
               "ignored rows have a nonzero dh")
+    errs["route"] = route
     return errs
 
 
@@ -521,15 +537,54 @@ def ce_main_inputs(model_seed=0):
     return hid, emb.T, lbl, scale
 
 
+def staged_bwd(fc, entry, hid, w, lbl, lse, scale):
+    """The staged route's dh or dw (``entry`` "fused_ce_dh" or
+    "fused_ce_dw") called at the library's own entry point, so that it can
+    be timed beside the tiled route at the main path's call; counts no
+    launch. Returns dh (N, H) or dw (H, V)."""
+    lib = fc.load_kernel()
+    n, h = hid.shape
+    v = w.shape[1]
+    out = torch.empty((n, h) if entry == "fused_ce_dh" else (v, h),
+                      dtype=hid.dtype, device=hid.device)
+    err = getattr(lib, entry)(
+        hid.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+        lbl.data_ptr(), lse.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        n, h, v, int(hid.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"{entry}: cudaError {err}")
+    return out if entry == "fused_ce_dh" else out.T
+
+
 def ce_timing(fc, chunked_ce, flush):
     """Each kernel and its plain version at the main path's call, with
-    each kernel's bound on this card; the whole function four ways: the
-    port's kernels, its chunked CE, its plain versions and the library
-    (cuBLAS bf16 hid @ w + F.cross_entropy)."""
+    each kernel's bound on this card; dh and dw also on the staged route
+    (the first design's kernels), held against the plain version and
+    timed in the same run; the whole function four ways: the port's
+    kernels, its chunked CE, its plain versions and the library (cuBLAS
+    bf16 hid @ w + F.cross_entropy)."""
     hid, w, lbl, scale = ce_main_inputs()
     n, h = hid.shape
     v = w.shape[1]
     lse, _ = fc.ce_fwd(hid, w, lbl)
+    lbl32 = lbl.to(torch.int32).contiguous()
+    check(fc.bwd_route(hid.dtype, h) == "tiled", "main call not tiled")
+    staged = {}
+    for name, entry, plain in (("ce_dh", "fused_ce_dh", fc.fused_ce_plain_dh),
+                               ("ce_dw", "fused_ce_dw", fc.fused_ce_plain_dw)):
+        got = staged_bwd(fc, entry, hid, w, lbl32, lse, scale).float()
+        tiled = getattr(fc, name)(hid, w, lbl, lse, scale).float()
+        ref = plain(hid, w, lbl, lse, scale).float()
+        norm = (got - ref).abs().max().item() / ref.abs().max().item()
+        check(norm <= CE_TOL[hid.dtype], f"staged {name}: {norm}")
+        rms = lambda x: x.square().mean().sqrt().item()  # noqa: E731
+        staged[name] = {
+            "staged_norm_err": norm, "rms_plain": rms(ref),
+            "rms_err": rms(tiled - ref), "staged_rms_err": rms(got - ref),
+            "staged_ms": time_ms(
+                lambda: staged_bwd(fc, entry, hid, w, lbl32, lse, scale),
+                flush=flush)}
+        del got, tiled, ref
     ms = {"ce_fwd": time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush),
           "ce_dh": time_ms(lambda: fc.ce_dh(hid, w, lbl, lse, scale),
                            flush=flush),
@@ -578,7 +633,14 @@ def ce_timing(fc, chunked_ce, flush):
             "plain_ms": plain[name], "library_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / ms[name] / 1e9, **whole}
+            "tflops": flops / ms[name] / 1e9, **staged.get(name, {}),
+            **whole}
+    for name in staged:
+        check(ms[name] < staged[name]["staged_ms"] and
+              ms[name] < plain[name],
+              f"{name}: tiled {ms[name]} ms not below the staged route "
+              f"{staged[name]['staged_ms']} ms and the plain version "
+              f"{plain[name]} ms")
     return res
 
 
@@ -658,19 +720,23 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     grads = torch.autograd.grad(loss0, list(trainer.params.values()))
     gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
     loss0 = loss0.item()
-    for counts in (fa.LAUNCHES, fc.LAUNCHES):
+    for counts in (fa.LAUNCHES, fc.LAUNCHES, fc.ROUTES):
         for key in counts:
             counts[key] = 0
     losses = [trainer.train_step(inputs, lbls) for _ in gold["losses"]]
     losses = [x.item() for x in losses]
     launches = dict(fa.LAUNCHES)
     ce_launches = dict(fc.LAUNCHES)
+    ce_routes = dict(fc.ROUTES)
     n_layers = cfg["num_layers"]
     check(all(n == n_layers * len(losses) for n in launches.values()),
           f"flash launches {launches} != {n_layers} per step")
     want_ce = len(losses) if head == "pallas" else 0
     check(all(n == want_ce for n in ce_launches.values()),
           f"fused CE launches {ce_launches} != {want_ce} ({head})")
+    # float32: the staged route
+    check(ce_routes == {k: want_ce * k.endswith("_staged") for k in ce_routes},
+          f"fused CE routes {ce_routes} ({head})")
     check(abs(loss0 - gold["losses"][0]) <= 1e-4 * abs(gold["losses"][0]),
           f"step-0 loss {loss0} vs golden {gold['losses'][0]}")
     check(abs(gnorm - gold["step0_grad_norm"]) <=
@@ -686,7 +752,8 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     return {"head": head, "loss0": loss0, "grad_norm": gnorm,
             "losses": losses, "golden_losses": gold["losses"],
             "golden_grad_norm": gold["step0_grad_norm"],
-            "launches": launches, "ce_launches": ce_launches}
+            "launches": launches, "ce_launches": ce_launches,
+            "ce_routes": ce_routes}
 
 
 def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
@@ -732,7 +799,8 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     for _ in range(warmup):
         loss = trainer.train_step(inputs, lbls)
     float(loss)
-    counts = [fa.LAUNCHES] + ([fc.LAUNCHES] if fc is not None else [])
+    counts = [fa.LAUNCHES] + ([fc.LAUNCHES, fc.ROUTES] if fc is not None
+                              else [])
     for c in counts:
         for key in c:
             c[key] = 0
@@ -745,6 +813,7 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     dt = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
     ce_launches = dict(fc.LAUNCHES) if fc is not None else {}
+    ce_routes = dict(fc.ROUTES) if fc is not None else {}
     fallbacks = tuner.FALLBACKS["flash_attention"]
     ce_fallbacks = tuner.FALLBACKS["fused_ce"]
     losses = [float(x) for x in losses]
@@ -761,6 +830,10 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
           f"flash launches {launches} != {want} per step")
     check(all(n == iters for n in ce_launches.values()),
           f"fused CE launches {ce_launches} != 1 per step")
+    # bf16 at GPT-base's H: dh and dw on the tiled route, every step
+    check(not ce_routes or ce_routes == {
+        k: iters * k.endswith("_tiled") for k in ce_routes},
+        f"fused CE routes {ce_routes}: the tiled route not once per step")
     tokens = b * s * iters
     # model FLOPs per token: 6 N (matmuls fwd + bwd) + 6 L S d_model
     # (causal attention QK^T and PV, fwd + bwd)
@@ -772,8 +845,21 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
             "params": n_params, "model_flops_per_step": flops / iters,
             "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
             "launches": launches, "ce_launches": ce_launches,
-            "flash_fallbacks": fallbacks, "fused_ce_fallbacks": ce_fallbacks,
-            "skipped_steps": 0}
+            "ce_routes": ce_routes, "flash_fallbacks": fallbacks,
+            "fused_ce_fallbacks": ce_fallbacks, "skipped_steps": 0}
+
+
+@contextlib.contextmanager
+def staged_route(fc):
+    """Within the block, dh and dw take the staged route (the first design)
+    whatever the dtype and H: a yardstick for the main path's losses, run
+    after the main path's own counted run."""
+    route = fc.bwd_route
+    fc.bwd_route = lambda dtype, h: "staged"
+    try:
+        yield
+    finally:
+        fc.bwd_route = route
 
 
 def profile_train(trainer, batch, steps=3):
@@ -796,7 +882,7 @@ def profile_train(trainer, batch, steps=3):
         if "flash_" in name:
             key = "flash kernels"
         elif "ce_fwd_kernel" in name or "ce_dh_kernel" in name or \
-                "ce_dw_kernel" in name:
+                "ce_dw_kernel" in name or "ce_bwd_tiled_kernel" in name:
             key = "fused CE kernels"
         elif "sgemm" in name or "f32f32_f32f32" in name:
             key = "float32 GEMMs (chunked CE)"
@@ -992,12 +1078,19 @@ def main() -> int:
              for transposed in (False, True)]
     cases += [((300, 2048, 5000), bf16, 0.3, True),
               ((300, 2048, 5000), f32, 0.3, False)]
-    # the last: the main path's own call (labels from the train recipe)
+    # the tiled route (bf16, H = 768 and 1024) with N and V tails, all rows
+    # ignored, w strided (the tied .T view) and contiguous
+    cases += [((1000, 768, 5003), bf16, 0.3, t) for t in (False, True)]
+    cases += [((257, 1024, 50304), bf16, 0.3, t) for t in (False, True)]
+    cases += [((100, 768, 700), bf16, 1.0, True),
+              ((100, 1024, 700), bf16, 1.0, True)]
+    # the last: the main path's own call (labels from the train recipe),
+    # launched twice: dh and dw must agree bit for bit
     cases.append(("main path", bf16, 0.0, True))
     for shape, dtype, ignore, transposed in cases:
         args = ce_main_inputs() if shape == "main path" else \
             ce_inputs(rs, *shape, dtype, ignore, transposed)
-        errs = ce_parity_case(fc, *args)
+        errs = ce_parity_case(fc, *args, twice=shape == "main path")
         for key, outs in (("ce_fwd", ("lse", "tgt")), ("ce_dh", ("dh",)),
                           ("ce_dw", ("dw",))):
             for o in outs:
@@ -1041,6 +1134,9 @@ def main() -> int:
                                                 framework, head="pallas")
     rep = train(fa, tuner, trainer, batch, n_params, fc=fc)
     ce_launches = rep["ce_launches"]
+    check(rep["ce_routes"] == {"ce_dh_tiled": 10, "ce_dh_staged": 0,
+                               "ce_dw_tiled": 10, "ce_dw_staged": 0},
+          f"fused CE routes on the main path: {rep['ce_routes']}")
     emit(phase="train_fused_ce", card=card, **rep)
     prof = profile_train(trainer, batch)
     groups = prof["by_group"]
@@ -1051,6 +1147,21 @@ def main() -> int:
           f"{f32_gemm} ms per step")
     emit(phase="train_fused_ce_profile", card=card, **prof)
     del trainer, batch
+    fused_ce_losses = rep["losses"]
+
+    # 15b. the same steps with dh and dw on the staged route: how far two
+    # summation orders of the same gradients drift apart in bf16 training
+    with staged_route(fc):
+        trainer, batch, n_params = gpt_base_trainer(
+            nn, gpt, engine, optim, framework, head="pallas")
+        rep = train(fa, tuner, trainer, batch, n_params)
+    del trainer, batch
+    rel = lambda a, b: [abs(x - y) / abs(y)  # noqa: E731
+                        for x, y in zip(a, b)]
+    emit(phase="train_fused_ce_staged", card=card, **rep,
+         tiled_vs_fused_b8=rel(fused_ce_losses, fused_b8_losses),
+         staged_vs_fused_b8=rel(rep["losses"], fused_b8_losses),
+         tiled_vs_staged=rel(fused_ce_losses, rep["losses"]))
 
     # 16. bench.py's other single-card variants, 2 warm-up + 3 timed steps
     variants = {}
@@ -1108,7 +1219,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in t if key.endswith("fwd_ms") or
-               key.endswith("fwd_bwd_ms")}})
+               key.endswith("fwd_bwd_ms") or key.startswith("staged_")}})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,33 +24,51 @@
 // Design. The TPU kernels keep a (block_tokens, H) or (H, block_vocab)
 // float32 sum in VMEM (768 KB and 6 MB at GPT-base with the DB's 256/2048
 // blocks); a Hopper block has 227 KB. So the sums shrink along the other
-// axis: the dh block owns 32 tokens (16 above H = 1024) against all of H and
-// loops over every vocab tile; the dw block owns 32 vocab rows (16 above
-// H = 1024) against all of H and loops over every token block. Each
-// (token, vocab) logit is recomputed once per kernel, as in the reference;
-// the sums live in shared memory, each element owned by one thread and
-// summed in one fixed order: no atomics, bit-reproducible runs.
+// axis: a dh block owns a few tokens against all of H and loops over every
+// vocab tile; a dw block owns a few vocab rows against all of H and loops
+// over every token tile. Each (token, vocab) logit is recomputed once per
+// kernel, as in the reference. Each sum is owned by one thread and summed
+// in one fixed order: no atomics, bit-reproducible runs. hid and w are
+// bfloat16 on the tensor-core paths, so every product hid*w is exact and
+// the logits are the reference's up to summation order. The float32 dl of
+// the gradient products is stored as two bfloat16 terms (hi = bf16(dl),
+// lo = bf16(dl - hi), two MMAs, about 16 bits of dl). Bound on this card:
+// the operations, 2*N*H*V for the forward and 4*N*H*V for each gradient
+// kernel (logits recomputed, then the product), at the bf16 tensor-core
+// rate. All products are mma.sync.m16n8k16 bf16 with float32 sums (or
+// float32 FMAs on float32 inputs, no TF32 anywhere); no wgmma, no TMA.
 //
-// Every operand tile is staged in shared memory in the inputs' dtype (zero
-// past the edges), 256 threads per block. The products are warp tiles of
-// 16 rows: on bfloat16 inputs each 16x8x16 step is one mma.sync.m16n8k16
-// bf16 with float32 accumulation, its fragments read straight from shared
-// memory as bf16 pairs. hid and w are bfloat16, so every product hid*w is
-// exact and the logits are the reference's up to summation order. The
-// float32 dl of the gradient products is stored as two bfloat16 terms
-// (hi = bf16(dl), lo = bf16(dl - hi), two MMAs, about 16 bits of dl). On
-// float32 inputs the same steps run as float32 FMAs (no TF32 anywhere).
+// The backward has two routes, chosen by the wrapper from (dtype, H):
 //
-// Bound on this card: the operations, 2*N*H*V for the forward and 4*N*H*V
-// for each gradient kernel (logits recomputed, then the product), against
-// the bf16 tensor-core rate. This first design issues mma.sync, one block
-// of 8 warps per SM, with the next chunk's global loads held in registers
-// while the current chunk computes (one stage of prefetch): no wgmma, no
-// TMA, no shared-memory ring. What holds it back is the operand traffic:
-// each block re-reads w for every token block and hid for every vocab tile
-// (and dh/dw read their gradient product's B operand a second time), a few
-// tens of operations per byte, where the tensor cores need hundreds. Tiles
-// that keep operands resident, and a deeper load pipeline, are later work.
+// tiled (bfloat16, H = 768 or 1024; ce_bwd_tiled_kernel): one template
+//   serves dh and dw, which are mirror images. A block owns TR = 32 rows
+//   (dh: tokens of hid, with their lse, scale and label; dw: vocab rows of
+//   w) and streams TR-row tiles of the other operand (dh: vocab rows of w,
+//   read through its h-contiguous strides; dw: token rows of hid, each
+//   with its stats). The own rows sit in shared memory for the whole
+//   kernel; each streamed tile is read from global memory once, by 16-byte
+//   cp.async into a two-tile ring (the next tile loads while this one
+//   computes), and feeds both products: the logits (own x tile^T, the tile
+//   as mma's [n][k] operand through ldmatrix) and the gradient product
+//   (dl x tile, the tile as the [k][n] operand through ldmatrix.trans).
+//   The logits of a 32 x 32 tile are split over the warps along H and
+//   summed in a fixed order through a small shared buffer. The (32 x H)
+//   float32 sums stay in registers in mma's accumulator layout (each warp
+//   all 32 rows x H/8 columns: 96 registers a thread at H = 768, 128 at
+//   1024) and reach global memory once, through shared memory as 16-byte
+//   rows. Against the streamed operand that is 2 * 32 FLOP per byte of
+//   each kind of product, where the staged route re-read its tiles.
+// staged (float32 inputs, other H up to the shared-memory limit;
+//   ce_dh_kernel, ce_dw_kernel): the first design. The dh block owns 32
+//   tokens (16 above H = 1024), the dw block 32 vocab rows (16 above
+//   H = 1024); their float32 sums live in shared memory, round-tripping
+//   through registers for each 64-wide H chunk. Every operand tile is
+//   staged in shared memory in the inputs' dtype (zero past the edges) with
+//   one stage of register prefetch, and each block re-reads its own rows
+//   for every streamed tile and the streamed tile a second time for the
+//   gradient product: a few tens of operations per byte.
+//
+// The forward (ce_fwd_kernel) stages its tiles as the staged route does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -648,6 +666,273 @@ __global__ void __launch_bounds__(kThreads) ce_dw_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// tiled backward (bfloat16): own rows resident, each streamed tile read once
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int TR = 32;   // own rows per block, streamed rows per tile
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared, bypassing registers; src_bytes < size
+// fills the rest with zeros (0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+template <int H>
+struct TiledSmem {
+  static constexpr int LD = H + 8;     // row pitch (bf16): 16 bytes past a
+                                       // multiple of 128, conflict-free
+  static constexpr int DLD = TR + 8;   // dl row pitch
+  static constexpr size_t rows = sizeof(bf16) * TR * LD;   // one 32 x H tile
+  static constexpr size_t red = sizeof(float) * kWarps * 16 * 32;
+  static constexpr size_t dl = sizeof(bf16) * TR * DLD;
+  static constexpr size_t stats = sizeof(float) * 3 * TR;
+  // own rows, a ring of two streamed tiles, the logits' partial sums, dl
+  // (hi, lo), two sets of (lse, scale, label)
+  static constexpr size_t bytes = 3 * rows + red + 2 * dl + 2 * stats;
+  static_assert(bytes <= kSmemLimit, "tiled smem");
+};
+
+// rows [r0, r0 + TR) of src (row stride ld, h contiguous) into dst (pitch
+// H + 8) by cp.async; rows >= n are zeros
+template <int H>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long ld, int r0, int n) {
+  constexpr int CPR = H / 8, PER = TR * CPR / kThreads;
+  static_assert(TR * CPR % kThreads == 0, "row chunks");
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * (H + 8) + col,
+               in ? src + static_cast<long long>(r0 + r) * ld + col : src,
+               in ? 16 : 0);
+  }
+}
+
+// (lse, scale, label) of tokens [t0, t0 + TR) into st[0..3*TR) by cp.async;
+// zeros past N (scale 0: no gradient)
+__device__ __forceinline__ void load_stats_async(float* st, const Params& p,
+                                                 int t0) {
+  const int k = threadIdx.x / TR, r = threadIdx.x % TR;
+  if (k < 3) {
+    const bool in = t0 + r < p.N;
+    const void* src = k == 0   ? static_cast<const void*>(p.lse + t0 + r)
+                      : k == 1 ? static_cast<const void*>(p.scale + t0 + r)
+                               : static_cast<const void*>(p.lbl + t0 + r);
+    cp_async4(st + k * TR + r, in ? src : p.lse, in ? 4 : 0);
+  }
+}
+
+// dh (kDw false): own rows = tokens of hid, streamed = vocab rows of w.
+// dw (kDw true): own rows = vocab rows of w, streamed = tokens of hid.
+// w is read as the (V, H) rows of its h-contiguous layout (sh == 1, row
+// stride sv). out: (own rows, H) contiguous: dh, or dw^T.
+template <int H, bool kDw>
+__global__ void __launch_bounds__(kThreads, 1)
+    ce_bwd_tiled_kernel(const Params p) {
+  using S = TiledSmem<H>;
+  constexpr int LD = S::LD, DLD = S::DLD;
+  constexpr int KQ = H / 4;          // logits: a warp's quarter of H
+  constexpr int HW = H / kWarps;     // product: a warp's columns of H
+  constexpr int NT = HW / 8;
+  static_assert(KQ % 16 == 0 && HW % 16 == 0, "H");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* own_s = reinterpret_cast<bf16*>(smem);
+  bf16* ring = own_s + TR * LD;
+  float* red_s = reinterpret_cast<float*>(smem + 3 * S::rows);
+  bf16* dhi_s = reinterpret_cast<bf16*>(smem + 3 * S::rows + S::red);
+  bf16* dlo_s = dhi_s + TR * DLD;
+  float* st_s = reinterpret_cast<float*>(smem + 3 * S::rows + S::red +
+                                         2 * S::dl);
+
+  const bf16* hid = static_cast<const bf16*>(p.hid);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  const int n_own = kDw ? p.V : p.N, n_str = kDw ? p.N : p.V;
+  const bf16* own = kDw ? w : hid;
+  const bf16* str = kDw ? hid : w;
+  const long long ld_own = kDw ? p.sv : H, ld_str = kDw ? H : p.sv;
+  const int o0 = blockIdx.x * TR;
+  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lj = lane >> 3, l8 = lane & 7;
+
+  load_rows<H>(own_s, own, ld_own, o0, n_own);
+  load_rows<H>(ring, str, ld_str, 0, n_str);
+  if (kDw) {
+    load_stats_async(st_s, p, 0);
+  } else if (tid < TR) {   // the own tokens' stats, read once
+    const bool in = o0 + tid < p.N;
+    st_s[tid] = in ? p.lse[o0 + tid] : 0.f;
+    st_s[TR + tid] = in ? p.scale[o0 + tid] : 0.f;
+    reinterpret_cast<int*>(st_s)[2 * TR + tid] = in ? p.lbl[o0 + tid] : -1;
+  }
+  cp_commit();
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  const int ntiles = (n_str + TR - 1) / TR;
+  for (int i = 0; i < ntiles; ++i) {
+    const int s0 = i * TR;
+    const bf16* cur = ring + (i & 1) * TR * LD;
+    const float* cst = st_s + (kDw ? (i & 1) * 3 * TR : 0);
+    cp_wait_all();
+    // tile i has landed; every reader of tile i - 1's slots is done
+    __syncthreads();
+    if (i + 1 < ntiles) {
+      load_rows<H>(ring + ((i + 1) & 1) * TR * LD, str, ld_str, s0 + TR,
+                   n_str);
+      if (kDw) load_stats_async(st_s + ((i + 1) & 1) * 3 * TR, p, s0 + TR);
+      cp_commit();
+    }
+
+    // logits of (32 own rows x 32 streamed rows): warp (mi, ki) takes own
+    // rows 16 mi.. against all 32 streamed rows over H quarter ki
+    {
+      const int mi = wi & 1, ki = wi >> 1;
+      float c[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+      const bf16* pa = own_s + (16 * mi + (lj & 1) * 8 + l8) * LD + ki * KQ +
+                       (lj >> 1) * 8;
+      const bf16* pb = cur + ((lj >> 1) * 8 + l8) * LD + ki * KQ +
+                       (lj & 1) * 8;
+#pragma unroll 4
+      for (int k = 0; k < KQ; k += 16) {
+        unsigned a[4], b0[4], b1[4];
+        ldsm_x4(a, pa + k);
+        ldsm_x4(b0, pb + k);             // streamed rows 0..15
+        ldsm_x4(b1, pb + 16 * LD + k);   // streamed rows 16..31
+        mma_bf16(c[0], a, b0[0], b0[1]);
+        mma_bf16(c[1], a, b0[2], b0[3]);
+        mma_bf16(c[2], a, b1[0], b1[1]);
+        mma_bf16(c[3], a, b1[2], b1[3]);
+      }
+      float* rw = red_s + wi * 16 * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rw[(j * 4 + e) * 32] = c[j][e];
+    }
+    __syncthreads();
+
+    // the four quarters summed in order, then dl as bf16 hi and lo
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = tid + q * kThreads;
+      const int mi = idx >> 9, e = (idx >> 5) & 15, ln = idx & 31;
+      float x = 0.f;
+#pragma unroll
+      for (int ki = 0; ki < 4; ++ki)
+        x += red_s[((ki * 2 + mi) * 16 + e) * 32 + ln];
+      const int row = 16 * mi + (ln >> 2) + 8 * ((e & 3) >> 1);
+      const int col = 8 * (e >> 2) + 2 * (ln & 3) + (e & 1);
+      const int sr = kDw ? col : row;   // the token's stats
+      const float d = dlogit(x, kDw ? o0 + row : s0 + col, p.V, cst[sr],
+                             reinterpret_cast<const int*>(cst)[2 * TR + sr],
+                             cst[TR + sr]);
+      put_dl(dhi_s, dlo_s, row * DLD + col, d);
+    }
+    __syncthreads();
+
+    // out[own rows][h] += dl (32 x 32) . tile (32 x H): warp wi takes all
+    // 32 rows x columns [wi HW, (wi + 1) HW), the tile as [k][n] through
+    // ldmatrix.trans
+    {
+      const bf16* pa = dhi_s + ((lj & 1) * 8 + l8) * DLD + (lj >> 1) * 8;
+      const bf16* pb = cur + ((lj & 1) * 8 + l8) * LD + wi * HW +
+                       (lj >> 1) * 8;
+#pragma unroll
+      for (int k = 0; k < TR; k += 16) {
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          ldsm_x4(ah[m], pa + m * 16 * DLD + k);
+          ldsm_x4(al[m], pa + TR * DLD + m * 16 * DLD + k);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          unsigned b[4];
+          ldsm_x4_t(b, pb + k * LD + n * 8);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_bf16(acc[m][n], ah[m], b[0], b[1]);
+            mma_bf16(acc[m][n], al[m], b[0], b[1]);
+            mma_bf16(acc[m][n + 1], ah[m], b[2], b[3]);
+            mma_bf16(acc[m][n + 1], al[m], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // the sums, rounded to bf16, through the own rows' slot as 16-byte rows
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int r = 16 * m + g, col = wi * HW + 8 * n + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(own_s + r * LD + col) =
+          __floats2bfloat162_rn(acc[m][n][0], acc[m][n][1]);
+      *reinterpret_cast<__nv_bfloat162*>(own_s + (r + 8) * LD + col) =
+          __floats2bfloat162_rn(acc[m][n][2], acc[m][n][3]);
+    }
+  __syncthreads();
+  bf16* out = static_cast<bf16*>(p.out);
+  constexpr int CPR = H / 8;
+  for (int c = tid; c < TR * CPR; c += kThreads) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    if (o0 + r < n_own)
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(o0 + r) * H +
+                                col) =
+          *reinterpret_cast<const uint4*>(own_s + r * LD + col);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 cudaError_t launch(void (*kernel)(const Params), int blocks, size_t smem,
@@ -682,6 +967,27 @@ cudaError_t dispatch(Which w, const Params& p, cudaStream_t s) {
                   DwSmem<T, 32>::bytes(p.H), p, s);
   return launch(ce_dw_kernel<T, 16>, (p.V + 15) / 16,
                 DwSmem<T, 16>::bytes(p.H), p, s);
+}
+
+// the tiled route: bfloat16, H = 768 or 1024, w h-contiguous (sh == 1)
+// with 16-byte aligned rows, hid and out 16-byte aligned; anything else is
+// refused (the wrapper routes by dtype and H and checks the rest)
+template <bool kDw>
+cudaError_t dispatch_tiled(const Params& p, cudaStream_t s) {
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (p.sh != 1 || p.sv % 8 != 0 || misaligned(p.w) || misaligned(p.hid) ||
+      misaligned(p.out))
+    return cudaErrorInvalidValue;
+  const int blocks = ((kDw ? p.V : p.N) + TR - 1) / TR;
+  if (p.H == 768)
+    return launch(ce_bwd_tiled_kernel<768, kDw>, blocks,
+                  TiledSmem<768>::bytes, p, s);
+  if (p.H == 1024)
+    return launch(ce_bwd_tiled_kernel<1024, kDw>, blocks,
+                  TiledSmem<1024>::bytes, p, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -732,7 +1038,7 @@ int fused_ce_fwd(const void* hid, const void* w, long long sh, long long sv,
   return run(kFwd, p, bf16, stream);
 }
 
-// dh (N, H) in the inputs' dtype
+// The staged route: dh (N, H) in the inputs' dtype
 int fused_ce_dh(const void* hid, const void* w, long long sh, long long sv,
                 const void* lbl, const void* lse, const void* scale, void* dh,
                 int N, int H, int V, int bf16, void* stream) {
@@ -754,8 +1060,39 @@ int fused_ce_dw(const void* hid, const void* w, long long sh, long long sv,
   return run(kDw, p, bf16, stream);
 }
 
-// the largest H (a multiple of 64) whose float32 sums fit a block's shared
-// memory, for bfloat16 (bf16 = 1) or float32 inputs
+// The tiled route (bfloat16 only; bf16 must be 1): dh (N, H) and dw^T (V, H)
+// as fused_ce_dh and fused_ce_dw give them, for H = 768 or 1024, with w
+// h-contiguous (sh == 1).
+int fused_ce_dh_tiled(const void* hid, const void* w, long long sh,
+                      long long sv, const void* lbl, const void* lse,
+                      const void* scale, void* dh, int N, int H, int V,
+                      int bf16, void* stream) {
+  if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || H <= 0 || V <= 0) return 0;
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.scale = static_cast<const float*>(scale);
+  p.out = dh;
+  return static_cast<int>(
+      dispatch_tiled<false>(p, static_cast<cudaStream_t>(stream)));
+}
+
+int fused_ce_dw_tiled(const void* hid, const void* w, long long sh,
+                      long long sv, const void* lbl, const void* lse,
+                      const void* scale, void* dwt, int N, int H, int V,
+                      int bf16, void* stream) {
+  if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || H <= 0 || V <= 0) return 0;
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.scale = static_cast<const float*>(scale);
+  p.out = dwt;
+  return static_cast<int>(
+      dispatch_tiled<true>(p, static_cast<cudaStream_t>(stream)));
+}
+
+// the staged route's largest H (a multiple of 64) whose float32 sums fit a
+// block's shared memory, for bfloat16 (bf16 = 1) or float32 inputs
 int fused_ce_max_hidden(int bf16) {
   return bf16 ? max_hidden<__nv_bfloat16>() : max_hidden<float>();
 }

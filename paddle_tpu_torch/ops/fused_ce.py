@@ -18,12 +18,18 @@ device memory.
   on float32 inputs as float32 FMAs. ``weight`` is read through its
   strides, so the tied head's ``embedding.weight.T`` needs no copy; ``dw``
   is written as a ``(V, H)`` buffer and returned as its ``(H, V)`` view.
+- **Two backward routes**, chosen by :func:`bwd_route` from the dtype and
+  H alone: ``"tiled"`` (bfloat16 at H in :data:`TILED_HIDDEN`: own rows
+  resident, each streamed tile read once by ``cp.async``, the sums in
+  registers) and ``"staged"`` (everything else up to
+  :data:`STAGED_MAX_HIDDEN`: the first design, sums in shared memory).
+  ``ROUTES`` counts the launches of each route.
 - **The plain versions** :func:`fused_ce_plain_fwd`,
   :func:`fused_ce_plain_dh` and :func:`fused_ce_plain_dw` compute the same
   over the full float32 logits.
 - **Dispatch.** :func:`ce_fwd`, :func:`ce_dh` and :func:`ce_dw` take the
   plain versions only for tensors on the CPU; on a CUDA tensor they launch
-  the kernels or raise. ``LAUNCHES`` counts launches.
+  the kernels or raise. ``LAUNCHES`` counts launches per kernel.
 - **Host epilogue**, as the reference's ``_ce_fwd``: ``valid = labels !=
   ignore_index``, ``loss = sum(valid * (lse - tgt)) / max(sum(valid), 1)``;
   the backward scale ``g * valid / denom`` makes ignored rows exact zeros.
@@ -44,6 +50,7 @@ from . import _build
 from .tuner import ce_dims, resolve
 
 __all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
+           "ROUTES", "STAGED_MAX_HIDDEN", "TILED_HIDDEN", "bwd_route",
            "fused_lm_ce", "fused_ce_supported", "resolve_blocks", "ce_fwd",
            "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_dh",
            "fused_ce_plain_dw", "load_kernel", "max_hidden"]
@@ -54,7 +61,16 @@ DEFAULT_BLOCK_VOCAB = 1024
 LANES = 128
 
 LAUNCHES = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+ROUTES = {"ce_dh_tiled": 0, "ce_dh_staged": 0, "ce_dw_tiled": 0,
+          "ce_dw_staged": 0}
 _launch_lock = threading.Lock()
+
+# the H the tiled backward kernel is instantiated for (bfloat16 only)
+TILED_HIDDEN = (768, 1024)
+# the largest H (a multiple of 64) whose float32 sums of 16 rows fit a
+# block's shared memory in the staged backward kernels; the library's
+# fused_ce_max_hidden reports the same numbers
+STAGED_MAX_HIDDEN = {torch.bfloat16: 2816, torch.float32: 2496}
 
 
 def fused_ce_supported(t: torch.Tensor) -> bool:
@@ -157,7 +173,10 @@ def load_kernel() -> ctypes.CDLL:
             lib.fused_ce_fwd.argtypes = head + [p, p] + tail
             lib.fused_ce_dh.argtypes = head + [p, p, p] + tail
             lib.fused_ce_dw.argtypes = head + [p, p, p] + tail
-            for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw):
+            lib.fused_ce_dh_tiled.argtypes = head + [p, p, p] + tail
+            lib.fused_ce_dw_tiled.argtypes = head + [p, p, p] + tail
+            for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw,
+                       lib.fused_ce_dh_tiled, lib.fused_ce_dw_tiled):
                 fn.restype = ctypes.c_int
             lib.fused_ce_max_hidden.argtypes = [ctypes.c_int]
             lib.fused_ce_max_hidden.restype = ctypes.c_int
@@ -167,12 +186,23 @@ def load_kernel() -> ctypes.CDLL:
         return _lib
 
 
+def bwd_route(dtype, h: int) -> str:
+    """The backward route for inputs of ``dtype`` and hidden size ``h``:
+    ``"tiled"`` for bfloat16 at an H of :data:`TILED_HIDDEN`, else
+    ``"staged"`` up to :data:`STAGED_MAX_HIDDEN`; past that, ValueError."""
+    if dtype not in STAGED_MAX_HIDDEN:
+        raise ValueError(f"fused_ce kernel: dtype {dtype}")
+    if dtype == torch.bfloat16 and h in TILED_HIDDEN:
+        return "tiled"
+    if h <= STAGED_MAX_HIDDEN[dtype]:
+        return "staged"
+    raise ValueError(f"fused_ce kernel: H {h} > {max_hidden(dtype)}")
+
+
 def max_hidden(dtype) -> int:
-    """The largest H the backward kernels take: their float32 sums of 16
-    rows against the whole of H must fit a block's shared memory (asked of
-    the built library)."""
-    return int(load_kernel().fused_ce_max_hidden(
-        int(dtype == torch.bfloat16)))
+    """The largest H the backward kernels take, over both routes."""
+    tiled = max(TILED_HIDDEN) if dtype == torch.bfloat16 else 0
+    return max(STAGED_MAX_HIDDEN[dtype], tiled)
 
 
 def _check(hid, w, labels):
@@ -192,9 +222,7 @@ def _check(hid, w, labels):
             raise ValueError(f"fused_ce: {name} on {t.device}, hid on {dev}")
     if labels.shape != hid.shape[:1]:
         raise ValueError("fused_ce: labels do not match hid's rows")
-    if hid.shape[1] > max_hidden(hid.dtype):
-        raise ValueError(f"fused_ce kernel: H {hid.shape[1]} > "
-                         f"{max_hidden(hid.dtype)}")
+    bwd_route(hid.dtype, hid.shape[1])       # raises past both routes' H
     return hid.contiguous(), labels.to(torch.int32).contiguous()
 
 
@@ -205,12 +233,32 @@ def _raise_on(lib, err, what):
                            f"(cudaError {err})")
 
 
-def _count(key):
+def _count(key, route=None):
     with _launch_lock:
         LAUNCHES[key] += 1
+        if route is not None:
+            ROUTES[f"{key}_{route}"] += 1
 
 
-def _launch(entry, key, hid, w, lbl, extra):
+def _aligned(t):
+    return t.data_ptr() % 16 == 0
+
+
+def _tiled_operands(hid, w):
+    """hid and w as the tiled kernel reads them: w with H the unit stride
+    (the tied ``.T`` view already is; a contiguous (H, V) w is copied to
+    that layout), rows on 16-byte boundaries for cp.async. A misaligned
+    tensor raises."""
+    if w.stride(0) != 1:
+        w = w.T.contiguous().T
+    if not (_aligned(hid) and _aligned(w) and w.stride(1) % 8 == 0):
+        raise ValueError("fused_ce tiled kernel: hid and w must start on "
+                         "16-byte boundaries with rows a multiple of 8 "
+                         "elements apart")
+    return hid, w
+
+
+def _launch(entry, key, hid, w, lbl, extra, route=None):
     n, h = hid.shape
     v = w.shape[1]
     lib = load_kernel()
@@ -221,7 +269,7 @@ def _launch(entry, key, hid, w, lbl, extra):
             lbl.data_ptr(), *[t.data_ptr() for t in extra], n, h, v,
             int(hid.dtype == torch.bfloat16), stream)
     _raise_on(lib, err, key)
-    _count(key)
+    _count(key, route)
 
 
 def ce_fwd(hid, w, labels):
@@ -257,7 +305,11 @@ def _bwd(entry, key, plain, hid, w, labels, lse, scale):
     if out.numel() == 0 or n == 0 or v == 0:
         out.zero_()
     else:
-        _launch(entry, key, hid, w, lbl, (lse, scale, out))
+        route = bwd_route(hid.dtype, h)
+        if route == "tiled":
+            hid, w = _tiled_operands(hid, w)
+            entry += "_tiled"
+        _launch(entry, key, hid, w, lbl, (lse, scale, out), route)
     return out if key == "ce_dh" else out.T
 
 

@@ -219,6 +219,51 @@ def test_tuning_rows_and_blocks_answer_as_the_reference(dtype, dims):
                              got[0]["block_vocab"])
 
 
+# -- the backward's route, a pure function of (dtype, H) ---------------------
+
+@pytest.mark.parametrize("dtype,h,route", [
+    (torch.bfloat16, 768, "tiled"), (torch.bfloat16, 1024, "tiled"),
+    (torch.bfloat16, 2048, "staged"), (torch.bfloat16, 32, "staged"),
+    (torch.bfloat16, 2816, "staged"), (torch.float32, 768, "staged"),
+    (torch.float32, 1024, "staged"), (torch.float32, 2496, "staged")])
+def test_backward_route_by_dtype_and_hidden(dtype, h, route):
+    assert fused_ce.bwd_route(dtype, h) == route
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.bfloat16, 2880),
+                                     (torch.bfloat16, 4096),
+                                     (torch.float32, 2560),
+                                     (torch.float16, 768)])
+def test_backward_route_past_both_limits_raises(dtype, h):
+    with pytest.raises(ValueError, match="fused_ce kernel"):
+        fused_ce.bwd_route(dtype, h)
+
+
+def test_max_hidden_is_the_larger_route_limit():
+    assert fused_ce.max_hidden(torch.bfloat16) == 2816
+    assert fused_ce.max_hidden(torch.float32) == 2496
+    assert max(fused_ce.TILED_HIDDEN) <= fused_ce.max_hidden(torch.bfloat16)
+
+
+def test_the_main_path_call_takes_the_tiled_route():
+    """bench.py's fused_b8_pallas_ce: GPT-base (hidden 768) in bf16, the
+    head's hidden states against the tied embedding's .T view."""
+    import inspect
+    from paddle_tpu_torch.text.models import gpt
+    sig = inspect.signature(gpt.GPTModel.__init__)
+    h = sig.parameters["hidden_size"].default
+    assert h == 768
+    assert fused_ce.bwd_route(torch.bfloat16, h) == "tiled"
+    emb = torch.zeros(50304, h, dtype=torch.bfloat16)
+    hid, w = fused_ce._tiled_operands(torch.zeros(16, h, dtype=torch.bfloat16),
+                                      emb.T)
+    assert w.data_ptr() == emb.data_ptr()       # the tied view, no copy
+    assert w.stride() == (1, h)
+    # a contiguous (H, V) w is laid out h-contiguous for the tiled kernel
+    _, w2 = fused_ce._tiled_operands(hid, emb.T.contiguous())
+    assert w2.stride() == (1, h) and torch.equal(w2, emb.T)
+
+
 # -- cross_entropy / softmax_with_cross_entropy -------------------------------
 
 def _ce_inputs(seed, shape=(6, 7, 11)):

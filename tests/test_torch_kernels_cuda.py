@@ -269,6 +269,7 @@ def _ce_inputs(dev, n, h, v, dtype, ignore=0.3, transposed=False, seed=0):
 
 def _ce_check(hid, w, lbl, scale, dtype):
     n0 = dict(fused_ce.LAUNCHES)
+    r0 = dict(fused_ce.ROUTES)
     lse, tgt = fused_ce.ce_fwd(hid, w, lbl)
     rl, rt = fused_ce.fused_ce_plain_fwd(hid, w, lbl)
     dh = fused_ce.ce_dh(hid, w, lbl, rl, scale)
@@ -277,6 +278,9 @@ def _ce_check(hid, w, lbl, scale, dtype):
     rdw = fused_ce.fused_ce_plain_dw(hid, w, lbl, rl, scale)
     torch.cuda.synchronize()
     assert fused_ce.LAUNCHES == {k: n0[k] + 1 for k in n0}
+    route = fused_ce.bwd_route(dtype, hid.shape[1])
+    assert fused_ce.ROUTES == {
+        k: r0[k] + (k in (f"ce_dh_{route}", f"ce_dw_{route}")) for k in r0}
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(tgt, rt, rtol=1e-5, atol=1e-4)
     assert dh.dtype == hid.dtype and dw.dtype == w.dtype
@@ -287,33 +291,81 @@ def _ce_check(hid, w, lbl, scale, dtype):
         assert err <= tol * want.float().abs().max().item(), err
     ignored = lbl == -100
     assert dh[ignored].abs().max().item() == 0.0 if ignored.any() else True
+    return dh, dw
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(128, 64, 512), (200, 32, 500),
-                                   (1000, 768, 50304), (300, 2048, 5000)])
+                                   (1000, 768, 50304), (300, 2048, 5000),
+                                   (1000, 768, 5003), (257, 1024, 50304),
+                                   (31, 768, 77)])
 def test_fused_ce_kernels_match_plain(cuda_device, shape, dtype, transposed):
+    """bfloat16 at H = 768 and 1024 takes the tiled route (N not a multiple
+    of its 32 rows, V not a multiple of 32 in the last three); the rest
+    the staged route."""
     args = _ce_inputs(cuda_device, *shape, dtype, transposed=transposed,
                       seed=sum(shape))
     _ce_check(*args, dtype)
 
 
 @pytest.mark.cuda
+def test_fused_ce_tiled_route_is_bit_reproducible(cuda_device):
+    hid, w, lbl, scale = _ce_inputs(cuda_device, 1000, 768, 5003,
+                                    torch.bfloat16, transposed=True)
+    lse, _ = fused_ce.ce_fwd(hid, w, lbl)
+    first = (fused_ce.ce_dh(hid, w, lbl, lse, scale),
+             fused_ce.ce_dw(hid, w, lbl, lse, scale))
+    second = (fused_ce.ce_dh(hid, w, lbl, lse, scale),
+              fused_ce.ce_dw(hid, w, lbl, lse, scale))
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_fused_ce_tiled_route_rejects_misaligned_rows(cuda_device):
+    hid, w, lbl, scale = _ce_inputs(cuda_device, 64, 768, 300,
+                                    torch.bfloat16, transposed=True)
+    flat = torch.empty(64 * 768 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    odd = flat[1:].view(64, 768)                  # 2 bytes past a boundary
+    odd.copy_(hid)
+    assert odd.is_contiguous()
+    n0 = dict(fused_ce.ROUTES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_ce.ce_dh(odd, w, lbl, scale, scale)
+    assert fused_ce.ROUTES == n0
+
+
+@pytest.mark.cuda
+def test_fused_ce_staged_limits_match_the_library(cuda_device):
+    lib = fused_ce.load_kernel()
+    assert lib.fused_ce_max_hidden(1) == \
+        fused_ce.STAGED_MAX_HIDDEN[torch.bfloat16]
+    assert lib.fused_ce_max_hidden(0) == \
+        fused_ce.STAGED_MAX_HIDDEN[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 32),
+                                     (torch.bfloat16, 768),
+                                     (torch.bfloat16, 1024)])
 @pytest.mark.parametrize("ignore", [0.0, 1.0])
-def test_fused_ce_kernels_with_no_and_all_rows_ignored(cuda_device, ignore):
-    args = _ce_inputs(cuda_device, 200, 32, 500, torch.float32,
-                      ignore=ignore)
-    _ce_check(*args, torch.float32)
+def test_fused_ce_kernels_with_no_and_all_rows_ignored(cuda_device, ignore,
+                                                       dtype, h):
+    args = _ce_inputs(cuda_device, 200, h, 500, dtype, ignore=ignore,
+                      transposed=h > 32)
+    dh, dw = _ce_check(*args, dtype)
     if ignore == 1.0:
+        assert not dh.any() and not dw.any()
         hid, w, lbl, _ = args
-        h = hid.clone().requires_grad_()
+        hg = hid.clone().requires_grad_()
         ww = w.clone().requires_grad_()
-        loss = fused_ce.fused_lm_ce(h, ww, lbl)
+        loss = fused_ce.fused_lm_ce(hg, ww, lbl)
         loss.backward()
         assert loss.item() == 0.0
-        assert not h.grad.any() and not ww.grad.any()
+        assert not hg.grad.any() and not ww.grad.any()
 
 
 @pytest.mark.cuda
@@ -326,8 +378,12 @@ def test_fused_ce_kernels_on_the_main_path_call(cuda_device):
     _ce_check(hid, w, lbl, scale, torch.bfloat16)
     emb = w.T.clone().requires_grad_()
     h = hid.clone().requires_grad_()
+    r0 = dict(fused_ce.ROUTES)
     loss = fused_ce.fused_lm_ce(h, emb.T, lbl)
     loss.backward()
+    assert {k: fused_ce.ROUTES[k] - r0[k] for k in r0} == {
+        "ce_dh_tiled": 1, "ce_dh_staged": 0, "ce_dw_tiled": 1,
+        "ce_dw_staged": 0}
     ref = torch.nn.functional.cross_entropy(hid.float() @ w.float(), lbl)
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
     assert emb.grad.is_contiguous() and emb.grad.shape == (50304, 768)
