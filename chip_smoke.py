@@ -12,10 +12,13 @@ per source, all started together), then:
   ``DecodeServer`` and ``SpeculativeDecodeServer``, checking every token
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
-- training: holds the three flash-attention kernels (forward, dq, dk/dv)
-  and the three fused-CE kernels (forward, dh, dw; dh and dw on both their
-  routes, tiled and staged) against their plain versions and times them at
-  GPT-base; trains GPT-base widths at depth 2
+- training: holds the flash-attention kernels (forward on both its routes,
+  tensor-core and scalar; dq, dk/dv) and the three fused-CE kernels
+  (forward, dh, dw; dh and dw on both their routes, tiled and staged)
+  against their plain versions and times them at GPT-base (the forward also
+  at GPT-1.3B's head dim); checks that float16 inputs fall back to the
+  plain attention and the chunked CE, counted; trains GPT-base widths at
+  depth 2
   in float32 against the JAX reference's golden losses
   (``paddle_tpu_torch/testdata/gpt_train_golden.json``) through the three
   routes of the head loss (chunked CE, fused CE kernels, dense logits +
@@ -74,6 +77,11 @@ REPLACES = {"decode": "paddle_tpu/ops/pallas/paged_attention.py:141",
 # flash kernel vs plain: float32 math in both, sums in other orders
 # (float32); one bfloat16 rounding of each output (bfloat16)
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# the tensor-core forward against the plain version, beside FLASH_TOL, on
+# every bf16 case: ||out - plain|| / ||plain|| over the whole output and
+# max |lse - plain lse|, each held at a few times the largest that sound
+# runs read (PERF.md §6); a skipped K tile reads far above both
+MMA_FWD_BOUND = {"out_rel": 8e-3, "lse_abs": 5e-6}
 FLASH_SEED = 7
 # fused-CE kernel vs plain, as errors normalized by the plain tensor's
 # largest magnitude (the 1/denom factor makes dh and dw small): float32
@@ -325,7 +333,9 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
     """Kernel vs plain on the card: forward (out, lse) and, through the
     autograd Function, backward (dq, dk, dv). With ``split_qkv`` q, k and v
     are what GPTAttention hands the kernels: strided views of one
-    (B, S, H, 3*D) tensor, split per head. Returns the max abs errors."""
+    (B, S, H, 3*D) tensor, split per head. Returns the max abs errors and,
+    on the mma route, the relative errors that :data:`MMA_FWD_BOUND`
+    holds."""
     dev = "cuda"
     rand = lambda *shape: torch.as_tensor(  # noqa: E731
         rs.randn(*shape).astype(np.float32), device=dev).to(dtype)
@@ -345,6 +355,9 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
                                                 device=dev)
     seed = FLASH_SEED
     blocks = fa.keying_blocks(dtype, d, s, s)
+    # the random tensors and the QKV split's views are 16-byte aligned
+    route = fa.fwd_route(dtype, d, True)
+    r0 = dict(fa.ROUTES)
     out, lse = fa.flash_attention_fwd(q, k, v, ln, seed, None, causal, rate,
                                       blocks)
     ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, ln, seed, None,
@@ -357,11 +370,21 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
     ref_grads = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, ln,
                                              seed, None, causal, rate, blocks)
     torch.cuda.synchronize()
+    routes = {key: fa.ROUTES[key] - r0[key] for key in r0}
+    check(routes == {key: 2 * (key == f"flash_fwd_{route}") for key in routes},
+          f"flash forward routes {routes}, want two on {route} (s={s} d={d} "
+          f"{dtype})")
+    names = ["out", "lse", "out_autograd", "dq", "dk", "dv"]
+    gots, refs = [out, lse, out2, *grads], [ref_out, ref_lse, ref_out,
+                                            *ref_grads]
+    if route == "mma":    # the scalar kernel on the same inputs, beside it
+        names += ["out_scalar_route", "lse_scalar_route"]
+        gots += list(fa.flash_attention_fwd(q, k, v, ln, seed, None, causal,
+                                            rate, blocks, route="scalar"))
+        refs += [ref_out, ref_lse]
     atol, rtol = FLASH_TOL[dtype]
     errs = {}
-    for name, g, r in zip(("out", "lse", "out_autograd", "dq", "dk", "dv"),
-                          (out, lse, out2, *grads),
-                          (ref_out, ref_lse, ref_out, *ref_grads)):
+    for name, g, r in zip(names, gots, refs):
         g, r = g.float(), r.float()
         check(torch.isfinite(g).all().item(), f"kernel {name} not finite")
         errs[name] = (g - r).abs().max().item()
@@ -369,28 +392,81 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
               f"flash {name} s={s} d={d} causal={causal} lens={lens} "
               f"{dtype} rate={rate} split_qkv={split_qkv}: max err "
               f"{errs[name]}")
-    return errs
+    if route == "mma":
+        for name in ("out", "out_autograd", "out_scalar_route"):
+            g = gots[names.index(name)].float()
+            errs[f"{name}_rel"] = ((g - ref_out.float()).norm() /
+                                   ref_out.float().norm().clamp_min(1e-30)
+                                   ).item()
+        worst = max(errs["out_rel"], errs["out_autograd_rel"])
+        check(worst <= MMA_FWD_BOUND["out_rel"] and
+              errs["lse"] <= MMA_FWD_BOUND["lse_abs"],
+              f"flash mma forward s={s} d={d} causal={causal} lens={lens} "
+              f"rate={rate}: relative out error {worst}, lse error "
+              f"{errs['lse']} against {MMA_FWD_BOUND}")
+    return errs, route
+
+
+def _qkv_views(b, s, h, d, seed=0):
+    """q, k, v as GPTAttention hands them to the kernels (strided views of
+    one (B, S, H, 3*D) bf16 tensor) and a (B, S, H, D) output gradient."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qkv, do = [torch.randn(b, s, h, n * d, device="cuda", generator=gen,
+                           dtype=torch.float32).to(torch.bfloat16)
+               for n in (3, 1)]
+    return (*torch.split(qkv, d, dim=-1), do)
+
+
+def _fwd_bound(b, h, s, d, e=2):
+    """The causal forward's least time on this card: 2 products of
+    B*H*S*S*D/2 multiply-adds (2 FLOPs each) against q, k, v read and out
+    written once plus lse."""
+    flops = 2 * b * h * s * s * d
+    moved = 4 * b * s * h * d * e + b * h * s * 4
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    return flops, moved, max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_fwd_routes_timing(fa, flush, b, h, s, d):
+    """The forward at one shape (bf16, causal, QKV split views): its plain
+    version, the tensor-core kernel, the scalar kernel and SDPA's forward,
+    one after another in this run, with the bound."""
+    q, k, v, _ = _qkv_views(b, s, h, d)
+    rest = (None, 0, None, True, 0.0, fa.keying_blocks(q.dtype, d, s, s))
+    plain = time_ms(lambda: fa.flash_attention_plain_fwd(q, k, v, *rest),
+                    reps=5, flush=flush)
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, *rest, route="mma"),
+                 flush=flush)
+    scalar = time_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, *rest, route="scalar"), flush=flush)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush=flush)
+    flops, moved, bound, bound_by = _fwd_bound(b, h, s, d)
+    return {"shape": [b, s, h, d], "fwd_route": "mma", "ms": ms,
+            "scalar_ms": scalar, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound,
+            "bound_by": bound_by, "flops": flops, "bytes": moved,
+            "tflops": flops / ms / 1e9, "scalar_over_mma": scalar / ms,
+            "mma_over_library": ms / lib}
 
 
 def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     """Each kernel, its plain version and the library call at GPT-base
     (bf16, causal; q, k, v the QKV split's strided views, as the main path
-    gives them), with each kernel's bound on this card."""
-    dev = "cuda"
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    qkv, do = [torch.randn(b, s, h, n * d, device=dev, generator=gen,
-                           dtype=torch.float32).to(torch.bfloat16)
-               for n in (3, 1)]
-    q, k, v = torch.split(qkv, d, dim=-1)
+    gives them), with each kernel's bound on this card; the forward as
+    :func:`flash_fwd_routes_timing` measures it."""
+    fwd = flash_fwd_routes_timing(fa, flush, b, h, s, d)
+    q, k, v, do = _qkv_views(b, s, h, d)
     blocks = fa.keying_blocks(q.dtype, d, s, s)
     out, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, True, 0.0,
                                       blocks)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     rest = (None, 0, None, True, 0.0, blocks)
-    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(
-              q, k, v, *rest), flush=flush),
-          "flash_dq": time_ms(lambda: fa._launch_dq(
+    ms = {"flash_dq": time_ms(lambda: fa._launch_dq(
               q, k, v, do, lse, delta, *rest), flush=flush),
           "flash_dkv": time_ms(lambda: fa._launch_dkv(
               q, k, v, do, lse, delta, *rest), flush=flush)}
@@ -404,9 +480,7 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
         ds, p_drop, scale = fa._plain_ds(q, k, v, out, lse, do, *rest)
         return fa._plain_dkv(ds, p_drop, q, k, v, do, scale)
 
-    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_plain_fwd(
-                 q, k, v, *rest), reps=5, flush=flush),
-             "flash_dq": time_ms(plain_dq, reps=5, flush=flush),
+    plain = {"flash_dq": time_ms(plain_dq, reps=5, flush=flush),
              "flash_dkv": time_ms(plain_dkv, reps=5, flush=flush)}
     plain_bwd = time_ms(lambda: fa.flash_attention_plain_bwd(
         q, k, v, out, lse, do, *rest), reps=5, flush=flush)
@@ -415,7 +489,6 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     qt, kt, vt = [x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v)]
     dot = do.transpose(1, 2).contiguous()
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush=flush)
     o_lib = sdpa(qt, kt, vt, is_causal=True)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), dot, retain_graph=True), flush=flush)
@@ -425,31 +498,28 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     tensor = b * s * h * d * e                 # one (B, S, H, D) tensor
     stat = b * h * s * 4                       # lse or delta, float32
     prod = b * h * s * s * d                   # one causal S x S x D product
-    work = {"flash_fwd": (2 * prod, 3 * tensor + tensor + stat),
-            "flash_dq": (3 * prod, 4 * tensor + 2 * stat + tensor),
+    work = {"flash_dq": (3 * prod, 4 * tensor + 2 * stat + tensor),
             "flash_dkv": (4 * prod, 4 * tensor + 2 * stat + 2 * tensor)}
     # no library call computes dq alone or dk/dv alone: the backward rows
     # carry library_ms null, and the whole backward (SDPA's, the plain one,
     # dq + dk/dv) under keys of its own
     whole_bwd = {"bwd_ms": ms["flash_dq"] + ms["flash_dkv"],
                  "plain_bwd_ms": plain_bwd, "library_bwd_ms": lib_bwd}
-    res = {}
+    res = {"flash_fwd": fwd}
     for name, (flops, moved) in work.items():
         t_ops = flops / H100_BF16_FLOPS * 1e3
         t_bytes = moved / H100_BYTES_PER_S * 1e3
         res[name] = {
             "ms": ms[name], "flops": flops, "bytes": moved,
-            "plain_ms": plain[name],
-            "library_ms": lib_fwd if name == "flash_fwd" else None,
+            "plain_ms": plain[name], "library_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / ms[name] / 1e9,
-            **({} if name == "flash_fwd" else whole_bwd)}
+            "tflops": flops / ms[name] / 1e9, **whole_bwd}
     # the backward as one minimal pass (scores, dp, dq, dk, dv: 5 products)
     bwd_bound = max(5 * prod / H100_BF16_FLOPS,
                     (5 * tensor + 3 * tensor + 2 * stat) / H100_BYTES_PER_S)
     return res, {"bwd_minimal_bound_ms": bwd_bound * 1e3,
-                 "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                 "sdpa_fwd_ms": fwd["library_ms"], "sdpa_bwd_ms": lib_bwd,
                  "sdpa_fwd_bwd_ms": lib_fwdbwd, "plain_bwd_ms": plain_bwd}
 
 
@@ -720,12 +790,16 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     grads = torch.autograd.grad(loss0, list(trainer.params.values()))
     gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
     loss0 = loss0.item()
-    for counts in (fa.LAUNCHES, fc.LAUNCHES, fc.ROUTES):
+    for counts in (fa.LAUNCHES, fa.ROUTES, fc.LAUNCHES, fc.ROUTES):
         for key in counts:
             counts[key] = 0
     losses = [trainer.train_step(inputs, lbls) for _ in gold["losses"]]
     losses = [x.item() for x in losses]
     launches = dict(fa.LAUNCHES)
+    # float32: the forward stays on the scalar kernel
+    check(fa.ROUTES == {"flash_fwd_mma": 0,
+                        "flash_fwd_scalar": launches["flash_fwd"]},
+          f"flash forward routes {fa.ROUTES} ({head}, float32)")
     ce_launches = dict(fc.LAUNCHES)
     ce_routes = dict(fc.ROUTES)
     n_layers = cfg["num_layers"]
@@ -752,8 +826,8 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     return {"head": head, "loss0": loss0, "grad_norm": gnorm,
             "losses": losses, "golden_losses": gold["losses"],
             "golden_grad_norm": gold["step0_grad_norm"],
-            "launches": launches, "ce_launches": ce_launches,
-            "ce_routes": ce_routes}
+            "launches": launches, "fwd_routes": dict(fa.ROUTES),
+            "ce_launches": ce_launches, "ce_routes": ce_routes}
 
 
 def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
@@ -799,8 +873,8 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     for _ in range(warmup):
         loss = trainer.train_step(inputs, lbls)
     float(loss)
-    counts = [fa.LAUNCHES] + ([fc.LAUNCHES, fc.ROUTES] if fc is not None
-                              else [])
+    counts = [fa.LAUNCHES, fa.ROUTES] + ([fc.LAUNCHES, fc.ROUTES]
+                                         if fc is not None else [])
     for c in counts:
         for key in c:
             c[key] = 0
@@ -812,6 +886,7 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     last = float(losses[-1])
     dt = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    fwd_routes = dict(fa.ROUTES)
     ce_launches = dict(fc.LAUNCHES) if fc is not None else {}
     ce_routes = dict(fc.ROUTES) if fc is not None else {}
     fallbacks = tuner.FALLBACKS["flash_attention"]
@@ -828,6 +903,11 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
             "flash_dq": per_step, "flash_dkv": per_step}
     check(launches == {k: n * iters for k, n in want.items()},
           f"flash launches {launches} != {want} per step")
+    # bf16 at D = 64 on the QKV split's views: every forward on the
+    # tensor-core route
+    check(fwd_routes == {"flash_fwd_mma": launches["flash_fwd"],
+                         "flash_fwd_scalar": 0},
+          f"flash forward routes {fwd_routes}: not all on the mma route")
     check(all(n == iters for n in ce_launches.values()),
           f"fused CE launches {ce_launches} != 1 per step")
     # bf16 at GPT-base's H: dh and dw on the tiled route, every step
@@ -844,7 +924,8 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
                 torch.cuda.max_memory_allocated() / 2 ** 30,
             "params": n_params, "model_flops_per_step": flops / iters,
             "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
-            "launches": launches, "ce_launches": ce_launches,
+            "launches": launches, "fwd_routes": fwd_routes,
+            "ce_launches": ce_launches,
             "ce_routes": ce_routes, "flash_fallbacks": fallbacks,
             "fused_ce_fallbacks": ce_fallbacks, "skipped_steps": 0}
 
@@ -894,7 +975,50 @@ def profile_train(trainer, batch, steps=3):
         groups[key] = (ms + us / 1e3 / steps, launches + n)
     groups = {k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
               for k, v in groups.items()}
-    return dict(steps=steps, by_group=groups, **report)
+    flash = {}
+    for us, name, n in rows:
+        for kernel in ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+                       "flash_dq_kernel", "flash_dkv_kernel"):
+            if kernel in name:
+                ms, launches = flash.get(kernel, (0.0, 0))
+                flash[kernel] = (ms + us / 1e3 / steps, launches + n)
+    flash = {k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
+             for k, v in flash.items()}
+    return dict(steps=steps, by_group=groups, flash_by_kernel=flash, **report)
+
+
+def gates(fa, fc, nn, tuner, optim, rs):
+    """The repaired dispatch on the card: float16 attention and head loss
+    take the plain attention and the chunked CE, each counting one fallback
+    and launching no kernel; AdamW takes its slot dtype by name."""
+    from paddle_tpu_torch.nn.functional.attention import _xla_attention
+    F = nn.functional
+    rand = lambda *shape: torch.as_tensor(  # noqa: E731
+        rs.randn(*shape).astype(np.float32), device="cuda")
+    q, k, v = [rand(2, 512, 4, 64).half() for _ in range(3)]
+    n0, l0 = tuner.FALLBACKS["flash_attention"], dict(fa.LAUNCHES)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    check(tuner.FALLBACKS["flash_attention"] == n0 + 1 and
+          fa.LAUNCHES == l0, "float16 attention did not fall back, counted")
+    check(torch.equal(out, _xla_attention(q, k, v, causal=True)),
+          "float16 attention != the plain attention")
+    hid, w = rand(256, 768).half(), (0.05 * rand(768, 1000)).half()
+    lbl = torch.as_tensor(rs.randint(0, 1000, 256), device="cuda")
+    c0, cl0 = tuner.FALLBACKS["fused_ce"], dict(fc.LAUNCHES)
+    loss = F.fused_linear_cross_entropy(hid, w, lbl, kernel="auto")
+    check(tuner.FALLBACKS["fused_ce"] == c0 + 1 and fc.LAUNCHES == cl0,
+          "float16 head loss did not fall back, counted")
+    chunked = F.fused_linear_cross_entropy(hid, w, lbl, kernel="chunked")
+    check(torch.equal(loss, chunked), "float16 head loss != chunked CE")
+    opt = optim.AdamW(1e-3, slot_dtype="bfloat16")
+    p = {"w": rand(64, 64).to(torch.bfloat16)}
+    state = opt.init_state(p)
+    p2, state = opt.apply_gradients(p, {"w": rand(64, 64)}, state)
+    check(state["slots"]["w"]["m"].dtype == torch.bfloat16 and
+          torch.isfinite(p2["w"].float()).all().item(),
+          "AdamW(slot_dtype='bfloat16') on the card")
+    return {"float16_attention_fallbacks": 1, "float16_ce_fallbacks": 1,
+            "float16_loss": loss.item(), "adamw_slot_dtype": "bfloat16"}
 
 
 def main() -> int:
@@ -937,8 +1061,10 @@ def main() -> int:
     fa.load_kernel()
     fc.load_kernel()
     emit(phase="build", seconds=time.perf_counter() - t0,
+         build_seconds={n: i["seconds"] for n, i in _build.BUILD_INFO.items()},
          ptxas={n: [ln.strip() for ln in i["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or
+                    "Compiling entry" in ln]
                 for n, i in _build.BUILD_INFO.items()})
 
     # 3. kernel parity against the plain version, on the card
@@ -1045,13 +1171,32 @@ def main() -> int:
               for causal in (True, False)]
     cases += [(256, 64, True, None, f32, 0.1),
               (1024, 64, True, None, bf16, 0.1)]
+    # the tensor-core forward: every bf16 case at D = 64 and 128 not above
+    have = set((c[0], c[1], c[2], str(c[3])) for c in cases
+               if c[4] == bf16 and c[5] == 0.0)
+    cases += [(s, d, causal, lens, bf16, 0.0)
+              for s in (128, 200, 1024) for d in (64, 128)
+              for causal in (True, False) for lens in (None, [s, 37], [0, 37])
+              if (s, d, causal, str(lens)) not in have]
+    cases += [(1024, 128, True, None, bf16, 0.1)]
     cases = [c + (dict(),) for c in cases]
     # the main path's call: GPT-base, q/k/v the QKV split's strided views
     cases.append((1024, 64, True, None, bf16, 0.0,
                   dict(b=8, h=12, split_qkv=True)))
+    n_mma = 0
+    mma_worst = {"out_rel": 0.0, "lse_abs": 0.0, "scalar_out_rel": 0.0}
     for s, d, causal, lens, dtype, rate, kw in cases:
-        errs = flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate,
-                                 **kw)
+        errs, route = flash_parity_case(fa, rs, s, d, causal, lens, dtype,
+                                        rate, **kw)
+        rel = {key: errs.pop(key) for key in list(errs)
+               if key.endswith("_rel")}
+        if route == "mma":
+            n_mma += 1
+            for key, val in (("out_rel", rel["out_rel"]),
+                             ("out_rel", rel["out_autograd_rel"]),
+                             ("lse_abs", errs["lse"]),
+                             ("scalar_out_rel", rel["out_scalar_route_rel"])):
+                mma_worst[key] = max(mma_worst[key], val)
         flash_err["flash_fwd"] = max(flash_err["flash_fwd"], errs["out"],
                                      errs["lse"], errs["out_autograd"])
         flash_err["flash_dq"] = max(flash_err["flash_dq"], errs["dq"])
@@ -1059,15 +1204,35 @@ def main() -> int:
                                      errs["dv"])
         emit(phase="flash_parity", s=s, d=d, causal=causal, lens=lens,
              dtype=str(dtype).split(".")[-1], dropout=rate, **kw,
-             max_abs_err=errs, atol_rtol=FLASH_TOL[dtype][0])
+             fwd_route=route, max_abs_err=errs, rel_err=rel,
+             atol_rtol=FLASH_TOL[dtype][0])
+    check(n_mma == sum(c[4] == bf16 for c in cases),
+          f"{n_mma} bf16 cases on the mma route of "
+          f"{sum(c[4] == bf16 for c in cases)}")
+    # the main path's call twice on the mma route: the same bits
+    q, k, v, _ = _qkv_views(8, 1024, 12, 64, seed=1)
+    rest = (None, 0, None, True, 0.0, fa.keying_blocks(bf16, 64, 1024, 1024))
+    once = fa.flash_attention_fwd(q, k, v, *rest, route="mma")
+    twice = fa.flash_attention_fwd(q, k, v, *rest, route="mma")
+    check(all(torch.equal(a, b) for a, b in zip(once, twice)),
+          "two mma forward launches at the main call differ")
+    emit(phase="flash_repeat", bit_identical=True, cases_on_mma=n_mma,
+         cases=len(cases), mma_worst=mma_worst, mma_bound=MMA_FWD_BOUND)
+    del q, k, v, once, twice
 
     # 9. flash timing at GPT-base (B=8, H=12, S=1024, D=64, bf16, causal)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     ftiming, fextra = flash_timing(fa, flush)
+    # gpt_1p3b's attention: 16 heads of 128 at S = 1024
+    fwd_d128 = flash_fwd_routes_timing(fa, flush, 8, 16, 1024, 128)
     del flush
     for name, t in ftiming.items():
         emit(phase="flash_timing", card=card, kernel=name, **t)
     emit(phase="flash_timing_library", card=card, **fextra)
+    emit(phase="flash_fwd_timing", card=card, config="gpt_1p3b", **fwd_d128)
+
+    # 9b. the repaired dispatch: float16 falls back, counted
+    emit(phase="gates", card=card, **gates(fa, fc, nn, tuner, optim, rs))
 
     # 10. fused-CE kernels against their plain versions on the card
     ce_err = {k: {"abs": 0.0, "norm": 0.0} for k in ("ce_fwd", "ce_dh",
@@ -1209,7 +1374,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in ("bwd_ms", "plain_bwd_ms",
-                                       "library_bwd_ms") if key in t}})
+                                       "library_bwd_ms", "fwd_route",
+                                       "scalar_ms") if key in t},
+            **({"d128": {key: fwd_d128[key] for key in (
+                "shape", "ms", "scalar_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}} if name == "flash_fwd" else {})})
     for name, t in ctiming.items():
         kernels.append({
             "name": name, "route": "cuda", "source": CE_SRC,

@@ -36,28 +36,53 @@
 //     the call, so the mask is bit-equal whatever tiles run here. The mask
 //     scales P·V in the forward and dp in both backward kernels.
 //
-// Design. One block of 256 threads (16 x 16) per (q tile, b*h) for the
-// forward and dq, per (k tile, b*h) for dk/dv; the TPU grid's sequential
-// axis becomes a loop inside the block over the other side's tiles. Tiles
-// are BQ = BK = 64 rows (32 at D = 256), staged as float32 rows of stride
-// D + 1 in shared memory so that 16 threads reading 16 different rows at one
-// d hit 16 different banks. Thread (ty, tx) owns the scores of rows
-// ty + 16i and columns tx + 16j (a 4 x 4 register tile), and of the output
-// the same rows and dims tx + 16d; the 16 threads of a row sit in one half
-// warp and reduce the row max and sum with shuffles. The score tile goes
-// through shared memory (stride BK + 16) between the two products. Each
-// output element is summed in one thread in a fixed order: deterministic,
-// no atomics.
+// Two forward kernels, picked by the wrapper (ops/flash_attention.py,
+// fwd_route):
+//
+// flash_fwd_mma_kernel (route "mma": bfloat16, D = 64 or 128, rows on
+//   16-byte boundaries). Bound on this card: the two products, 2*S*S*D
+//   multiply-adds per (b, h) causal, on the tensor cores. One block of 8
+//   warps per (b*h, q tile of 128 rows, 16 a warp), heavy tiles first.
+//   (64 rows over 4 warps was slower at D = 64 and no faster at D = 128.) Q is read once by cp.async and held as mma A fragments
+//   (ldmatrix) for the whole key loop. K/V tiles of 64 keys go through a
+//   two-slot cp.async ring: tile j+1 loads while tile j computes; keys past
+//   Sk are zero-filled without a read. S = Q K^T is mma.sync.m16n8k16 bf16
+//   with float32 sums, K the [n][k] operand through ldmatrix; the online
+//   softmax runs on the accumulators (row max and sum over the 4 lanes of a
+//   row, m, l and O in registers, scores in the log2 domain), masks only on
+//   tiles that cross the diagonal or lens[b]; p is rounded to bf16 and
+//   packed straight into the A fragments of O += P V (V the [k][n] operand
+//   through ldmatrix.trans), with no shared-memory round trip. The one new
+//   rounding against the scalar kernel is that bf16 p. The output is
+//   staged through the warp's Q rows for 16-byte stores. No wgmma, no TMA,
+//   no warp specialisation yet.
+//
+// flash_fwd_kernel (route "scalar": float32, D = 256, unaligned rows) and
+// the backward kernels: one block of 256 threads (16 x 16) per (q tile,
+// b*h) for the forward and dq, per (k tile, b*h) for dk/dv; the TPU grid's
+// sequential axis becomes a loop inside the block over the other side's
+// tiles. Tiles are BQ = BK = 64 rows (32 at D = 256), staged as float32
+// rows of stride D + 1 in shared memory so that 16 threads reading 16
+// different rows at one d hit 16 different banks. Thread (ty, tx) owns the
+// scores of rows ty + 16i and columns tx + 16j (a 4 x 4 register tile),
+// and of the output the same rows and dims tx + 16d; the 16 threads of a
+// row sit in one half warp and reduce the row max and sum with shuffles.
+// The score tile goes through shared memory (stride BK + 16) between the
+// two products. Each output element is summed in one thread in a fixed
+// order: deterministic, no atomics.
 //
 // Bound on this card: the multiply-adds (about 2*S*S*D per (b, h) for the
-// causal forward, 3 and 4 such products for dq and dk/dv). This first
-// design does them as float32 scalar FMAs fed from shared memory, two loads
-// per two FMAs in the score loop, so it is bound by shared-memory
-// bandwidth far below the tensor-core rate; wgmma, TMA and a fused
-// backward are later work.
+// causal forward, 3 and 4 such products for dq and dk/dv). The scalar
+// kernels do them as float32 FMAs fed from shared memory, two loads per two
+// FMAs in the score loop, so they are bound by shared-memory bandwidth far
+// below the tensor-core rate; the backward on the mma core is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -273,6 +298,250 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     if (tx == 0)
       p.lse[static_cast<long long>(bh) * p.Sq + row] =
           l[i] == 0.f ? 0.f : m[i] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (bfloat16, route "mma")
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int kMmaWarps = 8;
+
+template <int D>
+struct MmaCfg {
+  static constexpr int kThreadsM = 32 * kMmaWarps;
+  static constexpr int BQ = 16 * kMmaWarps;  // query rows, 16 a warp
+  static constexpr int BK = 64;          // keys per tile
+  static constexpr int LD = D + 8;       // row pitch (bf16): 16 bytes past
+                                         // a multiple of 128, conflict-free
+  static constexpr int NS = BK / 8;      // n8 tiles of a warp's scores
+  static constexpr int KQ = D / 16;      // k16 steps of Q K^T
+  static constexpr int NO = D / 8;       // n8 tiles of a warp's output
+  // Q, then a ring of two K tiles and two V tiles
+  static constexpr size_t bytes = sizeof(bf16) * (BQ + 4 * BK) * LD;
+};
+
+// rows [r0, r0 + ROWS) of one (b, h) slice (row stride ss elements, D
+// contiguous) into dst (pitch D + 8) by 16-byte cp.async; rows at or past
+// limit are zero-filled without a read
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
+                                        long long ss, int r0, int limit) {
+  constexpr int CPR = D / 8;
+  static_assert(ROWS * CPR % THREADS == 0, "row chunks");
+#pragma unroll
+  for (int u = 0; u < ROWS * CPR / THREADS; ++u) {
+    const int c = threadIdx.x + u * THREADS;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool in = r0 + r < limit;
+    cp_async16(dst + r * (D + 8) + col,
+               in ? src + static_cast<long long>(r0 + r) * ss + col : src,
+               in ? 16 : 0);
+  }
+}
+
+// two floats as one bf16x2 register, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+    flash_fwd_mma_kernel(const Params p) {
+  using C = MmaCfg<D>;
+  constexpr int LD = C::LD, BQ = C::BQ, BK = C::BK, NT = C::kThreadsM;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // BQ * LD
+  bf16* k_s = q_s + BQ * LD;                      // two slots of BK * LD
+  bf16* v_s = k_s + 2 * BK * LD;                  // two slots of BK * LD
+
+  const int bh = blockIdx.x;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // heavy tiles first
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = iq * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lj = lane >> 3, l8 = lane & 7;
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const int len = p.lens ? max(0, min(p.lens[b], p.Sk)) : p.Sk;
+  const unsigned seed = p.dropout ? static_cast<unsigned>(p.seed[0]) : 0u;
+  const float sl2 = p.scale * kLog2e;  // scores in the log2 domain
+
+  const bf16* q = slice<bf16>(p.q, p, 0, b, h);
+  const bf16* k = slice<bf16>(p.k, p, 1, b, h);
+  const bf16* v = slice<bf16>(p.v, p, 2, b, h);
+  int k_end = len;
+  if (p.causal) k_end = min(k_end, q0 + BQ);
+  const int ntiles = (k_end + BK - 1) / BK;
+
+  cp_rows<D, BQ, NT>(q_s, q, p.st[1], q0, p.Sq);
+  if (ntiles > 0) {
+    cp_rows<D, BK, NT>(k_s, k, p.st[4], 0, p.Sk);
+    cp_rows<D, BK, NT>(v_s, v, p.st[7], 0, p.Sk);
+  }
+  cp_commit();
+
+  unsigned qf[C::KQ][4];  // the warp's 16 Q rows as A fragments
+  float o[C::NO][4];      // O: rows g and g + 8, cols 8n + 2t, +1
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // rows g and g + 8: running max (log2 domain) and this lane's part of l
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    const bf16* kt = k_s + (j & 1) * BK * LD;
+    const bf16* vt = v_s + (j & 1) * BK * LD;
+    cp_wait_all();
+    __syncthreads();  // tile j landed; the readers of tile j-1's slots are done
+    if (j + 1 < ntiles) {
+      cp_rows<D, BK, NT>(k_s + ((j + 1) & 1) * BK * LD, k, p.st[4], k0 + BK,
+                         p.Sk);
+      cp_rows<D, BK, NT>(v_s + ((j + 1) & 1) * BK * LD, v, p.st[7], k0 + BK,
+                         p.Sk);
+      cp_commit();
+    }
+    if (j == 0) {
+      const bf16* pa =
+          q_s + (16 * warp + (lj & 1) * 8 + l8) * LD + (lj >> 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < C::KQ; ++kk) ldsm_x4(qf[kk], pa + 16 * kk);
+    }
+    // every key of the tile lies right of the warp's rows: fully masked,
+    // and skipping it leaves m, l and o as they were
+    if (p.causal && k0 > qw + 15) continue;
+
+    // S = Q K^T: 16 rows x 64 keys, K as the [n][k] operand
+    float s[C::NS][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    {
+      const bf16* pb = kt + ((lj >> 1) * 8 + l8) * LD + (lj & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < C::KQ; ++kk)
+#pragma unroll
+        for (int n = 0; n < C::NS; n += 2) {
+          unsigned bk[4];
+          ldsm_x4(bk, pb + n * 8 * LD + 16 * kk);
+          mma_bf16(s[n], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[n + 1], qf[kk], bk[2], bk[3]);
+        }
+    }
+
+    // online softmax on the accumulators; element e of tile n is row
+    // qw + g + 8 (e >> 1), key k0 + 8n + 2t + (e & 1)
+    const bool edge = k0 + BK > len || (p.causal && k0 + BK - 1 > qw);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (edge) {
+          const int row = qw + g + 8 * (e >> 1);
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          if (col >= len || (p.causal && col > row)) x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);  // NEG_INF start -> 0
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    // p, rounded to bf16, as the A fragments of P V: k16 step kk takes
+    // tiles 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3])
+    unsigned pf[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      float pe[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pe[e] = exp2f(s[n][e] - m[e >> 1]);
+        if (edge && s[n][e] <= kNegInf * 0.5f) pe[e] = 0.f;
+        l[e >> 1] += pe[e];  // the normalizer sees the undropped p
+        if (p.dropout)
+          pe[e] *= drop_mult(p, seed, bh, qw + g + 8 * (e >> 1),
+                             k0 + 8 * n + 2 * t + (e & 1));
+      }
+      pf[n >> 1][(n & 1) * 2] = pack_bf16(pe[0], pe[1]);
+      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pe[2], pe[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // O += P V, V as the [k][n] operand through ldmatrix.trans
+    {
+      const bf16* pv = vt + ((lj & 1) * 8 + l8) * LD + (lj >> 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < C::NO; n += 2) {
+          unsigned bv[4];
+          ldsm_x4_t(bv, pv + 16 * kk * LD + 8 * n);
+          mma_bf16(o[n], pf[kk], bv[0], bv[1]);
+          mma_bf16(o[n + 1], pf[kk], bv[2], bv[3]);
+        }
+    }
+  }
+
+  // l over the 4 lanes of each row; out = O / l through the warp's own Q
+  // rows (no copy into them is in flight after the barrier), 16-byte stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  cp_wait_all();
+  __syncthreads();
+  const float ls0 = l[0] == 0.f ? 1.f : l[0];
+  const float ls1 = l[1] == 0.f ? 1.f : l[1];
+  bf16* stage = q_s + 16 * warp * LD;
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n) {
+    const int col = 8 * n + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + col) =
+        __floats2bfloat162_rn(o[n][0] / ls0, o[n][1] / ls0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + col) =
+        __floats2bfloat162_rn(o[n][2] / ls1, o[n][3] / ls1);
+  }
+  __syncwarp();
+  bf16* out = static_cast<bf16*>(p.out);
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int u = 0; u < 16 * CPR / 32; ++u) {
+    const int c = lane + 32 * u;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int row = qw + r;
+    if (row < p.Sq)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D +
+          col) = *reinterpret_cast<const uint4*>(stage + r * LD + col);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw + g + 8 * r;
+      if (row < p.Sq)
+        p.lse[static_cast<long long>(bh) * p.Sq + row] =
+            l[r] == 0.f ? 0.f : m[r] * kLn2 + logf(l[r]);
+    }
   }
 }
 
@@ -532,7 +801,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdMma = 3 };
 
 template <int D>
 size_t smem_bytes(Which w) {
@@ -579,6 +848,40 @@ cudaError_t dispatch_d(int D, Which w, const Params& p, cudaStream_t s) {
   }
 }
 
+template <int D>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  using C = MmaCfg<D>;
+  void (*kernel)(const Params) = flash_fwd_mma_kernel<D>;
+  if (C::bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::bytes));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(p.B * p.H, (p.Sq + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::kThreadsM, C::bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the mma forward's limits: D 64 or 128, q/k/v and their (b, s, h) strides
+// on 16-byte boundaries (cp.async)
+cudaError_t dispatch_mma(int D, const Params& p, cudaStream_t s) {
+  const void* ptrs[3] = {p.q, p.k, p.v};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<std::uintptr_t>(ptr) % 16)
+      return cudaErrorInvalidValue;
+  for (int i = 0; i < 9; ++i)
+    if (p.st[i] % 8) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch_mma<64>(p, s);
+    case 128:
+      return launch_mma<128>(p, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 int run(Which w, Params& p, const long long* strides, int D, int bf16,
         void* stream) {
   if (p.B <= 0 || p.H <= 0 || p.Sq <= 0 || p.Sk <= 0) return 0;
@@ -586,8 +889,12 @@ int run(Which w, Params& p, const long long* strides, int D, int bf16,
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = bf16 ? dispatch_d<__nv_bfloat16>(D, w, p, s)
-                             : dispatch_d<float>(D, w, p, s);
+  cudaError_t e;
+  if (w == kFwdMma)
+    e = bf16 ? dispatch_mma(D, p, s) : cudaErrorInvalidValue;
+  else
+    e = bf16 ? dispatch_d<__nv_bfloat16>(D, w, p, s)
+             : dispatch_d<float>(D, w, p, s);
   return static_cast<int>(e);
 }
 
@@ -637,6 +944,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse = static_cast<float*>(lse);
   return run(kFwd, p, strides, D, bf16, stream);
+}
+
+// The forward on the tensor cores: bfloat16 only (bf16 must be 1), D 64 or
+// 128; q, k, v and their (b, s, h) strides on 16-byte boundaries. Anything else returns
+// cudaErrorInvalidValue without a launch.
+int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
+                            const long long* strides, void* out, void* lse,
+                            const void* lens, const void* seed, int B, int H,
+                            int Sq, int Sk, int D, int bf16, float scale,
+                            int causal, int dropout, unsigned thresh,
+                            float drop_scale, int drop_bq, int drop_bk,
+                            void* stream) {
+  Params p = make(q, k, v, nullptr, lens, seed, B, H, Sq, Sk, scale, causal,
+                  dropout, thresh, drop_scale, drop_bq, drop_bk);
+  p.out = out;
+  p.lse = static_cast<float*>(lse);
+  return run(kFwdMma, p, strides, D, bf16, stream);
 }
 
 int flash_attention_dq(const void* q, const void* k, const void* v,

@@ -76,6 +76,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -150,15 +152,6 @@ __device__ __forceinline__ unsigned pack16(__nv_bfloat16 lo,
                                            __nv_bfloat16 hi) {
   return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
          (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One k step of 16 of a warp's product: acc[j] (16 rows, columns
@@ -668,49 +661,7 @@ __global__ void __launch_bounds__(kThreads) ce_dw_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 // tiled backward (bfloat16): own rows resident, each streamed tile read once
 // ---------------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
 constexpr int TR = 32;   // own rows per block, streamed rows per tile
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 (or 4) bytes global -> shared, bypassing registers; src_bytes < size
-// fills the rest with zeros (0: nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
 
 template <int H>
 struct TiledSmem {

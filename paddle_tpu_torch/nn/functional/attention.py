@@ -2,9 +2,11 @@
 allows, else the plain attention.
 
 Port of ``paddle_tpu/nn/functional/attention.py``. The gate is the JAX
-package's, with the card in place of the TPU: a CUDA tensor, at least 512
-query positions, head_dim in {64, 128, 256} and no dense ``attn_mask``
-(``kv_lens`` padding masks and dropout run inside the kernels). A shape the
+package's, with the card in place of the TPU, and the kernels' own limits:
+a CUDA tensor of float32 or bfloat16, at least 512 query positions,
+head_dim in {64, 128, 256}, batch*heads at most 65535 and no dense
+``attn_mask`` (``kv_lens`` padding masks and dropout run inside the
+kernels). A shape the
 gate rejects goes to :func:`_xla_attention`, the reference's plain
 attention in PyTorch, and is counted by ``record_fallback``. On a CUDA
 tensor that passes the gate a kernel that fails raises; nothing catches

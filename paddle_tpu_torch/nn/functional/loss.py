@@ -15,9 +15,11 @@ entropy without materializing the (tokens, vocab) logits. ``kernel``:
   the three kernels of ``csrc/fused_ce.cu``, on a CPU tensor their plain
   versions);
 - ``"chunked"``: ``ops/chunked_ce.py``, ``chunk`` classes per step;
-- ``"auto"``: the kernels on a CUDA tensor, else the chunked path, counted
-  by ``record_fallback("fused_ce")``, as the reference takes its kernel on
-  the TPU and counts the chunked route elsewhere.
+- ``"auto"``: the kernels where their gate (``fused_ce_supported``: a CUDA
+  tensor of a dtype and H the kernels take, the weight of the same dtype)
+  allows, else the chunked path, counted by ``record_fallback("fused_ce")``,
+  as the reference takes its kernel on the TPU and counts the chunked route
+  elsewhere.
 """
 from __future__ import annotations
 
@@ -98,7 +100,7 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
     """Mean float32 loss over labels != ``ignore_index``, gradients to
     hidden and weight. hidden: (..., H); weight: (H, V); labels: (...)."""
     if kernel == "auto":
-        if fused_ce_supported(hidden):
+        if fused_ce_supported(hidden, weight):
             kernel = "pallas"
         else:
             record_fallback("fused_ce")

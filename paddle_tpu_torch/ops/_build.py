@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, so an edited source is
-never served by a stale build. Builds go to ``paddle_tpu_torch/_build/``
+The library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is never served by a stale
+build. Builds go to ``paddle_tpu_torch/_build/``
 (git-ignored), from the sources in the checkout only. ``load`` builds what
 is missing and returns the loaded library; the kernel's module keeps it.
 ``build`` compiles several sources at once, one nvcc process each, all
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()
+    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -12,6 +12,12 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
   q/k/v through their strides, so the non-contiguous views that the GPT
   QKV split makes need no copy and no ``(B*H, S, D)`` transpose. Ragged
   tails are masked, not padded.
+- **Two forward routes**, chosen by :func:`fwd_route` from the dtype, the
+  head dim and the rows' alignment alone: ``"mma"`` (bfloat16 at D in
+  :data:`MMA_HEAD_DIMS`, rows on 16-byte boundaries: tensor-core
+  ``mma.sync`` with a ``cp.async`` K/V ring, p rounded to bfloat16 before
+  P·V) and ``"scalar"`` (everything else: float32 FMAs). ``ROUTES`` counts
+  the launches of each.
 - **The plain versions** :func:`flash_attention_plain_fwd` and
   :func:`flash_attention_plain_bwd` are the same maths over the full
   ``S x S`` scores, with the same masks and the same dropout mask
@@ -20,7 +26,10 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
 - **Dispatch.** :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
   take the plain versions only for tensors on the CPU; on a CUDA tensor
   they launch the kernels or raise. ``LAUNCHES`` counts launches
-  (``flash_fwd``, ``flash_dq``, ``flash_dkv``).
+  (``flash_fwd``, ``flash_dq``, ``flash_dkv``). The gate
+  :func:`flash_supported` (:func:`flash_gate` on device type, dtype and
+  shape) admits only what the kernels take, so a caller can send the rest
+  to its plain path.
 - **Dropout keying.** The mask is keyed on the reference's blocks for the
   call: ``block_q``/``block_k`` resolved from the tuning DB rows
   (``ops/tuner.py``) and clamped as the reference clamps them on the
@@ -40,8 +49,9 @@ from . import _build
 from .tuner import flash_dims, resolve
 
 __all__ = ["NEG_INF", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "LANES",
-           "HEAD_DIMS", "LAUNCHES", "flash_supported", "flash_attention",
-           "flash_attention_fwd", "flash_attention_bwd",
+           "HEAD_DIMS", "MMA_HEAD_DIMS", "KERNEL_DTYPES", "MAX_BATCH_HEADS",
+           "LAUNCHES", "ROUTES", "flash_gate", "flash_supported", "fwd_route",
+           "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_plain_fwd", "flash_attention_plain_bwd",
            "dropout_mask", "keying_blocks", "load_kernel"]
 
@@ -51,20 +61,47 @@ DEFAULT_BLOCK_K = 512
 LANES = 128
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the launch grid of the scalar and backward kernels has b*h as its y
+MAX_BATCH_HEADS = 65535
+# the head dims the tensor-core forward is instantiated for (bfloat16 only)
+MMA_HEAD_DIMS = (64, 128)
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+ROUTES = {"flash_fwd_mma": 0, "flash_fwd_scalar": 0}
 _launch_lock = threading.Lock()
 
 _MASK32 = 0xFFFFFFFF
 
 
+def flash_gate(device_type: str, dtype, shape, min_seq: int = 128) -> bool:
+    """What the kernels take, from the device type, q's dtype and q's
+    shape alone: a CUDA tensor (B, S, H, D) with at least ``min_seq`` query
+    positions, D in :data:`HEAD_DIMS`, a dtype of :data:`KERNEL_DTYPES` and
+    B*H at most :data:`MAX_BATCH_HEADS`. Ragged sequence lengths are fine
+    (the kernels mask the tail)."""
+    if device_type != "cuda" or len(shape) != 4:
+        return False
+    b, s, h, d = shape
+    return (s >= min_seq and d in HEAD_DIMS and dtype in KERNEL_DTYPES and
+            b * h <= MAX_BATCH_HEADS)
+
+
 def flash_supported(q: torch.Tensor, k: torch.Tensor, min_seq: int = 128
                     ) -> bool:
-    """The kernels' gate, shared by every caller: a CUDA tensor, at least
-    ``min_seq`` query positions, head_dim in {64, 128, 256}. Ragged
-    sequence lengths are fine (the kernels mask the tail)."""
-    return (q.is_cuda and q.dim() == 4 and q.shape[1] >= min_seq and
-            q.shape[-1] in HEAD_DIMS)
+    """The kernels' gate, shared by every caller: :func:`flash_gate` on
+    q. What it rejects goes to the caller's plain path."""
+    return flash_gate(q.device.type, q.dtype, tuple(q.shape), min_seq)
+
+
+def fwd_route(dtype, d: int, aligned: bool) -> str:
+    """The forward's route: ``"mma"`` (the tensor-core kernel) for
+    bfloat16 at a head dim of :data:`MMA_HEAD_DIMS` whose q/k/v rows start
+    on 16-byte boundaries (``aligned``: base pointers and (b, s, h) strides),
+    else ``"scalar"``."""
+    if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and aligned:
+        return "mma"
+    return "scalar"
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +302,11 @@ def load_kernel() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             tail = [i] * 6 + [f, i, i, ctypes.c_uint, f, i, i, p]
             lib.flash_attention_fwd.argtypes = [p] * 8 + tail
+            lib.flash_attention_fwd_mma.argtypes = [p] * 8 + tail
             lib.flash_attention_dq.argtypes = [p] * 10 + tail
             lib.flash_attention_dkv.argtypes = [p] * 11 + tail
-            for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
-                       lib.flash_attention_dkv):
+            for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_mma,
+                       lib.flash_attention_dq, lib.flash_attention_dkv):
                 fn.restype = ctypes.c_int
             lib.flash_attention_error_string.argtypes = [ctypes.c_int]
             lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -290,11 +328,11 @@ def _check(q, k, v, do=None):
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim {d} not in "
                          f"{HEAD_DIMS}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"flash_attention kernel: dtype {q.dtype}")
-    if b * h > 65535:        # the launch grid's y dimension is b*h
+    if b * h > MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention kernel: batch*heads {b * h} > "
-                         "65535")
+                         f"{MAX_BATCH_HEADS}")
     named = [("k", k), ("v", v)] + ([("do", do)] if do is not None else [])
     for name, t in named:
         if t.device != dev:
@@ -334,9 +372,19 @@ def _raise_on(lib, err, what):
                            f"{msg} (cudaError {err})")
 
 
-def _count(key):
+def _count(key, route=None):
     with _launch_lock:
         LAUNCHES[key] += 1
+        if route is not None:
+            ROUTES[f"{key}_{route}"] += 1
+
+
+def _rows_aligned(*ts):
+    """Every tensor starts on a 16-byte boundary and its (b, s, h) strides
+    are whole multiples of 8 elements (16 bytes of bfloat16): what the
+    tensor-core forward's 16-byte ``cp.async`` needs."""
+    return all(t.data_ptr() % 16 == 0 and
+               all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
 
 
 def _device_args(lens, seed, b, dev, dropout_rate):
@@ -356,11 +404,14 @@ def _ptr(t):
 
 def flash_attention_fwd(q, k, v, lens=None, seed=0, sm_scale=None,
                         causal=False, dropout_rate=0.0,
-                        blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
-    """The forward kernel's wrapper: ``(out, lse)`` as
+                        blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), route=None):
+    """The forward kernels' wrapper: ``(out, lse)`` as
     :func:`flash_attention_plain_fwd` defines them. CPU tensors take the
-    plain version; CUDA tensors launch the kernel, or raise. ``seed`` may
-    be an int or a device int32 tensor (read on the device, no sync)."""
+    plain version; CUDA tensors launch a kernel, or raise. ``seed`` may
+    be an int or a device int32 tensor (read on the device, no sync).
+    ``route``: None picks :func:`fwd_route`'s; ``"scalar"`` forces the
+    scalar kernel; ``"mma"`` raises ValueError where :func:`fwd_route`
+    would not pick it. No route gives way to another on an error."""
     if q.device.type == "cpu":
         return flash_attention_plain_fwd(q, k, v, lens, seed, sm_scale,
                                          causal, dropout_rate, blocks)
@@ -368,22 +419,31 @@ def flash_attention_fwd(q, k, v, lens=None, seed=0, sm_scale=None,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
+    auto = fwd_route(q.dtype, d, _rows_aligned(q, k, v))
+    if route is None:
+        route = auto
+    elif route not in ("mma", "scalar") or (route == "mma" and auto != "mma"):
+        raise ValueError(f"flash_attention forward: route {route!r} does not "
+                         f"take {q.dtype} at head_dim {d} with these rows "
+                         f"(fwd_route gives {auto!r})")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse.zero_()
     ln, sd = _device_args(lens, seed, b, dev, dropout_rate)
     lib = load_kernel()
+    entry = lib.flash_attention_fwd_mma if route == "mma" else \
+        lib.flash_attention_fwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
             out.data_ptr(), lse.data_ptr(), _ptr(ln), _ptr(sd),
             b, h, sq, sk, d, int(q.dtype == torch.bfloat16),
             _scale(d, sm_scale), int(bool(causal)),
             *_drop_args(dropout_rate, blocks), stream)
-    _raise_on(lib, err, "forward")
-    _count("flash_fwd")
+    _raise_on(lib, err, f"forward ({route})")
+    _count("flash_fwd", route)
     return out, lse
 
 

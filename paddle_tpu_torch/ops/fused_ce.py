@@ -29,7 +29,10 @@ device memory.
   over the full float32 logits.
 - **Dispatch.** :func:`ce_fwd`, :func:`ce_dh` and :func:`ce_dw` take the
   plain versions only for tensors on the CPU; on a CUDA tensor they launch
-  the kernels or raise. ``LAUNCHES`` counts launches per kernel.
+  the kernels or raise. ``LAUNCHES`` counts launches per kernel. The gate
+  :func:`fused_ce_supported` (:func:`fused_ce_gate` on device type, dtypes
+  and H) admits only what the kernels take, so a caller can send the rest
+  to the chunked path.
 - **Host epilogue**, as the reference's ``_ce_fwd``: ``valid = labels !=
   ignore_index``, ``loss = sum(valid * (lse - tgt)) / max(sum(valid), 1)``;
   the backward scale ``g * valid / denom`` makes ignored rows exact zeros.
@@ -51,7 +54,8 @@ from .tuner import ce_dims, resolve
 
 __all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
            "ROUTES", "STAGED_MAX_HIDDEN", "TILED_HIDDEN", "bwd_route",
-           "fused_lm_ce", "fused_ce_supported", "resolve_blocks", "ce_fwd",
+           "fused_lm_ce", "fused_ce_gate", "fused_ce_supported",
+           "resolve_blocks", "ce_fwd",
            "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_dh",
            "fused_ce_plain_dw", "load_kernel", "max_hidden"]
 
@@ -73,9 +77,20 @@ TILED_HIDDEN = (768, 1024)
 STAGED_MAX_HIDDEN = {torch.bfloat16: 2816, torch.float32: 2496}
 
 
-def fused_ce_supported(t: torch.Tensor) -> bool:
-    """The kernels' gate: a CUDA tensor."""
-    return t.is_cuda
+def fused_ce_gate(device_type: str, dtype, h: int, weight_dtype) -> bool:
+    """What the kernels take, from the device type, the hidden states'
+    dtype, H and the weight's dtype alone: a CUDA tensor of a dtype that
+    :func:`bwd_route` takes, H at most :func:`max_hidden`, and a weight of
+    the same dtype."""
+    return (device_type == "cuda" and dtype in STAGED_MAX_HIDDEN and
+            h <= max_hidden(dtype) and weight_dtype == dtype)
+
+
+def fused_ce_supported(t: torch.Tensor, weight: torch.Tensor) -> bool:
+    """The kernels' gate: :func:`fused_ce_gate` on the hidden states ``t``
+    (..., H) and the (H, V) weight. What it rejects goes to the caller's
+    chunked path."""
+    return fused_ce_gate(t.device.type, t.dtype, t.shape[-1], weight.dtype)
 
 
 def _clamp_blocks(n, v, block_tokens, block_vocab):

@@ -9,7 +9,9 @@ lr) -> (new_params, new_state)``. The math is the reference's:
   the result is cast back to each parameter's dtype (a bfloat16 model
   keeps bfloat16 weights and no master copy);
 - Adam's moments are stored in ``slot_dtype`` (float32 by default) and
-  updated in float32;
+  updated in float32; ``slot_dtype`` is a torch dtype or the name of one
+  (``"bfloat16"``, ``"float32"``, ``"float16"``, or a numpy or jnp dtype of
+  that name), mapped at construction (:func:`slot_dtype_of`);
 - AdamW's decoupled decay is ``p - lr * wd * p32`` on the PRE-step float32
   parameter;
 - the step count is a 0-d int32 tensor on the parameters' device, so bias
@@ -30,7 +32,27 @@ import torch
 from .clip import clip_grads
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Adam", "AdamW", "slot_dtype_of"]
+
+# the slot dtypes a name may give (the reference reads it with jnp.dtype)
+_SLOT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "float16": torch.float16}
+
+
+def slot_dtype_of(value) -> torch.dtype:
+    """``slot_dtype`` as a torch dtype: None is float32; a torch dtype is
+    itself; a name (a string, or a numpy dtype or scalar type by its name)
+    maps through :data:`_SLOT_DTYPES`. Anything else raises ValueError."""
+    if value is None:
+        return torch.float32
+    if isinstance(value, torch.dtype):
+        return value
+    name = value if isinstance(value, str) else \
+        getattr(value, "name", None) or getattr(value, "__name__", None)
+    if name not in _SLOT_DTYPES:
+        raise ValueError(f"slot_dtype {value!r}: expected a torch dtype or "
+                         f"one of {sorted(_SLOT_DTYPES)}")
+    return _SLOT_DTYPES[name]
 
 
 class Optimizer:
@@ -120,7 +142,7 @@ class Adam(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
-        self._slot_dtype = slot_dtype or torch.float32
+        self._slot_dtype = slot_dtype_of(slot_dtype)
 
     def init_slots(self, value):
         return {"m": torch.zeros(value.shape, dtype=self._slot_dtype,

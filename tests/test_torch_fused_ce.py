@@ -178,7 +178,7 @@ def test_kernel_wrappers_take_the_plain_versions_on_the_cpu():
     torch.testing.assert_close(dh, dl @ wt.T, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(dw, h.T @ dl, rtol=1e-5, atol=1e-7)
     assert fused_ce.LAUNCHES == n0           # no kernel ran on the CPU
-    assert not fused_ce.fused_ce_supported(h)
+    assert not fused_ce.fused_ce_supported(h, wt)
 
 
 def test_dispatch_auto_counts_the_fallback_and_unknown_raises():

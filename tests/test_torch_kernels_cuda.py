@@ -9,7 +9,8 @@ card has no JAX), so it runs there without the repository's conftest::
 
 Tolerance: atol = rtol = 1e-4 (float32 math in both versions, sums taken
 in different orders; bfloat16 pools are upcast exactly by both). The flash
-kernels' bfloat16 cases: 2e-2 (one bfloat16 rounding of each output). The
+kernels' bfloat16 cases: 2e-2 (one bfloat16 rounding of each output; on
+the tensor-core forward also of p before P·V), on both forward routes. The
 fused-CE kernels: lse and tgt atol 1e-4; dh and dw ``max|err| <= tol *
 max|plain|`` with tol 1e-4 in float32, 1e-2 in bfloat16.
 """
@@ -116,6 +117,16 @@ def test_decode_server_on_card_matches_oracle(cuda_device):
 
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the tensor-core forward beside FLASH_TOL, as chip_smoke.py holds it:
+# ||out - plain|| / ||plain|| over the whole output and max |lse - plain|
+MMA_FWD_BOUND = {"out_rel": 8e-3, "lse_abs": 5e-6}
+
+
+def _mma_fwd_within_bound(out, lse, ref_out, ref_lse):
+    o, r = out.float(), ref_out.float()
+    rel = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
+    assert rel <= MMA_FWD_BOUND["out_rel"], rel
+    assert (lse - ref_lse).abs().max().item() <= MMA_FWD_BOUND["lse_abs"]
 
 
 def _flash_inputs(dev, s, d, dtype, b=2, h=4, seed=0):
@@ -200,6 +211,122 @@ def test_flash_kernels_match_plain_on_the_qkv_split(cuda_device):
         assert g.dtype == r.dtype
         torch.testing.assert_close(g.float(), r.float(),
                                    **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (s, d, causal, lens, 0.0)
+    for s in (128, 200, 1024) for d in (64, 128) for causal in (True, False)
+    for lens in (None, "s37", [0, 37])] + [
+    (1024, 64, True, None, 0.1), (1024, 128, False, "s37", 0.1)])
+def test_flash_mma_forward_matches_plain(cuda_device, case):
+    """The tensor-core forward (bfloat16, D = 64 and 128) against the plain
+    forward, and the scalar kernel on the same inputs, over the cases of
+    test_flash_kernels_match_plain in bfloat16; ROUTES shows each route."""
+    s, d, causal, lens, rate = case
+    q, k, v, _ = _flash_inputs(cuda_device, s, d, torch.bfloat16,
+                               seed=s + d + 1)
+    if lens == "s37":
+        lens = [s, 37]
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda_device)
+    blocks = fa.keying_blocks(torch.bfloat16, d, s, s)
+    r0 = dict(fa.ROUTES)
+    args = (q, k, v, ln, 7, None, causal, rate, blocks)
+    out, lse = fa.flash_attention_fwd(*args)
+    s_out, s_lse = fa.flash_attention_fwd(*args, route="scalar")
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(*args)
+    torch.cuda.synchronize()
+    assert fa.ROUTES == {"flash_fwd_mma": r0["flash_fwd_mma"] + 1,
+                         "flash_fwd_scalar": r0["flash_fwd_scalar"] + 1}
+    for g, r in ((out, ref_out), (lse, ref_lse), (s_out, ref_out),
+                 (s_lse, ref_lse)):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+    _mma_fwd_within_bound(out, lse, ref_out, ref_lse)
+    if lens is not None and 0 in lens:
+        row = lens.index(0)       # no visible key: out 0, lse 0
+        assert out[row].abs().max().item() == 0.0
+        assert lse[row].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_mma_forward_on_the_qkv_split_is_bit_reproducible(cuda_device):
+    """The main path's call (GPT-base, bf16, causal, the QKV split's strided
+    views) takes the tensor-core route, agrees with the plain forward, and
+    two launches give the same bits."""
+    b, s, h, d = 8, 1024, 12, 64
+    rs = np.random.RandomState(2)
+    qkv = torch.as_tensor(rs.randn(b, s, h, 3 * d).astype(np.float32),
+                          device=cuda_device).to(torch.bfloat16)
+    q, k, v = torch.split(qkv, d, dim=-1)
+    blocks = fa.keying_blocks(q.dtype, d, s, s)
+    r0 = dict(fa.ROUTES)
+    args = (q, k, v, None, 0, None, True, 0.0, blocks)
+    out, lse = fa.flash_attention_fwd(*args)
+    out2, lse2 = fa.flash_attention_fwd(*args)
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(*args)
+    torch.cuda.synchronize()
+    assert fa.ROUTES["flash_fwd_mma"] == r0["flash_fwd_mma"] + 2
+    assert fa.ROUTES["flash_fwd_scalar"] == r0["flash_fwd_scalar"]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, **FLASH_TOL[torch.bfloat16])
+    _mma_fwd_within_bound(out, lse, ref_out, ref_lse)
+
+
+@pytest.mark.cuda
+def test_flash_forward_routes_on_the_card(cuda_device):
+    """float32, D = 256 and rows off 16-byte boundaries take the scalar
+    kernel; asking for the mma route there raises, with no launch."""
+    r0 = dict(fa.ROUTES)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v, _ = _flash_inputs(cuda_device, 128, d, dtype)
+        fa.flash_attention_fwd(q, k, v)
+        with pytest.raises(ValueError, match="route"):
+            fa.flash_attention_fwd(q, k, v, route="mma")
+    wide = torch.zeros(2, 128, 4, 72, dtype=torch.bfloat16,
+                       device=cuda_device)
+    q = wide[..., :64]                       # h stride 72: aligned
+    odd = torch.zeros(2, 128, 4, 68, dtype=torch.bfloat16,
+                      device=cuda_device)[..., :64]    # h stride 68
+    fa.flash_attention_fwd(q, q, q)
+    fa.flash_attention_fwd(odd, odd, odd)
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention_fwd(odd, odd, odd, route="mma")
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention_fwd(q, q, q, route="wgmma")
+    torch.cuda.synchronize()
+    assert fa.ROUTES == {"flash_fwd_mma": r0["flash_fwd_mma"] + 1,
+                         "flash_fwd_scalar": r0["flash_fwd_scalar"] + 3}
+
+
+@pytest.mark.cuda
+def test_float16_attention_and_head_loss_fall_back_and_count(cuda_device):
+    """float16 has no kernel: scaled_dot_product_attention takes the plain
+    attention and fused_linear_cross_entropy(kernel="auto") the chunked
+    CE, each counting one fallback instead of raising."""
+    from paddle_tpu_torch.nn.functional.attention import _xla_attention
+    from paddle_tpu_torch.ops import tuner
+    q, k, v, _ = _flash_inputs(cuda_device, 512, 64, torch.float16)
+    n0, l0 = tuner.FALLBACKS["flash_attention"], dict(fa.LAUNCHES)
+    out = scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert tuner.FALLBACKS["flash_attention"] == n0 + 1
+    assert fa.LAUNCHES == l0
+    assert torch.equal(out, _xla_attention(q, k, v, causal=True))
+    hid, w, lbl, _ = _ce_inputs(cuda_device, 64, 32, 300, torch.float16)
+    c0, cl0 = tuner.FALLBACKS["fused_ce"], dict(fused_ce.LAUNCHES)
+    loss = F.fused_linear_cross_entropy(hid, w, lbl, kernel="auto")
+    assert tuner.FALLBACKS["fused_ce"] == c0 + 1
+    assert fused_ce.LAUNCHES == cl0
+    want = F.fused_linear_cross_entropy(hid, w, lbl, kernel="chunked")
+    assert torch.equal(loss, want)
+    wb = w.to(torch.bfloat16)                 # mixed dtypes: chunked too
+    F.fused_linear_cross_entropy(hid.to(torch.float32), wb, lbl,
+                                 kernel="auto")
+    assert tuner.FALLBACKS["fused_ce"] == c0 + 2
 
 
 @pytest.mark.cuda
@@ -417,4 +544,4 @@ def test_fused_ce_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
         big = torch.zeros(4, 4096, device=cuda_device)
         fused_ce.ce_fwd(big, torch.zeros(4096, 8, device=cuda_device),
                         lbl[:4])
-    assert fused_ce.fused_ce_supported(hid)
+    assert fused_ce.fused_ce_supported(hid, w)
