@@ -14,9 +14,10 @@ per source, all started together), then:
   (``paddle_tpu_torch/testdata/decode_golden.json``);
 - training: holds the flash-attention kernels (forward on both its routes,
   tensor-core and scalar; dq, dk/dv) and the three fused-CE kernels
-  (forward, dh, dw; dh and dw on both their routes, tiled and staged)
-  against their plain versions and times them at GPT-base (the forward also
-  at GPT-1.3B's head dim); checks that float16 inputs fall back to the
+  (forward, dh, dw; each on both its routes, tiled and staged) against
+  their plain versions and times them at GPT-base (the flash forward also
+  at GPT-1.3B's head dim, the CE forward also at its width); checks that
+  float16 inputs fall back to the
   plain attention and the chunked CE, counted; trains GPT-base widths at
   depth 2
   in float32 against the JAX reference's golden losses
@@ -89,6 +90,9 @@ FLASH_SEED = 7
 # lse and tgt are float32 in both: atol 1e-4
 CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CE_STAT_ATOL = 1e-4
+# the fused-CE kernels by name (no name holds another)
+CE_KERNELS = ("ce_fwd_tiled_kernel", "ce_fwd_merge_kernel", "ce_fwd_kernel",
+              "ce_dh_kernel", "ce_dw_kernel", "ce_bwd_tiled_kernel")
 
 
 def emit(**kw):
@@ -504,7 +508,9 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     # carry library_ms null, and the whole backward (SDPA's, the plain one,
     # dq + dk/dv) under keys of its own
     whole_bwd = {"bwd_ms": ms["flash_dq"] + ms["flash_dkv"],
-                 "plain_bwd_ms": plain_bwd, "library_bwd_ms": lib_bwd}
+                 "plain_bwd_ms": plain_bwd, "library_bwd_ms": lib_bwd,
+                 "bwd_over_library": (ms["flash_dq"] + ms["flash_dkv"]) /
+                 lib_bwd}
     res = {"flash_fwd": fwd}
     for name, (flops, moved) in work.items():
         t_ops = flops / H100_BF16_FLOPS * 1e3
@@ -519,6 +525,7 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     bwd_bound = max(5 * prod / H100_BF16_FLOPS,
                     (5 * tensor + 3 * tensor + 2 * stat) / H100_BYTES_PER_S)
     return res, {"bwd_minimal_bound_ms": bwd_bound * 1e3,
+                 "bwd_over_library": whole_bwd["bwd_over_library"],
                  "sdpa_fwd_ms": fwd["library_ms"], "sdpa_bwd_ms": lib_bwd,
                  "sdpa_fwd_bwd_ms": lib_fwdbwd, "plain_bwd_ms": plain_bwd}
 
@@ -527,10 +534,11 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
 # fused LM-head cross entropy: forward, dh and dw kernels
 # ---------------------------------------------------------------------------
 
-def ce_inputs(rs, n, h, v, dtype, ignore, transposed):
+def ce_inputs(rs, n, h, v, dtype, ignore, transposed, out_of_range=False):
     """hid (n, h), w (h, v) (the .T view of a (v, h) tensor when
     ``transposed``, as the tied head gives it), labels with a share
-    ``ignore`` of -100, and the backward's scale g * valid / denom."""
+    ``ignore`` of -100 (and, with ``out_of_range``, some of V + 3 and -5:
+    target logit 0), and the backward's scale g * valid / denom."""
     dev = "cuda"
     hid = torch.as_tensor(rs.randn(n, h).astype(np.float32),
                           device=dev).to(dtype)
@@ -539,16 +547,22 @@ def ce_inputs(rs, n, h, v, dtype, ignore, transposed):
     w = w.T if transposed else w.T.contiguous()
     lbl = rs.randint(0, v, n)
     lbl[rs.rand(n) < ignore] = -100
+    if out_of_range:
+        lbl[1::11] = v + 3
+        lbl[2::13] = -5
     lbl = torch.as_tensor(lbl, device=dev)
     valid = (lbl != -100).float()
     return hid, w, lbl, valid / valid.sum().clamp(min=1.0)
 
 
 def ce_parity_case(fc, hid, w, lbl, scale, twice=False):
-    """Each kernel against its plain version on the same inputs; dh and
-    dw must take the route ``bwd_route`` names for (dtype, H), and with
-    ``twice`` a second launch must give them bit for bit. Returns the max
-    abs and normalized errors per kernel output."""
+    """Each kernel against its plain version on the same inputs; the
+    forward must take the route ``fwd_route`` names for (dtype, H), dh and
+    dw the one ``bwd_route`` names, and with ``twice`` a second launch must
+    give every output bit for bit. Returns the max abs and normalized
+    errors per kernel output, the routes and the forward's vocab splits."""
+    n, h = hid.shape
+    v = w.shape[1]
     r0 = dict(fc.ROUTES)
     lse, tgt = fc.ce_fwd(hid, w, lbl)
     ref_lse, ref_tgt = fc.fused_ce_plain_fwd(hid, w, lbl)
@@ -557,14 +571,19 @@ def ce_parity_case(fc, hid, w, lbl, scale, twice=False):
     ref_dh = fc.fused_ce_plain_dh(hid, w, lbl, ref_lse, scale)
     ref_dw = fc.fused_ce_plain_dw(hid, w, lbl, ref_lse, scale)
     torch.cuda.synchronize()
-    route = fc.bwd_route(hid.dtype, hid.shape[1])
+    fwd = fc.fwd_route(hid.dtype, h)
+    route = fc.bwd_route(hid.dtype, h)
     routes = {k: fc.ROUTES[k] - r0[k] for k in r0}
-    check(routes == {k: int(k in (f"ce_dh_{route}", f"ce_dw_{route}"))
-                     for k in r0}, f"routes {routes}, expected {route}")
+    check(routes == {k: int(k in (f"ce_fwd_{fwd}", f"ce_dh_{route}",
+                                  f"ce_dw_{route}")) for k in r0},
+          f"routes {routes}, expected forward {fwd}, backward {route}")
     check(dh.dtype == hid.dtype and dw.dtype == w.dtype and
           dw.shape == w.shape, "dh/dw dtype or shape")
     check(dw.T.is_contiguous(), "dw is not the .T view of a (V, H) buffer")
     if twice:
+        again = fc.ce_fwd(hid, w, lbl)
+        check(torch.equal(lse, again[0]) and torch.equal(tgt, again[1]),
+              "a second launch changed lse or tgt")
         check(torch.equal(dh, fc.ce_dh(hid, w, lbl, ref_lse, scale)) and
               torch.equal(dw, fc.ce_dw(hid, w, lbl, ref_lse, scale)),
               "a second launch changed dh or dw")
@@ -586,14 +605,48 @@ def ce_parity_case(fc, hid, w, lbl, scale, twice=False):
         check(dh[ignored].abs().max().item() == 0.0,
               "ignored rows have a nonzero dh")
     errs["route"] = route
+    errs["fwd_route"] = fwd
+    errs["splits"] = fc.fwd_splits(n, v, sm_count()) \
+        if fwd == "tiled" else None
     return errs
 
 
-def ce_main_inputs(model_seed=0):
+def ce_parity_cases():
+    """``ce_parity``'s cases: (shape (N, H, V) or "main path", dtype,
+    share of ignored labels, w the tied .T view, labels out of range).
+    Every bfloat16 case with H a multiple of 64 takes the tiled forward."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, dtype, ignore, transposed, False)
+             for shape in ((128, 64, 512), (200, 32, 500), (1000, 768, 50304))
+             for dtype in (f32, bf16) for ignore in (0.0, 0.3, 1.0)
+             for transposed in (False, True)]
+    cases += [((300, 2048, 5000), bf16, 0.3, True, False),
+              ((300, 2048, 5000), f32, 0.3, False, False)]
+    # the tiled backward (bf16, H = 768 and 1024) with N and V tails, all
+    # rows ignored, w strided (the tied .T view) and contiguous
+    cases += [((1000, 768, 5003), bf16, 0.3, t, False) for t in (False, True)]
+    cases += [((257, 1024, 50304), bf16, 0.3, t, False)
+              for t in (False, True)]
+    cases += [((100, 768, 700), bf16, 1.0, True, False),
+              ((100, 1024, 700), bf16, 1.0, True, False)]
+    # what the tiled forward's split rule makes new: one token past a
+    # tile; V = 700, which the rule leaves in one split; labels V + 3 and
+    # -5 (target logit 0)
+    cases += [((129, 768, 5003), bf16, 0.3, True, False),
+              ((300, 768, 700), bf16, 0.3, True, False),
+              ((1000, 768, 5003), bf16, 0.3, True, True),
+              ((300, 2048, 700), bf16, 0.0, False, True)]
+    # the last: the main path's own call (labels from the train recipe),
+    # launched twice: every output must agree bit for bit
+    cases.append(("main path", bf16, 0.0, True, False))
+    return cases
+
+
+def ce_main_inputs(model_seed=0, h=768):
     """The main path's head call: GPT-base, 8 x 1024 tokens of hidden
     states, labels from the train phase's recipe, w the tied embedding's
-    (768, 50304) .T view."""
-    n, h, v = 8 * 1024, 768, 50304
+    (h, 50304) .T view (h 2048: the same call at gpt_1p3b's width)."""
+    n, v = 8 * 1024, 50304
     gen = torch.Generator(device="cuda")
     gen.manual_seed(model_seed)
     emb = (torch.randn(v, h, device="cuda", generator=gen) * 0.02).to(
@@ -626,14 +679,101 @@ def staged_bwd(fc, entry, hid, w, lbl, lse, scale):
     return out if entry == "fused_ce_dh" else out.T
 
 
+def fwd_at_entry(fc, hid, w, lbl32, splits=None):
+    """The forward called at the library's own entry point, so that it can
+    be timed beside the wrapper's launch; counts no launch. Without
+    ``splits`` the staged kernel (``ce_fwd_kernel``, the first design),
+    else the tiled kernel over that many vocab splits (the wrapper takes
+    the number ``fwd_splits`` gives). Returns (lse, tgt)."""
+    lib = fc.load_kernel()
+    n, h = hid.shape
+    v = w.shape[1]
+    lse, tgt = [torch.empty(n, dtype=torch.float32, device=hid.device)
+                for _ in range(2)]
+    head = (hid.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+            lbl32.data_ptr(), lse.data_ptr(), tgt.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if splits is None:
+        err = lib.fused_ce_fwd(*head, n, h, v,
+                               int(hid.dtype == torch.bfloat16), stream)
+    else:
+        work = torch.empty((3, splits, n), dtype=torch.float32,
+                           device=hid.device)
+        err = lib.fused_ce_fwd_tiled(*head, work.data_ptr(), n, h, v, 1,
+                                     splits, stream)
+    check(err == 0, f"forward at splits {splits}: cudaError {err}")
+    return lse, tgt
+
+
+def sm_count():
+    """The card's SMs, which the tiled forward's split rule reads."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _ce_fwd_work(n, h, v, e):
+    """The forward's FLOPs and bytes (hid and w read once, lse and tgt
+    written once, labels read once) and its bound on this card."""
+    flops = 2 * n * h * v
+    moved = (n * h + h * v) * e + 3 * n * 4
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    return flops, moved, max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ce_fwd_timing(fc, flush, hid, w, lbl):
+    """The forward at one call: the tiled route (through ``ce_fwd``), the
+    staged kernel (at its C entry), the plain version and the library
+    forward (cuBLAS bf16 hid @ w + F.cross_entropy), one after another in
+    this run, with the bound; the staged kernel is held against the plain
+    version on the same inputs first. Then the tiled kernel over other
+    numbers of vocab splits than the rule's (a reading of the rule, no
+    check)."""
+    n, h = hid.shape
+    v = w.shape[1]
+    check(fc.fwd_route(hid.dtype, h) == "tiled", f"H {h}: not tiled")
+    lbl32 = lbl.to(torch.int32).contiguous()
+    ref_lse, ref_tgt = fc.fused_ce_plain_fwd(hid, w, lbl)
+    got = fwd_at_entry(fc, hid, w, lbl32)
+    for name, g, r in zip(("lse", "tgt"), got, (ref_lse, ref_tgt)):
+        err = (g - r).abs().max().item()
+        check(err <= CE_STAT_ATOL, f"staged forward {name}: max err {err}")
+    del got, ref_lse, ref_tgt
+    ms = time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush)
+    staged = time_ms(lambda: fwd_at_entry(fc, hid, w, lbl32), flush=flush)
+    plain = time_ms(lambda: fc.fused_ce_plain_fwd(hid, w, lbl), reps=5,
+                    flush=flush)
+    lib = time_ms(lambda: torch.nn.functional.cross_entropy(
+        hid @ w, lbl.long()), flush=flush)
+    flops, moved, bound, bound_by = _ce_fwd_work(n, h, v,
+                                                 hid.element_size())
+    check(ms < staged and ms < plain,
+          f"tiled forward {ms} ms not below the staged kernel {staged} ms "
+          f"and the plain version {plain} ms (N {n}, H {h}, V {v})")
+    splits = fc.fwd_splits(n, v, sm_count())
+    sweep = {k: time_ms(lambda: fwd_at_entry(fc, hid, w, lbl32, k),
+                        flush=flush)
+             for k in sorted({1, 2, splits - 1, splits, splits + 1,
+                              2 * splits, 4 * splits}) if k >= 1}
+    return {"shape": [n, h, v], "fwd_route": "tiled", "splits": splits,
+            "ms_by_splits": sweep,
+            "ms": ms, "staged_ms": staged, "plain_ms": plain,
+            "library_fwd_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+            "flops": flops, "bytes": moved, "tflops": flops / ms / 1e9,
+            "staged_over_tiled": staged / ms, "tiled_over_library": ms / lib}
+
+
 def ce_timing(fc, chunked_ce, flush):
     """Each kernel and its plain version at the main path's call, with
-    each kernel's bound on this card; dh and dw also on the staged route
+    each kernel's bound on this card; every kernel also on the staged route
     (the first design's kernels), held against the plain version and
-    timed in the same run; the whole function four ways: the port's
-    kernels, its chunked CE, its plain versions and the library (cuBLAS
-    bf16 hid @ w + F.cross_entropy)."""
+    timed in the same run (the forward by :func:`ce_fwd_timing`); the
+    whole function four ways: the port's kernels, its chunked CE, its
+    plain versions and the library (cuBLAS bf16 hid @ w +
+    F.cross_entropy). Returns the rows and the forward at H 2048."""
+    h2048 = ce_fwd_timing(fc, flush, *ce_main_inputs(h=2048)[:3])
     hid, w, lbl, scale = ce_main_inputs()
+    fwd = ce_fwd_timing(fc, flush, hid, w, lbl)
     n, h = hid.shape
     v = w.shape[1]
     lse, _ = fc.ce_fwd(hid, w, lbl)
@@ -655,13 +795,12 @@ def ce_timing(fc, chunked_ce, flush):
                 lambda: staged_bwd(fc, entry, hid, w, lbl32, lse, scale),
                 flush=flush)}
         del got, tiled, ref
-    ms = {"ce_fwd": time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush),
+    ms = {"ce_fwd": fwd["ms"],
           "ce_dh": time_ms(lambda: fc.ce_dh(hid, w, lbl, lse, scale),
                            flush=flush),
           "ce_dw": time_ms(lambda: fc.ce_dw(hid, w, lbl, lse, scale),
                            flush=flush)}
-    plain = {"ce_fwd": time_ms(lambda: fc.fused_ce_plain_fwd(hid, w, lbl),
-                               reps=5, flush=flush),
+    plain = {"ce_fwd": fwd["plain_ms"],
              "ce_dh": time_ms(lambda: fc.fused_ce_plain_dh(
                  hid, w, lbl, lse, scale), reps=5, flush=flush),
              "ce_dw": time_ms(lambda: fc.fused_ce_plain_dw(
@@ -689,7 +828,7 @@ def ce_timing(fc, chunked_ce, flush):
         "library_fwd_bwd_ms": time_ms(fwd_bwd(lib), flush=flush)}
     e = hid.element_size()
     stats = n * 4                                # one (N,) float32 vector
-    work = {"ce_fwd": (2 * n * h * v, (n * h + h * v) * e + stats + 2 * stats),
+    work = {"ce_fwd": _ce_fwd_work(n, h, v, e)[:2],
             "ce_dh": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
                       n * h * e),
             "ce_dw": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
@@ -705,13 +844,16 @@ def ce_timing(fc, chunked_ce, flush):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "tflops": flops / ms[name] / 1e9, **staged.get(name, {}),
             **whole}
+    res["ce_fwd"].update(fwd_route="tiled", staged_ms=fwd["staged_ms"],
+                         splits=fwd["splits"],
+                         ms_by_splits=fwd["ms_by_splits"])
     for name in staged:
         check(ms[name] < staged[name]["staged_ms"] and
               ms[name] < plain[name],
               f"{name}: tiled {ms[name]} ms not below the staged route "
               f"{staged[name]['staged_ms']} ms and the plain version "
               f"{plain[name]} ms")
-    return res
+    return res, h2048
 
 
 def golden_weights(names_shapes, seed):
@@ -962,8 +1104,7 @@ def profile_train(trainer, batch, steps=3):
     for us, name, n in rows:
         if "flash_" in name:
             key = "flash kernels"
-        elif "ce_fwd_kernel" in name or "ce_dh_kernel" in name or \
-                "ce_dw_kernel" in name or "ce_bwd_tiled_kernel" in name:
+        elif any(k in name for k in CE_KERNELS):
             key = "fused CE kernels"
         elif "sgemm" in name or "f32f32_f32f32" in name:
             key = "float32 GEMMs (chunked CE)"
@@ -984,7 +1125,16 @@ def profile_train(trainer, batch, steps=3):
                 flash[kernel] = (ms + us / 1e3 / steps, launches + n)
     flash = {k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
              for k, v in flash.items()}
-    return dict(steps=steps, by_group=groups, flash_by_kernel=flash, **report)
+    ce = {}
+    for us, name, n in rows:
+        for kernel in CE_KERNELS:
+            if kernel in name:
+                ms, launches = ce.get(kernel, (0.0, 0))
+                ce[kernel] = (ms + us / 1e3 / steps, launches + n)
+    ce = {k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
+          for k, v in ce.items()}
+    return dict(steps=steps, by_group=groups, flash_by_kernel=flash,
+                ce_by_kernel=ce, **report)
 
 
 def gates(fa, fc, nn, tuner, optim, rs):
@@ -1237,42 +1387,38 @@ def main() -> int:
     # 10. fused-CE kernels against their plain versions on the card
     ce_err = {k: {"abs": 0.0, "norm": 0.0} for k in ("ce_fwd", "ce_dh",
                                                      "ce_dw")}
-    cases = [(shape, dtype, ignore, transposed)
-             for shape in ((128, 64, 512), (200, 32, 500), (1000, 768, 50304))
-             for dtype in (f32, bf16) for ignore in (0.0, 0.3, 1.0)
-             for transposed in (False, True)]
-    cases += [((300, 2048, 5000), bf16, 0.3, True),
-              ((300, 2048, 5000), f32, 0.3, False)]
-    # the tiled route (bf16, H = 768 and 1024) with N and V tails, all rows
-    # ignored, w strided (the tied .T view) and contiguous
-    cases += [((1000, 768, 5003), bf16, 0.3, t) for t in (False, True)]
-    cases += [((257, 1024, 50304), bf16, 0.3, t) for t in (False, True)]
-    cases += [((100, 768, 700), bf16, 1.0, True),
-              ((100, 1024, 700), bf16, 1.0, True)]
-    # the last: the main path's own call (labels from the train recipe),
-    # launched twice: dh and dw must agree bit for bit
-    cases.append(("main path", bf16, 0.0, True))
-    for shape, dtype, ignore, transposed in cases:
+    cases = ce_parity_cases()
+    n_tiled = 0
+    for shape, dtype, ignore, transposed, oor in cases:
         args = ce_main_inputs() if shape == "main path" else \
-            ce_inputs(rs, *shape, dtype, ignore, transposed)
+            ce_inputs(rs, *shape, dtype, ignore, transposed, oor)
         errs = ce_parity_case(fc, *args, twice=shape == "main path")
+        n_tiled += errs["fwd_route"] == "tiled"
+        if shape == (300, 768, 700):
+            check(errs["splits"] == 1, f"V 700 took {errs['splits']} "
+                  f"splits, not the one the rule leaves it")
         for key, outs in (("ce_fwd", ("lse", "tgt")), ("ce_dh", ("dh",)),
                           ("ce_dw", ("dw",))):
             for o in outs:
                 for m in ("abs", "norm"):
                     ce_err[key][m] = max(ce_err[key][m], errs[o][m])
         emit(phase="ce_parity", shape=shape, dtype=str(dtype).split(".")[-1],
-             ignore=ignore, transposed=transposed, errors=errs,
-             tol=CE_TOL[dtype], stat_atol=CE_STAT_ATOL)
+             ignore=ignore, transposed=transposed, out_of_range=oor,
+             errors=errs, tol=CE_TOL[dtype], stat_atol=CE_STAT_ATOL)
     del args
+    want = sum(c[1] == bf16 and (c[0] == "main path" or c[0][1] % 64 == 0)
+               for c in cases)
+    check(n_tiled == want, f"{n_tiled} cases on the tiled forward, not "
+          f"every one of the {want} bf16 cases with H a multiple of 64")
 
     # 11. fused-CE timing at the main path's call (N = 8192, H = 768,
     # V = 50304, bf16, w the tied embedding's .T view)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    ctiming = ce_timing(fc, chunked_ce, flush)
+    ctiming, ce_h2048 = ce_timing(fc, chunked_ce, flush)
     del flush
     for name, t in ctiming.items():
         emit(phase="ce_timing", card=card, kernel=name, **t)
+    emit(phase="ce_fwd_timing", card=card, config="gpt_1p3b", **ce_h2048)
 
     # 12. GPT-base widths, depth 2, fp32, against the JAX golden losses,
     # through the three routes of the head loss
@@ -1299,7 +1445,8 @@ def main() -> int:
                                                 framework, head="pallas")
     rep = train(fa, tuner, trainer, batch, n_params, fc=fc)
     ce_launches = rep["ce_launches"]
-    check(rep["ce_routes"] == {"ce_dh_tiled": 10, "ce_dh_staged": 0,
+    check(rep["ce_routes"] == {"ce_fwd_tiled": 10, "ce_fwd_staged": 0,
+                               "ce_dh_tiled": 10, "ce_dh_staged": 0,
                                "ce_dw_tiled": 10, "ce_dw_staged": 0},
           f"fused CE routes on the main path: {rep['ce_routes']}")
     emit(phase="train_fused_ce", card=card, **rep)
@@ -1374,8 +1521,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in ("bwd_ms", "plain_bwd_ms",
-                                       "library_bwd_ms", "fwd_route",
-                                       "scalar_ms") if key in t},
+                                       "library_bwd_ms", "bwd_over_library",
+                                       "fwd_route", "scalar_ms") if key in t},
             **({"d128": {key: fwd_d128[key] for key in (
                 "shape", "ms", "scalar_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by")}} if name == "flash_fwd" else {})})
@@ -1388,7 +1535,12 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in t if key.endswith("fwd_ms") or
-               key.endswith("fwd_bwd_ms") or key.startswith("staged_")}})
+               key.endswith("fwd_bwd_ms") or key.startswith("staged_") or
+               key in ("fwd_route", "splits")},
+            **({"h2048": {key: ce_h2048[key] for key in (
+                "shape", "ms", "staged_ms", "plain_ms", "library_fwd_ms",
+                "bound_ms", "bound_by", "splits")}}
+               if name == "ce_fwd" else {})})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

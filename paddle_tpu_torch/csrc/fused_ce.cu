@@ -68,7 +68,29 @@
 //   for every streamed tile and the streamed tile a second time for the
 //   gradient product: a few tens of operations per byte.
 //
-// The forward (ce_fwd_kernel) stages its tiles as the staged route does.
+// The forward has two routes too, chosen by the wrapper from (dtype, H):
+//
+// tiled (bfloat16, any H that is a multiple of 64; ce_fwd_tiled_kernel and
+//   ce_fwd_merge_kernel): a plain mma.sync GEMM with the online logsumexp
+//   on its accumulators. The grid is token tiles (128 tokens, 16 a warp)
+//   x vocab splits, token tile fastest, so co-resident blocks share one
+//   split's slice of w in L2. A block loops over its split's 128-column
+//   vocab tiles; each tile's logits are summed over 64-wide H chunks of hid
+//   and w that arrive through a three-stage ring of 16-byte cp.async (one
+//   barrier a chunk) and are read by ldmatrix (w through its h-contiguous
+//   rows as mma's [n][k] operand, as the flash forward reads K). Each warp
+//   owns 16 full rows of a tile, so the row max and sum reduce within a
+//   quad of lanes, and the running (m, s, t) of each row stays in
+//   registers for the whole split; nothing is kept across all of H, so no
+//   H is special. Each block writes its rows' (m, s, t) to a (3, splits, N)
+//   float32 workspace; the merge kernel combines the splits in increasing
+//   order (no atomics: repeat launches give the same bits). The splits
+//   fill the card (ops/fused_ce.py: fwd_splits) where one block per token
+//   tile would leave it half empty. Bound: the operations, 2*N*H*V at the
+//   bf16 tensor-core rate.
+// staged (float32, other H; ce_fwd_kernel): the first design, one block
+//   per 64 tokens looping over all of V, its tiles staged as the staged
+//   backward's are and its logits rescanned through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,7 +141,9 @@ struct Params {
   float* tgt;          // (N,): forward
   const float* scale;  // (N,): backward
   void* out;           // dh (N, H) or dw^T (V, H)
+  float* work;         // tiled forward: (3, splits, N) partial m, s, t
   int N, H, V;
+  int splits;          // tiled forward: vocab splits
 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -884,9 +908,210 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// tiled forward (bfloat16, H a multiple of 64): token tiles x vocab splits
+// ---------------------------------------------------------------------------
+constexpr int FT_BT = 16 * kWarps;   // tokens a block, 16 a warp
+constexpr int FT_BV = 128;           // vocab columns a tile
+constexpr int FT_KC = 64;            // H chunk a ring stage holds
+constexpr int FT_LD = FT_KC + 8;     // row pitch (bf16): 144 bytes, so the
+                                     // 8 rows of an ldmatrix hit 8 banks
+constexpr int FT_STAGES = 3;
+constexpr int FT_NT = FT_BV / 8;     // n8 tiles of a warp's 16 x 128 logits
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct FwdTiledSmem {
+  static constexpr int hid = FT_BT * FT_LD;          // elements a stage
+  static constexpr int stage = hid + FT_BV * FT_LD;  // + the w chunk
+  static constexpr size_t bytes = sizeof(bf16) * FT_STAGES * stage;
+};
+
+// rows [r0, r0 + ROWS) x columns [h0, h0 + FT_KC) of src (row stride ld,
+// h contiguous) into dst (pitch FT_LD) by 16-byte cp.async; rows >= n are
+// zero-filled without a read
+template <int ROWS>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
+                                           long long ld, int r0, int n,
+                                           int h0) {
+  constexpr int CPR = FT_KC / 8;
+  static_assert(ROWS * CPR % kThreads == 0, "chunk pieces");
+#pragma unroll
+  for (int u = 0; u < ROWS * CPR / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * FT_LD + col,
+               in ? src + static_cast<long long>(r0 + r) * ld + h0 + col : src,
+               in ? 16 : 0);
+  }
+}
+
+// Block (token tile x, split y): tokens [128 x, 128 x + 128) against the
+// split's vocab tiles [y T / S, (y + 1) T / S) of the T = ceil(V / 128),
+// writing each row's (m, s, t) over those columns to work[k][y][row].
+__global__ void __launch_bounds__(kThreads, 2)
+    ce_fwd_tiled_kernel(const Params p) {
+  using S = FwdTiledSmem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+
+  const bf16* hid = static_cast<const bf16*>(p.hid);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  const int t0 = blockIdx.x * FT_BT, split = blockIdx.y;
+  const long long nvt = (p.V + FT_BV - 1) / FT_BV;
+  const int v_begin = static_cast<int>(split * nvt / p.splits) * FT_BV;
+  const int v_end = static_cast<int>((split + 1) * nvt / p.splits) * FT_BV;
+  const int nc = p.H / FT_KC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lj = lane >> 3, l8 = lane & 7;
+  const int rw = 16 * warp;   // the warp's first row in the block
+
+  // rows g and g + 8 of the warp: label (-1 outside [0, V): never picked),
+  // running max, this lane's part of the sum and of the target logit
+  int lbl[2];
+  float m[2] = {kNegInf, kNegInf}, s[2] = {0.f, 0.f}, tg[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = t0 + rw + g + 8 * r;
+    const int l = row < p.N ? p.lbl[row] : -1;
+    lbl[r] = l >= 0 && l < p.V ? l : -1;
+  }
+
+  // the ring: stage i holds the i-th (vocab tile, H chunk) of the split,
+  // H chunks innermost; (lv0, lh0) is the next one to load
+  int lv0 = v_begin, lh0 = 0;
+  const auto load_next = [&](int slot) {
+    if (lv0 < v_end) {
+      bf16* st = ring + slot * S::stage;
+      load_chunk<FT_BT>(st, hid, p.H, t0, p.N, lh0);
+      load_chunk<FT_BV>(st + S::hid, w, p.sv, lv0, p.V, lh0);
+      lh0 += FT_KC;
+      if (lh0 == p.H) {
+        lh0 = 0;
+        lv0 += FT_BV;
+      }
+    }
+    cp_commit();   // an empty group past the end keeps the count in step
+  };
+#pragma unroll
+  for (int i = 0; i < FT_STAGES - 1; ++i) load_next(i);
+
+  int slot = 0;
+  for (int v0 = v_begin; v0 < v_end; v0 += FT_BV) {
+    float acc[FT_NT][4];
+#pragma unroll
+    for (int n = 0; n < FT_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int c = 0; c < nc; ++c) {
+      cp_wait<FT_STAGES - 2>();
+      // this chunk has landed; every reader of the slot refilled next is done
+      __syncthreads();
+      load_next(slot == 0 ? FT_STAGES - 1 : slot - 1);
+      const bf16* hs = ring + slot * S::stage;
+      slot = slot + 1 == FT_STAGES ? 0 : slot + 1;
+      // logits += hid chunk (the warp's 16 rows) . w chunk^T (128 columns)
+      const bf16* pa = hs + (rw + (lj & 1) * 8 + l8) * FT_LD + (lj >> 1) * 8;
+      const bf16* pb = hs + S::hid + ((lj >> 1) * 8 + l8) * FT_LD +
+                       (lj & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < FT_KC / 16; ++kk) {
+        unsigned a[4];
+        ldsm_x4(a, pa + 16 * kk);
+#pragma unroll
+        for (int n = 0; n < FT_NT; n += 2) {
+          unsigned b[4];
+          ldsm_x4(b, pb + n * 8 * FT_LD + 16 * kk);
+          mma_bf16(acc[n], a, b[0], b[1]);
+          mma_bf16(acc[n + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // online logsumexp on the accumulators: element e of n8 tile n is row
+    // rw + g + 8 (e >> 1), vocab column v0 + 8n + 2t + (e & 1)
+    const bool edge = v0 + FT_BV > p.V;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < FT_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = v0 + 8 * n + 2 * t + (e & 1);
+        float x = acc[n][e];
+        if (col == lbl[e >> 1]) tg[e >> 1] += x;
+        if (edge && col >= p.V) x = kNegInf;   // the reference's mask
+        acc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float ml[2];   // the new max, prescaled for exp2f
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      s[r] *= exp2f((m[r] - m_new) * kLog2e);   // NEG_INF start -> 0
+      m[r] = m_new;
+      ml[r] = m_new * kLog2e;
+    }
+#pragma unroll
+    for (int n = 0; n < FT_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = acc[n][e];
+        float pe = exp2f(fmaf(x, kLog2e, -ml[e >> 1]));
+        if (edge && x <= kNegInf * 0.5f) pe = 0.f;
+        s[e >> 1] += pe;
+      }
+  }
+
+  // the four lanes of each row, summed in a fixed order; lane t = 0 writes
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    s[r] += __shfl_xor_sync(kFull, s[r], 1);
+    s[r] += __shfl_xor_sync(kFull, s[r], 2);
+    tg[r] += __shfl_xor_sync(kFull, tg[r], 1);
+    tg[r] += __shfl_xor_sync(kFull, tg[r], 2);
+  }
+  const long long plane = static_cast<long long>(p.splits) * p.N;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + rw + g + 8 * r;
+      if (row < p.N) {
+        float* out = p.work + static_cast<long long>(split) * p.N + row;
+        out[0] = m[r];
+        out[plane] = s[r];
+        out[2 * plane] = tg[r];
+      }
+    }
+  }
+}
+
+// one thread a token: the splits' (m, s, t) merged in increasing split
+// order; lse = m + log(s, with s == 0 read as 1), tgt = sum of t
+__global__ void __launch_bounds__(kThreads)
+    ce_fwd_merge_kernel(const Params p) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= p.N) return;
+  const long long plane = static_cast<long long>(p.splits) * p.N;
+  float m = kNegInf, s = 0.f, tg = 0.f;
+  for (int i = 0; i < p.splits; ++i) {
+    const float* in = p.work + static_cast<long long>(i) * p.N + row;
+    const float mi = in[0];
+    const float m_new = fmaxf(m, mi);
+    s = s * exp2f((m - m_new) * kLog2e) +
+        in[plane] * exp2f((mi - m_new) * kLog2e);
+    m = m_new;
+    tg += in[2 * plane];
+  }
+  p.lse[row] = m + logf(s == 0.f ? 1.f : s);
+  p.tgt[row] = tg;
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-cudaError_t launch(void (*kernel)(const Params), int blocks, size_t smem,
+cudaError_t launch(void (*kernel)(const Params), dim3 grid, size_t smem,
                    const Params& p, cudaStream_t stream) {
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -895,8 +1120,33 @@ cudaError_t launch(void (*kernel)(const Params), int blocks, size_t smem,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the tiled forward: bfloat16, H a multiple of 64, w h-contiguous (sh ==
+// 1) with 16-byte aligned rows, hid 16-byte aligned, 1 <= splits <= the
+// vocab tiles; anything else is refused. The main kernel, then the merge.
+cudaError_t dispatch_fwd_tiled(const Params& p, cudaStream_t s) {
+  const auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  const int nvt = (p.V + FT_BV - 1) / FT_BV;
+  if (p.H % FT_KC != 0 || p.sh != 1 || p.sv % 8 != 0 || misaligned(p.w) ||
+      misaligned(p.hid) || p.splits < 1 || p.splits > nvt ||
+      p.splits > 65535)
+    return cudaErrorInvalidValue;
+  // the largest shared-memory carveout, so that two blocks fit an SM
+  cudaError_t e = cudaFuncSetAttribute(
+      ce_fwd_tiled_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  e = launch(ce_fwd_tiled_kernel,
+             dim3((p.N + FT_BT - 1) / FT_BT, p.splits), FwdTiledSmem::bytes,
+             p, s);
+  if (e != cudaSuccess) return e;
+  return launch(ce_fwd_merge_kernel, (p.N + kThreads - 1) / kThreads, 0, p,
+                s);
 }
 
 enum Which { kFwd = 0, kDh = 1, kDw = 2 };
@@ -987,6 +1237,25 @@ int fused_ce_fwd(const void* hid, const void* w, long long sh, long long sv,
   p.lse = static_cast<float*>(lse);
   p.tgt = static_cast<float*>(tgt);
   return run(kFwd, p, bf16, stream);
+}
+
+// The tiled forward (bfloat16 only; bf16 must be 1): lse and tgt as
+// fused_ce_fwd gives them, for H a multiple of 64, w h-contiguous (sh ==
+// 1), over `splits` vocab splits (1 <= splits <= ceil(V / 128)); work: a
+// float32 scratch of 3 * splits * N.
+int fused_ce_fwd_tiled(const void* hid, const void* w, long long sh,
+                       long long sv, const void* lbl, void* lse, void* tgt,
+                       void* work, int N, int H, int V, int bf16, int splits,
+                       void* stream) {
+  if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || H <= 0 || V <= 0) return 0;
+  Params p = make(hid, w, sh, sv, lbl, N, H, V);
+  p.lse = static_cast<float*>(lse);
+  p.tgt = static_cast<float*>(tgt);
+  p.work = static_cast<float*>(work);
+  p.splits = splits;
+  return static_cast<int>(
+      dispatch_fwd_tiled(p, static_cast<cudaStream_t>(stream)));
 }
 
 // The staged route: dh (N, H) in the inputs' dtype

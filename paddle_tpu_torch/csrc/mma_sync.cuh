@@ -1,7 +1,7 @@
 // Warp-level building blocks for the port's bf16 tensor-core kernels on
 // Hopper (sm_90a), shared by fused_ce.cu and flash_attention.cu:
 // mma.sync.m16n8k16 (bf16 inputs, float32 sums), ldmatrix (plain and
-// transposed) and 16- and 4-byte cp.async with zero fill.
+// transposed) and 16- and 4-byte cp.async with zero fill and group waits.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane (g, t) = (lane / 4,
 // lane % 4). A (16 x 16, row-major): a[0] rows g, cols 2t..2t+1; a[1] row
@@ -47,9 +47,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void cp_wait_all() { cp_wait<0>(); }
 // four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(

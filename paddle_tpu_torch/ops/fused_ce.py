@@ -18,15 +18,22 @@ device memory.
   on float32 inputs as float32 FMAs. ``weight`` is read through its
   strides, so the tied head's ``embedding.weight.T`` needs no copy; ``dw``
   is written as a ``(V, H)`` buffer and returned as its ``(H, V)`` view.
+- **Two forward routes**, chosen by :func:`fwd_route` from the dtype and
+  H alone: ``"tiled"`` (bfloat16 at any H that is a multiple of 64: an
+  ``mma.sync`` GEMM over token tiles x the vocab splits of
+  :func:`fwd_splits`, the online logsumexp on its accumulators, the splits
+  merged by a second kernel) and ``"staged"`` (float32 and every other H:
+  the first design).
 - **Two backward routes**, chosen by :func:`bwd_route` from the dtype and
   H alone: ``"tiled"`` (bfloat16 at H in :data:`TILED_HIDDEN`: own rows
   resident, each streamed tile read once by ``cp.async``, the sums in
   registers) and ``"staged"`` (everything else up to
   :data:`STAGED_MAX_HIDDEN`: the first design, sums in shared memory).
-  ``ROUTES`` counts the launches of each route.
+  ``ROUTES`` counts the launches of each route, forward and backward.
 - **The plain versions** :func:`fused_ce_plain_fwd`,
   :func:`fused_ce_plain_dh` and :func:`fused_ce_plain_dw` compute the same
-  over the full float32 logits.
+  over the full float32 logits; :func:`fused_ce_plain_fwd_split` models
+  the tiled forward's split-and-merge in float32.
 - **Dispatch.** :func:`ce_fwd`, :func:`ce_dh` and :func:`ce_dw` take the
   plain versions only for tensors on the CPU; on a CUDA tensor they launch
   the kernels or raise. ``LAUNCHES`` counts launches per kernel. The gate
@@ -54,23 +61,34 @@ from .tuner import ce_dims, resolve
 
 __all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
            "ROUTES", "STAGED_MAX_HIDDEN", "TILED_HIDDEN", "bwd_route",
-           "fused_lm_ce", "fused_ce_gate", "fused_ce_supported",
-           "resolve_blocks", "ce_fwd",
-           "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_dh",
-           "fused_ce_plain_dw", "load_kernel", "max_hidden"]
+           "fwd_route", "fwd_splits", "fused_lm_ce", "fused_ce_gate",
+           "fused_ce_supported", "resolve_blocks", "ce_fwd",
+           "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_fwd_split",
+           "fused_ce_plain_dh", "fused_ce_plain_dw", "load_kernel",
+           "max_hidden"]
 
 # the reference's interpret-validated defaults (a DB miss resolves to them)
 DEFAULT_BLOCK_TOKENS = 256
 DEFAULT_BLOCK_VOCAB = 1024
 LANES = 128
+# the reference's finite mask value (paddle_tpu/ops/pallas/flash_attention.py)
+NEG_INF = -1e30
 
 LAUNCHES = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
-ROUTES = {"ce_dh_tiled": 0, "ce_dh_staged": 0, "ce_dw_tiled": 0,
-          "ce_dw_staged": 0}
+ROUTES = {"ce_fwd_tiled": 0, "ce_fwd_staged": 0, "ce_dh_tiled": 0,
+          "ce_dh_staged": 0, "ce_dw_tiled": 0, "ce_dw_staged": 0}
 _launch_lock = threading.Lock()
 
 # the H the tiled backward kernel is instantiated for (bfloat16 only)
 TILED_HIDDEN = (768, 1024)
+# the tiled forward's tiles (csrc/fused_ce.cu FT_BT, FT_BV, FT_KC): tokens
+# a block, vocab columns a tile, the H chunk (H must be a multiple of it)
+FWD_TILE_TOKENS, FWD_TILE_VOCAB, FWD_CHUNK = 128, 128, 64
+# the split rule: blocks an SM holds (the kernel's launch bounds and shared
+# memory give two), and the fewest vocab tiles a split may have, so that a
+# small vocabulary is not cut into splits that each hold a few columns
+FWD_BLOCKS_PER_SM = 2
+FWD_MIN_SPLIT_TILES = 4
 # the largest H (a multiple of 64) whose float32 sums of 16 rows fit a
 # block's shared memory in the staged backward kernels; the library's
 # fused_ce_max_hidden reports the same numbers
@@ -146,6 +164,39 @@ def fused_ce_plain_fwd(hid, w, labels):
     return lse, torch.where(ok, picked, torch.zeros_like(picked))
 
 
+def fused_ce_plain_fwd_split(hid, w, labels, splits):
+    """What the tiled forward computes, in its order, over float32 logits:
+    the vocabulary cut into ``splits`` runs of whole
+    :data:`FWD_TILE_VOCAB`-column tiles as the kernel's grid cuts it; per
+    split the max ``m``, the sum ``s`` of ``exp(x - m)`` and the
+    label's logit ``t``; the splits merged in increasing order. Returns
+    ``(lse, tgt)`` as :func:`fused_ce_plain_fwd` defines them."""
+    logits = _logits(hid, w)
+    n, v = logits.shape
+    tiles = -(-v // FWD_TILE_VOCAB)
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"fused_ce: {splits} splits of {tiles} vocab tiles")
+    lbl = labels.long()
+    ok = _in_vocab(lbl, v)
+    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=logits.device)
+    s = torch.zeros_like(m)
+    tgt = torch.zeros_like(m)
+    for k in range(splits):
+        lo = k * tiles // splits * FWD_TILE_VOCAB
+        hi = min((k + 1) * tiles // splits * FWD_TILE_VOCAB, v)
+        x = logits[:, lo:hi]
+        mk = x.amax(dim=1)
+        sk = torch.exp(x - mk[:, None]).sum(dim=1)
+        hit = ok & (lbl >= lo) & (lbl < hi)
+        tk = x.gather(1, torch.where(hit, lbl - lo, 0)[:, None])[:, 0]
+        m_new = torch.maximum(m, mk)
+        s = s * torch.exp(m - m_new) + sk * torch.exp(mk - m_new)
+        m = m_new
+        tgt = tgt + torch.where(hit, tk, torch.zeros_like(tk))
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return m + torch.log(s), tgt
+
+
 def _plain_dl(logits, labels, lse, scale):
     """d loss / d logits = (softmax - onehot) * scale, (N, V) float32."""
     v = logits.shape[1]
@@ -190,8 +241,11 @@ def load_kernel() -> ctypes.CDLL:
             lib.fused_ce_dw.argtypes = head + [p, p, p] + tail
             lib.fused_ce_dh_tiled.argtypes = head + [p, p, p] + tail
             lib.fused_ce_dw_tiled.argtypes = head + [p, p, p] + tail
+            lib.fused_ce_fwd_tiled.argtypes = \
+                head + [p, p, p] + [i, i, i, i, i, p]
             for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw,
-                       lib.fused_ce_dh_tiled, lib.fused_ce_dw_tiled):
+                       lib.fused_ce_dh_tiled, lib.fused_ce_dw_tiled,
+                       lib.fused_ce_fwd_tiled):
                 fn.restype = ctypes.c_int
             lib.fused_ce_max_hidden.argtypes = [ctypes.c_int]
             lib.fused_ce_max_hidden.restype = ctypes.c_int
@@ -212,6 +266,30 @@ def bwd_route(dtype, h: int) -> str:
     if h <= STAGED_MAX_HIDDEN[dtype]:
         return "staged"
     raise ValueError(f"fused_ce kernel: H {h} > {max_hidden(dtype)}")
+
+
+def fwd_route(dtype, h: int) -> str:
+    """The forward route for inputs of ``dtype`` and hidden size ``h``:
+    ``"tiled"`` for bfloat16 at an H that is a multiple of
+    :data:`FWD_CHUNK`, ``"staged"`` for float32 and every other H;
+    ValueError for any other dtype."""
+    if dtype not in STAGED_MAX_HIDDEN:
+        raise ValueError(f"fused_ce kernel: dtype {dtype}")
+    if dtype == torch.bfloat16 and h > 0 and h % FWD_CHUNK == 0:
+        return "tiled"
+    return "staged"
+
+
+def fwd_splits(n: int, v: int, sms: int) -> int:
+    """The tiled forward's vocab splits for N tokens, V columns and a card
+    of ``sms`` SMs: as many as keep the grid (token tiles x splits) within
+    one wave of :data:`FWD_BLOCKS_PER_SM` blocks an SM, at least 1, and no
+    more than leave each split :data:`FWD_MIN_SPLIT_TILES` vocab tiles (so
+    none is empty)."""
+    token_tiles = -(-n // FWD_TILE_TOKENS)
+    vocab_tiles = -(-v // FWD_TILE_VOCAB)
+    fill = FWD_BLOCKS_PER_SM * sms // max(token_tiles, 1)
+    return max(1, min(fill, vocab_tiles // FWD_MIN_SPLIT_TILES))
 
 
 def max_hidden(dtype) -> int:
@@ -273,7 +351,7 @@ def _tiled_operands(hid, w):
     return hid, w
 
 
-def _launch(entry, key, hid, w, lbl, extra, route=None):
+def _launch(entry, key, hid, w, lbl, extra, route=None, ints=()):
     n, h = hid.shape
     v = w.shape[1]
     lib = load_kernel()
@@ -282,23 +360,35 @@ def _launch(entry, key, hid, w, lbl, extra, route=None):
         err = getattr(lib, entry)(
             hid.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
             lbl.data_ptr(), *[t.data_ptr() for t in extra], n, h, v,
-            int(hid.dtype == torch.bfloat16), stream)
+            int(hid.dtype == torch.bfloat16), *ints, stream)
     _raise_on(lib, err, key)
     _count(key, route)
 
 
 def ce_fwd(hid, w, labels):
     """The forward kernel's wrapper: ``(lse, tgt)`` as
-    :func:`fused_ce_plain_fwd` defines them. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, or raise."""
+    :func:`fused_ce_plain_fwd` defines them, on the route
+    :func:`fwd_route` names. CPU tensors take the plain version; CUDA
+    tensors launch the kernel, or raise."""
     if hid.device.type == "cpu":
         return fused_ce_plain_fwd(hid, w, labels)
     hid, lbl = _check(hid, w, labels)
-    n = hid.shape[0]
+    n, h = hid.shape
+    v = w.shape[1]
     lse = torch.empty(n, dtype=torch.float32, device=hid.device)
     tgt = torch.empty(n, dtype=torch.float32, device=hid.device)
-    if n and w.shape[1]:
-        _launch("fused_ce_fwd", "ce_fwd", hid, w, lbl, (lse, tgt))
+    if n and v:
+        route = fwd_route(hid.dtype, h)
+        if route == "tiled":
+            hid, w = _tiled_operands(hid, w)
+            splits = fwd_splits(n, v, torch.cuda.get_device_properties(
+                hid.device).multi_processor_count)
+            work = torch.empty((3, splits, n), dtype=torch.float32,
+                               device=hid.device)
+            _launch("fused_ce_fwd_tiled", "ce_fwd", hid, w, lbl,
+                    (lse, tgt, work), route, ints=(splits,))
+        else:
+            _launch("fused_ce_fwd", "ce_fwd", hid, w, lbl, (lse, tgt), route)
     else:
         lse.zero_()
         tgt.zero_()

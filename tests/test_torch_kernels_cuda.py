@@ -405,9 +405,11 @@ def _ce_check(hid, w, lbl, scale, dtype):
     rdw = fused_ce.fused_ce_plain_dw(hid, w, lbl, rl, scale)
     torch.cuda.synchronize()
     assert fused_ce.LAUNCHES == {k: n0[k] + 1 for k in n0}
+    fwd = fused_ce.fwd_route(dtype, hid.shape[1])
     route = fused_ce.bwd_route(dtype, hid.shape[1])
     assert fused_ce.ROUTES == {
-        k: r0[k] + (k in (f"ce_dh_{route}", f"ce_dw_{route}")) for k in r0}
+        k: r0[k] + (k in (f"ce_fwd_{fwd}", f"ce_dh_{route}",
+                          f"ce_dw_{route}")) for k in r0}
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(tgt, rt, rtol=1e-5, atol=1e-4)
     assert dh.dtype == hid.dtype and dw.dtype == w.dtype
@@ -466,6 +468,77 @@ def test_fused_ce_tiled_route_rejects_misaligned_rows(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_of_range", [
+    ((128, 64, 512), False), ((129, 768, 5003), False),
+    ((300, 768, 700), False), ((1000, 768, 5003), True),
+    ((257, 1024, 50304), False), ((300, 2048, 5000), True),
+    ((8192, 768, 50304), False)])
+def test_fused_ce_tiled_forward_matches_plain(cuda_device, shape,
+                                              out_of_range):
+    """bf16 at H a multiple of 64: lse and tgt of the split-vocabulary
+    kernel within atol 1e-4 of the plain version (and of the float32 model
+    of its split-and-merge); labels V + 3 and -5 give tgt 0."""
+    n, h, v = shape
+    hid, w, lbl, _ = _ce_inputs(cuda_device, n, h, v, torch.bfloat16,
+                                transposed=True, seed=sum(shape))
+    if out_of_range:
+        lbl[1::11] = v + 3
+        lbl[2::13] = -5
+    r0 = dict(fused_ce.ROUTES)
+    lse, tgt = fused_ce.ce_fwd(hid, w, lbl)
+    assert fused_ce.ROUTES["ce_fwd_tiled"] == r0["ce_fwd_tiled"] + 1
+    rl, rt = fused_ce.fused_ce_plain_fwd(hid, w, lbl)
+    splits = fused_ce.fwd_splits(n, v, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    ml, mt = fused_ce.fused_ce_plain_fwd_split(hid, w, lbl, splits)
+    for got, want in ((lse, rl), (tgt, rt), (lse, ml), (tgt, mt)):
+        assert (got - want).abs().max().item() <= 1e-4
+    bad = (lbl == v + 3) | (lbl == -5)
+    assert bad.any() == out_of_range and (tgt[bad] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_tiled_forward_is_bit_reproducible(cuda_device):
+    hid, w, lbl, _ = _ce_inputs(cuda_device, 1000, 768, 50304,
+                                torch.bfloat16, transposed=True)
+    first = fused_ce.ce_fwd(hid, w, lbl)
+    second = fused_ce.ce_fwd(hid, w, lbl)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_fused_ce_tiled_forward_refuses_what_it_does_not_take(cuda_device):
+    """The C entry refuses splits outside [1, vocab tiles], float32 and H
+    not a multiple of 64; the wrapper refuses misaligned rows."""
+    hid, w, lbl, _ = _ce_inputs(cuda_device, 64, 768, 300, torch.bfloat16,
+                                transposed=True)
+    lib = fused_ce.load_kernel()
+    lse, tgt = torch.empty(64, device=cuda_device), torch.empty(
+        64, device=cuda_device)
+    work = torch.empty(3 * 4 * 64, device=cuda_device)
+    lbl32 = lbl.to(torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(h=768, bf16=1, splits=1):
+        return lib.fused_ce_fwd_tiled(
+            hid.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+            lbl32.data_ptr(), lse.data_ptr(), tgt.data_ptr(),
+            work.data_ptr(), 64, h, 300, bf16, splits, stream)
+
+    assert call() == 0
+    assert call(splits=0) != 0 and call(splits=4) != 0   # 3 vocab tiles
+    assert call(bf16=0) != 0 and call(h=736) != 0
+    flat = torch.empty(64 * 768 + 1, dtype=torch.bfloat16, device=cuda_device)
+    odd = flat[1:].view(64, 768)
+    odd.copy_(hid)
+    n0 = dict(fused_ce.ROUTES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_ce.ce_fwd(odd, w, lbl)
+    assert fused_ce.ROUTES == n0
+
+
+@pytest.mark.cuda
 def test_fused_ce_staged_limits_match_the_library(cuda_device):
     lib = fused_ce.load_kernel()
     assert lib.fused_ce_max_hidden(1) == \
@@ -509,8 +582,8 @@ def test_fused_ce_kernels_on_the_main_path_call(cuda_device):
     loss = fused_ce.fused_lm_ce(h, emb.T, lbl)
     loss.backward()
     assert {k: fused_ce.ROUTES[k] - r0[k] for k in r0} == {
-        "ce_dh_tiled": 1, "ce_dh_staged": 0, "ce_dw_tiled": 1,
-        "ce_dw_staged": 0}
+        "ce_fwd_tiled": 1, "ce_fwd_staged": 0, "ce_dh_tiled": 1,
+        "ce_dh_staged": 0, "ce_dw_tiled": 1, "ce_dw_staged": 0}
     ref = torch.nn.functional.cross_entropy(hid.float() @ w.float(), lbl)
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-5)
     assert emb.grad.is_contiguous() and emb.grad.shape == (50304, 768)
