@@ -12,11 +12,12 @@ per source, all started together), then:
   ``DecodeServer`` and ``SpeculativeDecodeServer``, checking every token
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
-- training: holds the flash-attention kernels (forward on both its routes,
-  tensor-core and scalar; dq, dk/dv) and the three fused-CE kernels
-  (forward, dh, dw; each on both its routes, tiled and staged) against
-  their plain versions and times them at GPT-base (the flash forward also
-  at GPT-1.3B's head dim, the CE forward also at its width); checks that
+- training: holds the flash-attention kernels (forward, dq and dk/dv;
+  each on both its routes, tensor-core and scalar) and the three fused-CE
+  kernels (forward, dh, dw; each on both its routes, tiled and staged)
+  against their plain versions and times them at GPT-base (the flash
+  kernels also at GPT-1.3B's head dim, the CE forward also at its width);
+  checks that
   float16 inputs fall back to the
   plain attention and the chunked CE, counted; trains GPT-base widths at
   depth 2
@@ -83,6 +84,14 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # max |lse - plain lse|, each held at a few times the largest that sound
 # runs read (PERF.md §6); a skipped K tile reads far above both
 MMA_FWD_BOUND = {"out_rel": 8e-3, "lse_abs": 5e-6}
+# the tensor-core dq and dk/dv (through the autograd path, on the mma
+# forward's out and lse) against the plain backward, beside FLASH_TOL, on
+# every bf16 case: ||g - plain|| / ||plain|| of each gradient. About three
+# times the largest reading of a CPU model of the route's bf16 roundings
+# (p, ds and the forward's p; tests/test_torch_flash_bwd_rounding.py:
+# 2.5e-3 to 3.24e-3, 2.86e-3 since the dropout scale stays out of p), set
+# before any card run and never raised after one
+MMA_BWD_BOUND = {"dq_rel": 1e-2, "dk_rel": 1e-2, "dv_rel": 1e-2}
 FLASH_SEED = 7
 # fused-CE kernel vs plain, as errors normalized by the plain tensor's
 # largest magnitude (the 1/denom factor makes dh and dw small): float32
@@ -337,9 +346,11 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
     """Kernel vs plain on the card: forward (out, lse) and, through the
     autograd Function, backward (dq, dk, dv). With ``split_qkv`` q, k and v
     are what GPTAttention hands the kernels: strided views of one
-    (B, S, H, 3*D) tensor, split per head. Returns the max abs errors and,
-    on the mma route, the relative errors that :data:`MMA_FWD_BOUND`
-    holds."""
+    (B, S, H, 3*D) tensor, split per head. On the mma route the scalar
+    kernels run on the same inputs beside it (the backward on the mma
+    forward's out and lse). Returns the max abs errors, on the mma route
+    also the relative errors that :data:`MMA_FWD_BOUND` and
+    :data:`MMA_BWD_BOUND` hold, and the forward's and backward's routes."""
     dev = "cuda"
     rand = lambda *shape: torch.as_tensor(  # noqa: E731
         rs.randn(*shape).astype(np.float32), device=dev).to(dtype)
@@ -361,6 +372,7 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
     blocks = fa.keying_blocks(dtype, d, s, s)
     # the random tensors and the QKV split's views are 16-byte aligned
     route = fa.fwd_route(dtype, d, True)
+    broute = fa.bwd_route(dtype, d, True)
     r0 = dict(fa.ROUTES)
     out, lse = fa.flash_attention_fwd(q, k, v, ln, seed, None, causal, rate,
                                       blocks)
@@ -375,17 +387,24 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
                                              seed, None, causal, rate, blocks)
     torch.cuda.synchronize()
     routes = {key: fa.ROUTES[key] - r0[key] for key in r0}
-    check(routes == {key: 2 * (key == f"flash_fwd_{route}") for key in routes},
-          f"flash forward routes {routes}, want two on {route} (s={s} d={d} "
-          f"{dtype})")
+    want = {f"flash_fwd_{route}": 2, f"flash_dq_{broute}": 1,
+            f"flash_dkv_{broute}": 1}
+    check(routes == {key: want.get(key, 0) for key in routes},
+          f"flash routes {routes}, want {want} (s={s} d={d} {dtype})")
     names = ["out", "lse", "out_autograd", "dq", "dk", "dv"]
     gots, refs = [out, lse, out2, *grads], [ref_out, ref_lse, ref_out,
                                             *ref_grads]
-    if route == "mma":    # the scalar kernel on the same inputs, beside it
+    if route == "mma":    # the scalar kernels on the same inputs, beside it
         names += ["out_scalar_route", "lse_scalar_route"]
         gots += list(fa.flash_attention_fwd(q, k, v, ln, seed, None, causal,
                                             rate, blocks, route="scalar"))
         refs += [ref_out, ref_lse]
+    if broute == "mma":
+        names += ["dq_scalar_route", "dk_scalar_route", "dv_scalar_route"]
+        gots += list(fa.flash_attention_bwd(q, k, v, out, lse, do, ln, seed,
+                                            None, causal, rate, blocks,
+                                            route="scalar"))
+        refs += list(ref_grads)
     atol, rtol = FLASH_TOL[dtype]
     errs = {}
     for name, g, r in zip(names, gots, refs):
@@ -408,7 +427,19 @@ def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
               f"flash mma forward s={s} d={d} causal={causal} lens={lens} "
               f"rate={rate}: relative out error {worst}, lse error "
               f"{errs['lse']} against {MMA_FWD_BOUND}")
-    return errs, route
+    if broute == "mma":
+        for i, name in enumerate(("dq", "dk", "dv")):
+            r = ref_grads[i].float()
+            for key in (name, f"{name}_scalar_route"):
+                g = gots[names.index(key)].float()
+                errs[f"{key}_rel"] = ((g - r).norm() /
+                                      r.norm().clamp_min(1e-30)).item()
+        bad = {n: errs[f"{n}_rel"] for n in ("dq", "dk", "dv")
+               if errs[f"{n}_rel"] > MMA_BWD_BOUND[f"{n}_rel"]}
+        check(not bad, f"flash mma backward s={s} d={d} causal={causal} "
+              f"lens={lens} rate={rate}: relative errors {bad} against "
+              f"{MMA_BWD_BOUND}")
+    return errs, route, broute
 
 
 def _qkv_views(b, s, h, d, seed=0):
@@ -458,22 +489,27 @@ def flash_fwd_routes_timing(fa, flush, b, h, s, d):
             "mma_over_library": ms / lib}
 
 
-def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
-    """Each kernel, its plain version and the library call at GPT-base
-    (bf16, causal; q, k, v the QKV split's strided views, as the main path
-    gives them), with each kernel's bound on this card; the forward as
-    :func:`flash_fwd_routes_timing` measures it."""
-    fwd = flash_fwd_routes_timing(fa, flush, b, h, s, d)
+def flash_bwd_routes_timing(fa, flush, b, h, s, d):
+    """dq and dk/dv at one shape (bf16, causal; q, k, v the QKV split's
+    strided views, as the main path gives them), each on the mma and the
+    scalar route, beside each kernel's plain version and the library's
+    whole backward (SDPA's; no library call computes dq or dk/dv alone),
+    one after another in this run, with each kernel's bound on this card.
+    Returns ({"flash_dq": ..., "flash_dkv": ...}, the whole backward's
+    numbers)."""
     q, k, v, do = _qkv_views(b, s, h, d)
     blocks = fa.keying_blocks(q.dtype, d, s, s)
     out, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, True, 0.0,
                                       blocks)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = fa._delta(out, do)
     rest = (None, 0, None, True, 0.0, blocks)
-    ms = {"flash_dq": time_ms(lambda: fa._launch_dq(
-              q, k, v, do, lse, delta, *rest), flush=flush),
-          "flash_dkv": time_ms(lambda: fa._launch_dkv(
-              q, k, v, do, lse, delta, *rest), flush=flush)}
+    launch = {"flash_dq": fa._launch_dq, "flash_dkv": fa._launch_dkv}
+    ms = {name: time_ms(lambda fn=fn: fn(q, k, v, do, lse, delta, *rest,
+                                         route="mma"), flush=flush)
+          for name, fn in launch.items()}
+    scalar = {name: time_ms(lambda fn=fn: fn(q, k, v, do, lse, delta, *rest,
+                                             route="scalar"), flush=flush)
+              for name, fn in launch.items()}
 
     # each kernel's plain version; both backward ones recompute ds
     def plain_dq():
@@ -504,30 +540,44 @@ def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
     prod = b * h * s * s * d                   # one causal S x S x D product
     work = {"flash_dq": (3 * prod, 4 * tensor + 2 * stat + tensor),
             "flash_dkv": (4 * prod, 4 * tensor + 2 * stat + 2 * tensor)}
+    bwd_ms = ms["flash_dq"] + ms["flash_dkv"]
+    scalar_bwd = scalar["flash_dq"] + scalar["flash_dkv"]
     # no library call computes dq alone or dk/dv alone: the backward rows
     # carry library_ms null, and the whole backward (SDPA's, the plain one,
-    # dq + dk/dv) under keys of its own
-    whole_bwd = {"bwd_ms": ms["flash_dq"] + ms["flash_dkv"],
+    # dq + dk/dv on each route) under keys of its own
+    whole_bwd = {"bwd_ms": bwd_ms, "scalar_bwd_ms": scalar_bwd,
                  "plain_bwd_ms": plain_bwd, "library_bwd_ms": lib_bwd,
-                 "bwd_over_library": (ms["flash_dq"] + ms["flash_dkv"]) /
-                 lib_bwd}
-    res = {"flash_fwd": fwd}
+                 "bwd_over_library": bwd_ms / lib_bwd,
+                 "scalar_bwd_over_mma": scalar_bwd / bwd_ms}
+    res = {}
     for name, (flops, moved) in work.items():
         t_ops = flops / H100_BF16_FLOPS * 1e3
         t_bytes = moved / H100_BYTES_PER_S * 1e3
         res[name] = {
-            "ms": ms[name], "flops": flops, "bytes": moved,
+            "shape": [b, s, h, d], "bwd_route": "mma", "ms": ms[name],
+            "scalar_ms": scalar[name], "flops": flops, "bytes": moved,
             "plain_ms": plain[name], "library_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / ms[name] / 1e9, **whole_bwd}
+            "tflops": flops / ms[name] / 1e9,
+            "scalar_tflops": flops / scalar[name] / 1e9,
+            "scalar_over_mma": scalar[name] / ms[name], **whole_bwd}
     # the backward as one minimal pass (scores, dp, dq, dk, dv: 5 products)
     bwd_bound = max(5 * prod / H100_BF16_FLOPS,
                     (5 * tensor + 3 * tensor + 2 * stat) / H100_BYTES_PER_S)
-    return res, {"bwd_minimal_bound_ms": bwd_bound * 1e3,
-                 "bwd_over_library": whole_bwd["bwd_over_library"],
-                 "sdpa_fwd_ms": fwd["library_ms"], "sdpa_bwd_ms": lib_bwd,
-                 "sdpa_fwd_bwd_ms": lib_fwdbwd, "plain_bwd_ms": plain_bwd}
+    return res, {"shape": [b, s, h, d], "bwd_minimal_bound_ms":
+                 bwd_bound * 1e3, **whole_bwd, "sdpa_bwd_ms": lib_bwd,
+                 "sdpa_fwd_bwd_ms": lib_fwdbwd}
+
+
+def flash_timing(fa, flush, b=8, h=12, s=1024, d=64):
+    """Each kernel on each of its routes, its plain version and the library
+    call at one shape (GPT-base by default): :func:`flash_fwd_routes_timing`
+    and :func:`flash_bwd_routes_timing`."""
+    fwd = flash_fwd_routes_timing(fa, flush, b, h, s, d)
+    res, extra = flash_bwd_routes_timing(fa, flush, b, h, s, d)
+    return {"flash_fwd": fwd, **res}, {**extra,
+                                       "sdpa_fwd_ms": fwd["library_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -938,10 +988,10 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     losses = [trainer.train_step(inputs, lbls) for _ in gold["losses"]]
     losses = [x.item() for x in losses]
     launches = dict(fa.LAUNCHES)
-    # float32: the forward stays on the scalar kernel
-    check(fa.ROUTES == {"flash_fwd_mma": 0,
-                        "flash_fwd_scalar": launches["flash_fwd"]},
-          f"flash forward routes {fa.ROUTES} ({head}, float32)")
+    # float32: every flash kernel stays on its scalar route
+    check(fa.ROUTES == {f"{key}_{route}": launches[key] * (route == "scalar")
+                        for key in launches for route in ("mma", "scalar")},
+          f"flash routes {fa.ROUTES} ({head}, float32)")
     ce_launches = dict(fc.LAUNCHES)
     ce_routes = dict(fc.ROUTES)
     n_layers = cfg["num_layers"]
@@ -968,7 +1018,7 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     return {"head": head, "loss0": loss0, "grad_norm": gnorm,
             "losses": losses, "golden_losses": gold["losses"],
             "golden_grad_norm": gold["step0_grad_norm"],
-            "launches": launches, "fwd_routes": dict(fa.ROUTES),
+            "launches": launches, "flash_routes": dict(fa.ROUTES),
             "ce_launches": ce_launches, "ce_routes": ce_routes}
 
 
@@ -1028,7 +1078,7 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     last = float(losses[-1])
     dt = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
-    fwd_routes = dict(fa.ROUTES)
+    flash_routes = dict(fa.ROUTES)
     ce_launches = dict(fc.LAUNCHES) if fc is not None else {}
     ce_routes = dict(fc.ROUTES) if fc is not None else {}
     fallbacks = tuner.FALLBACKS["flash_attention"]
@@ -1045,11 +1095,12 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
             "flash_dq": per_step, "flash_dkv": per_step}
     check(launches == {k: n * iters for k, n in want.items()},
           f"flash launches {launches} != {want} per step")
-    # bf16 at D = 64 on the QKV split's views: every forward on the
-    # tensor-core route
-    check(fwd_routes == {"flash_fwd_mma": launches["flash_fwd"],
-                         "flash_fwd_scalar": 0},
-          f"flash forward routes {fwd_routes}: not all on the mma route")
+    # bf16 at D = 64 on the QKV split's views: every forward, dq and dk/dv
+    # on the tensor-core route
+    check(flash_routes == {f"{key}_{route}": n * (route == "mma")
+                           for key, n in launches.items()
+                           for route in ("mma", "scalar")},
+          f"flash routes {flash_routes}: not all on the mma route")
     check(all(n == iters for n in ce_launches.values()),
           f"fused CE launches {ce_launches} != 1 per step")
     # bf16 at GPT-base's H: dh and dw on the tiled route, every step
@@ -1066,7 +1117,7 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
                 torch.cuda.max_memory_allocated() / 2 ** 30,
             "params": n_params, "model_flops_per_step": flops / iters,
             "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
-            "launches": launches, "fwd_routes": fwd_routes,
+            "launches": launches, "flash_routes": flash_routes,
             "ce_launches": ce_launches,
             "ce_routes": ce_routes, "flash_fallbacks": fallbacks,
             "fused_ce_fallbacks": ce_fallbacks, "skipped_steps": 0}
@@ -1119,7 +1170,8 @@ def profile_train(trainer, batch, steps=3):
     flash = {}
     for us, name, n in rows:
         for kernel in ("flash_fwd_mma_kernel", "flash_fwd_kernel",
-                       "flash_dq_kernel", "flash_dkv_kernel"):
+                       "flash_dq_mma_kernel", "flash_dq_kernel",
+                       "flash_dkv_mma_kernel", "flash_dkv_kernel"):
             if kernel in name:
                 ms, launches = flash.get(kernel, (0.0, 0))
                 flash[kernel] = (ms + us / 1e3 / steps, launches + n)
@@ -1333,11 +1385,13 @@ def main() -> int:
     # the main path's call: GPT-base, q/k/v the QKV split's strided views
     cases.append((1024, 64, True, None, bf16, 0.0,
                   dict(b=8, h=12, split_qkv=True)))
-    n_mma = 0
+    n_mma = n_bwd_mma = 0
     mma_worst = {"out_rel": 0.0, "lse_abs": 0.0, "scalar_out_rel": 0.0}
+    mma_bwd_worst = {f"{n}{r}_rel": 0.0 for n in ("dq", "dk", "dv")
+                     for r in ("", "_scalar_route")}
     for s, d, causal, lens, dtype, rate, kw in cases:
-        errs, route = flash_parity_case(fa, rs, s, d, causal, lens, dtype,
-                                        rate, **kw)
+        errs, route, broute = flash_parity_case(fa, rs, s, d, causal, lens,
+                                                dtype, rate, **kw)
         rel = {key: errs.pop(key) for key in list(errs)
                if key.endswith("_rel")}
         if route == "mma":
@@ -1347,6 +1401,10 @@ def main() -> int:
                              ("lse_abs", errs["lse"]),
                              ("scalar_out_rel", rel["out_scalar_route_rel"])):
                 mma_worst[key] = max(mma_worst[key], val)
+        if broute == "mma":
+            n_bwd_mma += 1
+            for key in mma_bwd_worst:
+                mma_bwd_worst[key] = max(mma_bwd_worst[key], rel[key])
         flash_err["flash_fwd"] = max(flash_err["flash_fwd"], errs["out"],
                                      errs["lse"], errs["out_autograd"])
         flash_err["flash_dq"] = max(flash_err["flash_dq"], errs["dq"])
@@ -1354,32 +1412,52 @@ def main() -> int:
                                      errs["dv"])
         emit(phase="flash_parity", s=s, d=d, causal=causal, lens=lens,
              dtype=str(dtype).split(".")[-1], dropout=rate, **kw,
-             fwd_route=route, max_abs_err=errs, rel_err=rel,
+             fwd_route=route, bwd_route=broute, max_abs_err=errs, rel_err=rel,
              atol_rtol=FLASH_TOL[dtype][0])
-    check(n_mma == sum(c[4] == bf16 for c in cases),
-          f"{n_mma} bf16 cases on the mma route of "
-          f"{sum(c[4] == bf16 for c in cases)}")
-    # the main path's call twice on the mma route: the same bits
-    q, k, v, _ = _qkv_views(8, 1024, 12, 64, seed=1)
+    n_bf16 = sum(c[4] == bf16 for c in cases)
+    check(n_mma == n_bf16 and n_bwd_mma == n_bf16,
+          f"{n_mma} bf16 cases on the mma forward, {n_bwd_mma} on the mma "
+          f"dq and dk/dv, of {n_bf16}")
+    # the main path's call twice on the mma route: the same bits, forward,
+    # dq and dk/dv
+    q, k, v, do = _qkv_views(8, 1024, 12, 64, seed=1)
     rest = (None, 0, None, True, 0.0, fa.keying_blocks(bf16, 64, 1024, 1024))
     once = fa.flash_attention_fwd(q, k, v, *rest, route="mma")
     twice = fa.flash_attention_fwd(q, k, v, *rest, route="mma")
     check(all(torch.equal(a, b) for a, b in zip(once, twice)),
           "two mma forward launches at the main call differ")
+    bwd_args = (q, k, v, do, once[1], fa._delta(once[0], do), *rest)
+    dq1, dq2 = [fa._launch_dq(*bwd_args, route="mma") for _ in range(2)]
+    (dk1, dv1), (dk2, dv2) = [fa._launch_dkv(*bwd_args, route="mma")
+                              for _ in range(2)]
+    check(torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and
+          torch.equal(dv1, dv2),
+          "two mma dq or dk/dv launches at the main call differ")
     emit(phase="flash_repeat", bit_identical=True, cases_on_mma=n_mma,
-         cases=len(cases), mma_worst=mma_worst, mma_bound=MMA_FWD_BOUND)
-    del q, k, v, once, twice
+         cases_on_mma_bwd=n_bwd_mma, cases=len(cases), mma_worst=mma_worst,
+         mma_bound=MMA_FWD_BOUND, mma_bwd_worst=mma_bwd_worst,
+         mma_bwd_bound=MMA_BWD_BOUND)
+    del q, k, v, do, once, twice, dq1, dq2, dk1, dv1, dk2, dv2
 
     # 9. flash timing at GPT-base (B=8, H=12, S=1024, D=64, bf16, causal)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     ftiming, fextra = flash_timing(fa, flush)
     # gpt_1p3b's attention: 16 heads of 128 at S = 1024
-    fwd_d128 = flash_fwd_routes_timing(fa, flush, 8, 16, 1024, 128)
+    d128 = {"flash_fwd": flash_fwd_routes_timing(fa, flush, 8, 16, 1024, 128)}
+    bwd_d128, bwd_d128_whole = flash_bwd_routes_timing(fa, flush, 8, 16, 1024,
+                                                       128)
+    d128.update(bwd_d128)
     del flush
     for name, t in ftiming.items():
         emit(phase="flash_timing", card=card, kernel=name, **t)
     emit(phase="flash_timing_library", card=card, **fextra)
-    emit(phase="flash_fwd_timing", card=card, config="gpt_1p3b", **fwd_d128)
+    emit(phase="flash_fwd_timing", card=card, config="gpt_1p3b",
+         **d128["flash_fwd"])
+    for name, t in bwd_d128.items():
+        emit(phase="flash_bwd_timing", card=card, config="gpt_1p3b",
+             kernel=name, **t)
+    emit(phase="flash_bwd_timing_library", card=card, config="gpt_1p3b",
+         **bwd_d128_whole)
 
     # 9b. the repaired dispatch: float16 falls back, counted
     emit(phase="gates", card=card, **gates(fa, fc, nn, tuner, optim, rs))
@@ -1453,6 +1531,11 @@ def main() -> int:
     prof = profile_train(trainer, batch)
     groups = prof["by_group"]
     check("fused CE kernels" in groups, "the profiler saw no fused CE kernel")
+    seen = {k: v["launches_per_step"] for k, v in
+            prof["flash_by_kernel"].items()}
+    check(seen == {"flash_fwd_mma_kernel": 12, "flash_dq_mma_kernel": 12,
+                   "flash_dkv_mma_kernel": 12},
+          f"flash kernels by name under the profiler: {seen}")
     f32_gemm = groups.get("float32 GEMMs (chunked CE)", {}).get(
         "ms_per_step", 0.0)
     check(f32_gemm < 1.0, f"float32 GEMMs left on the fused path: "
@@ -1520,12 +1603,14 @@ def main() -> int:
             "max_abs_err": flash_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{key: t[key] for key in ("bwd_ms", "plain_bwd_ms",
-                                       "library_bwd_ms", "bwd_over_library",
-                                       "fwd_route", "scalar_ms") if key in t},
-            **({"d128": {key: fwd_d128[key] for key in (
+            **{key: t[key] for key in ("bwd_ms", "scalar_bwd_ms",
+                                       "plain_bwd_ms", "library_bwd_ms",
+                                       "bwd_over_library", "fwd_route",
+                                       "bwd_route", "scalar_ms") if key in t},
+            "d128": {key: d128[name][key] for key in (
                 "shape", "ms", "scalar_ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by")}} if name == "flash_fwd" else {})})
+                "library_bwd_ms", "bound_ms", "bound_by")
+                if key in d128[name]}})
     for name, t in ctiming.items():
         kernels.append({
             "name": name, "route": "cuda", "source": CE_SRC,

@@ -57,11 +57,23 @@
 //   staged through the warp's Q rows for 16-byte stores. No wgmma, no TMA,
 //   no warp specialisation yet.
 //
+// Two kernels for each backward product, picked by the wrapper
+// (ops/flash_attention.py, bwd_route, the forward's rule with dout's rows
+// too): flash_dq_mma_kernel and flash_dkv_mma_kernel (route "mma", on the
+// forward's mma.sync core: see each kernel's note) and flash_dq_kernel and
+// flash_dkv_kernel (route "scalar"). The mma pair keeps the reference's
+// two passes: dq over key tiles, dk/dv over query tiles, each output
+// element with one owner and a fixed summation order (no atomics, repeat
+// launches give the same bits); S and dP are recomputed in both (7
+// products where one pass with atomics would take 5). Their new roundings
+// against the scalar kernels: p and ds to bf16 before the products they
+// feed.
+//
 // flash_fwd_kernel (route "scalar": float32, D = 256, unaligned rows) and
-// the backward kernels: one block of 256 threads (16 x 16) per (q tile,
-// b*h) for the forward and dq, per (k tile, b*h) for dk/dv; the TPU grid's
-// sequential axis becomes a loop inside the block over the other side's
-// tiles. Tiles are BQ = BK = 64 rows (32 at D = 256), staged as float32
+// the scalar backward kernels: one block of 256 threads (16 x 16) per
+// (q tile, b*h) for the forward and dq, per (k tile, b*h) for dk/dv; the
+// TPU grid's sequential axis becomes a loop inside the block over the
+// other side's tiles. Tiles are BQ = BK = 64 rows (32 at D = 256), staged as float32
 // rows of stride D + 1 in shared memory so that 16 threads reading 16
 // different rows at one d hit 16 different banks. Thread (ty, tx) owns the
 // scores of rows ty + 16i and columns tx + 16j (a 4 x 4 register tile),
@@ -75,7 +87,7 @@
 // causal forward, 3 and 4 such products for dq and dk/dv). The scalar
 // kernels do them as float32 FMAs fed from shared memory, two loads per two
 // FMAs in the score loop, so they are bound by shared-memory bandwidth far
-// below the tensor-core rate; the backward on the mma core is later work.
+// below the tensor-core rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,9 +158,10 @@ struct Params {
   int drop_bq, drop_bk;
 };
 
-// bit-equal to _dropout_mask: uint32 arithmetic wraps as jnp.uint32 does
-__device__ __forceinline__ float drop_mult(const Params& p, unsigned seed,
-                                           unsigned bh, int row, int col) {
+// the keep decision of _dropout_mask, bit-equal: uint32 arithmetic wraps
+// as jnp.uint32 does
+__device__ __forceinline__ bool drop_keep(const Params& p, unsigned seed,
+                                          unsigned bh, int row, int col) {
   const unsigned iq = row / p.drop_bq, r = row % p.drop_bq;
   const unsigned ik = col / p.drop_bk, c = col % p.drop_bk;
   unsigned h = (seed * 2654435761u) ^ (bh * 0x9E3779B1u) ^
@@ -159,7 +172,13 @@ __device__ __forceinline__ float drop_mult(const Params& p, unsigned seed,
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
-  return h >= p.thresh ? p.drop_scale : 0.f;
+  return h >= p.thresh;
+}
+
+// _dropout_mask itself: 1 / (1 - rate) where kept, else 0
+__device__ __forceinline__ float drop_mult(const Params& p, unsigned seed,
+                                           unsigned bh, int row, int col) {
+  return drop_keep(p, seed, bh, row, col) ? p.drop_scale : 0.f;
 }
 
 // rows [row0, row0 + nrows) of one (b, h) slice into smem (stride RS),
@@ -462,7 +481,9 @@ __global__ void __launch_bounds__(32 * kMmaWarps)
       l[r] *= alpha[r];
     }
     // p, rounded to bf16, as the A fragments of P V: k16 step kk takes
-    // tiles 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3])
+    // tiles 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3]). Dropout zeroes the
+    // dropped p; its 1 / (1 - rate) scales the output in float32, never
+    // rounded into p
     unsigned pf[BK / 16][4];
 #pragma unroll
     for (int n = 0; n < C::NS; ++n) {
@@ -472,9 +493,9 @@ __global__ void __launch_bounds__(32 * kMmaWarps)
         pe[e] = exp2f(s[n][e] - m[e >> 1]);
         if (edge && s[n][e] <= kNegInf * 0.5f) pe[e] = 0.f;
         l[e >> 1] += pe[e];  // the normalizer sees the undropped p
-        if (p.dropout)
-          pe[e] *= drop_mult(p, seed, bh, qw + g + 8 * (e >> 1),
-                             k0 + 8 * n + 2 * t + (e & 1));
+        if (p.dropout && !drop_keep(p, seed, bh, qw + g + 8 * (e >> 1),
+                                    k0 + 8 * n + 2 * t + (e & 1)))
+          pe[e] = 0.f;
       }
       pf[n >> 1][(n & 1) * 2] = pack_bf16(pe[0], pe[1]);
       pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pe[2], pe[3]);
@@ -512,14 +533,15 @@ __global__ void __launch_bounds__(32 * kMmaWarps)
   __syncthreads();
   const float ls0 = l[0] == 0.f ? 1.f : l[0];
   const float ls1 = l[1] == 0.f ? 1.f : l[1];
+  const float osc = p.dropout ? p.drop_scale : 1.f;
   bf16* stage = q_s + 16 * warp * LD;
 #pragma unroll
   for (int n = 0; n < C::NO; ++n) {
     const int col = 8 * n + 2 * t;
     *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + col) =
-        __floats2bfloat162_rn(o[n][0] / ls0, o[n][1] / ls0);
+        __floats2bfloat162_rn(o[n][0] * osc / ls0, o[n][1] * osc / ls0);
     *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(o[n][2] / ls1, o[n][3] / ls1);
+        __floats2bfloat162_rn(o[n][2] * osc / ls1, o[n][3] * osc / ls1);
   }
   __syncwarp();
   bf16* out = static_cast<bf16*>(p.out);
@@ -799,9 +821,418 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// dq and dk/dv on the tensor cores (bfloat16, route "mma")
+// ---------------------------------------------------------------------------
+template <int D>
+struct MmaBwdCfg {
+  static constexpr int kThreadsM = 32 * kMmaWarps;
+  static constexpr int BR = 16 * kMmaWarps;  // a block's own rows, 16 a warp:
+                                             // queries (dq), keys (dk/dv)
+  static constexpr int BT = 32;              // streamed rows a tile
+  static constexpr int LD = D + 8;           // row pitch (bf16), as MmaCfg
+  static constexpr int NS = BT / 8;          // n8 tiles of a warp's scores
+  static constexpr int KQ = D / 16;          // k16 steps over D
+  static constexpr int NO = D / 8;           // n8 tiles of a warp's output
+  static constexpr int KT = BT / 16;         // k16 steps over a tile
+  // the warp's own rows as A fragments: held in registers (dq; dk/dv at
+  // D = 128) or read from shared memory at each use (dk/dv at D = 64,
+  // whose two D-wide sums leave no room for them in 128 registers). At
+  // D = 64 both kernels are held to 128 registers for two blocks an SM
+  // (dk/dv spills 36 bytes for it). Each choice here was timed against
+  // its alternatives in turns on the H100 (tests/torch_flash_variants.py)
+  static constexpr bool kHoldDq = true;
+  static constexpr bool kHoldDkv = D > 64;
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;  // __launch_bounds__
+  // own rows of two operands (BR each), a ring of two tiles of two
+  // operands (BT each); dk/dv adds two slots of a tile's lse and delta
+  static constexpr size_t bf16_bytes = sizeof(bf16) * (2 * BR + 4 * BT) * LD;
+  static constexpr size_t dq_bytes = bf16_bytes;
+  static constexpr size_t dkv_bytes = bf16_bytes + sizeof(float) * 4 * BT;
+};
+
+// a warp's 16 own rows as mma A fragments, k16 step kk of D: held in
+// registers (HOLD) or read by ldmatrix at each use; base is this lane's
+// ldmatrix row address of step 0
+template <int KQ, bool HOLD>
+struct RowFrags {
+  unsigned r[HOLD ? KQ : 1][4];
+  const bf16* base;
+  __device__ __forceinline__ void load(const bf16* p) {
+    base = p;
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) ldsm_x4(r[kk], p + 16 * kk);
+    }
+  }
+  __device__ __forceinline__ void at(unsigned (&a)[4], int kk) const {
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = r[kk][e];
+    } else {
+      ldsm_x4(a, base + 16 * kk);
+    }
+  }
+};
+
+// c (16 x 8 NS) = A B^T over D: A the warp's rows, B a tile's rows as the
+// [n][k] operand (ldmatrix), pb this lane's address in the tile
+template <int NS, int KQ, int LD, class A>
+__device__ __forceinline__ void mma_rows_by_tile(float (&c)[NS][4],
+                                                 const A& a, const bf16* pb) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk) {
+    unsigned af[4];
+    a.at(af, kk);
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      unsigned bk[4];
+      ldsm_x4(bk, pb + n * 8 * LD + 16 * kk);
+      mma_bf16(c[n], af, bk[0], bk[1]);
+      mma_bf16(c[n + 1], af, bk[2], bk[3]);
+    }
+  }
+}
+
+// o (16 x D) += A B over a tile: A packed from score accumulators (KT k16
+// steps), B the tile's rows as the [k][n] operand (ldmatrix.trans), pv
+// this lane's address in the tile
+template <int NO, int KT, int LD>
+__device__ __forceinline__ void mma_scores_by_tile(float (&o)[NO][4],
+                                                   unsigned (&a)[KT][4],
+                                                   const bf16* pv) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      unsigned bv[4];
+      ldsm_x4_t(bv, pv + 16 * kk * LD + 8 * n);
+      mma_bf16(o[n], a[kk], bv[0], bv[1]);
+      mma_bf16(o[n + 1], a[kk], bv[2], bv[3]);
+    }
+}
+
+// ds = p∘(m∘dp − delta): the score gradient both backward kernels form
+__device__ __forceinline__ float score_grad(float p, float dp, float delta) {
+  return p * (dp - delta);
+}
+
+// a warp's 16 rows of a (16 x D) float32 sum, times mul, rounded to bf16,
+// to rows [row0, row0 + 16) of a contiguous (B, S, H, D) output (rows at or
+// past S are not written), through stage (the warp's 16 rows of shared
+// memory, pitch D + 8) for 16-byte stores
+template <int D, int NO>
+__device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
+                                           float (&o)[NO][4],
+                                           float mul, const Params& p,
+                                           int b, int h, int row0, int S) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = 8 * n + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + col) =
+        __floats2bfloat162_rn(o[n][0] * mul, o[n][1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + col) =
+        __floats2bfloat162_rn(o[n][2] * mul, o[n][3] * mul);
+  }
+  __syncwarp();
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int u = 0; u < 16 * CPR / 32; ++u) {
+    const int c = lane + 32 * u;
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int row = row0 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<long long>(b) * S + row) * p.H + h) * D +
+          col) = *reinterpret_cast<const uint4*>(stage + r * LD + col);
+  }
+}
+
+// dq. Bound on this card: 3 products of B*H*S*S*D/2 multiply-adds (causal)
+// on the tensor cores. One block of 8 warps per (b*h, 128 query rows), 16
+// a warp, heavy tiles first. Q and dO are read once by cp.async and serve
+// as A fragments for the whole key loop (RowFrags); K/V tiles of BT keys
+// go through a two-slot cp.async ring (tile j+1 loads while tile j
+// computes). A tile:
+// S = Q K^T and dP = dO V^T (K and V as the [n][k] operand), then
+// p = exp2(s*scale*log2e - lse*log2e) and ds = p∘(m∘dp - delta) on the
+// accumulators (lse and delta per row, in registers), ds rounded to bf16
+// and packed straight into the A fragments of dQ += dS K (K as the [k][n]
+// operand, ldmatrix.trans, from the same shared copy). Each dq element is
+// summed by one thread over the key tiles in order: no atomics.
+template <int D>
+__global__ void __launch_bounds__(32 * kMmaWarps, MmaBwdCfg<D>::kMinBlocks)
+    flash_dq_mma_kernel(const Params p) {
+  using C = MmaBwdCfg<D>;
+  constexpr int LD = C::LD, BR = C::BR, BT = C::BT, NT = C::kThreadsM;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // BR * LD
+  bf16* do_s = q_s + BR * LD;                     // BR * LD
+  bf16* k_s = do_s + BR * LD;                     // two slots of BT * LD
+  bf16* v_s = k_s + 2 * BT * LD;                  // two slots of BT * LD
+
+  const int bh = blockIdx.x;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // heavy tiles first
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = iq * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lj = lane >> 3, l8 = lane & 7;
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const int len = p.lens ? max(0, min(p.lens[b], p.Sk)) : p.Sk;
+  const unsigned seed = p.dropout ? static_cast<unsigned>(p.seed[0]) : 0u;
+  const float sl2 = p.scale * kLog2e;  // scores in the log2 domain
+
+  const bf16* q = slice<bf16>(p.q, p, 0, b, h);
+  const bf16* k = slice<bf16>(p.k, p, 1, b, h);
+  const bf16* v = slice<bf16>(p.v, p, 2, b, h);
+  const bf16* dout = slice<bf16>(p.dout, p, 3, b, h);
+  int k_end = len;
+  if (p.causal) k_end = min(k_end, q0 + BR);
+  const int ntiles = (k_end + BT - 1) / BT;
+
+  cp_rows<D, BR, NT>(q_s, q, p.st[1], q0, p.Sq);
+  cp_rows<D, BR, NT>(do_s, dout, p.st[10], q0, p.Sq);
+  if (ntiles > 0) {
+    cp_rows<D, BT, NT>(k_s, k, p.st[4], 0, p.Sk);
+    cp_rows<D, BT, NT>(v_s, v, p.st[7], 0, p.Sk);
+  }
+  cp_commit();
+
+  // rows g and g + 8: lse (log2 domain) and delta; rows past Sq read 0
+  // (their q and dO rows are zero, so their ds is 0; they are not stored)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    const long long i = static_cast<long long>(bh) * p.Sq + row;
+    lse2[r] = row < p.Sq ? p.lse[i] * kLog2e : 0.f;
+    dl[r] = row < p.Sq ? p.delta[i] : 0.f;
+  }
+
+  RowFrags<C::KQ, C::kHoldDq> qa, oa;
+  float acc[C::NO][4];  // dQ / scale: rows g and g + 8, cols 8n + 2t, +1
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int nk = ((lj >> 1) * 8 + l8) * LD + (lj & 1) * 8;  // [n][k] address
+  const int kn = ((lj & 1) * 8 + l8) * LD + (lj >> 1) * 8;  // [k][n] address
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BT;
+    const bf16* kt = k_s + (j & 1) * BT * LD;
+    const bf16* vt = v_s + (j & 1) * BT * LD;
+    cp_wait_all();
+    __syncthreads();  // tile j landed; the readers of tile j-1's slots are done
+    if (j + 1 < ntiles) {
+      cp_rows<D, BT, NT>(k_s + ((j + 1) & 1) * BT * LD, k, p.st[4], k0 + BT,
+                         p.Sk);
+      cp_rows<D, BT, NT>(v_s + ((j + 1) & 1) * BT * LD, v, p.st[7], k0 + BT,
+                         p.Sk);
+      cp_commit();
+    }
+    if (j == 0) {
+      qa.load(q_s + 16 * warp * LD + kn);
+      oa.load(do_s + 16 * warp * LD + kn);
+    }
+    // causal: the tile's first key lies right of the warp's last row, so
+    // every p of the tile is 0 for the warp and it adds nothing
+    if (p.causal && k0 >= qw + 16) continue;
+
+    float s[C::NS][4], dp[C::NS][4];
+    mma_rows_by_tile<C::NS, C::KQ, LD>(s, qa, kt + nk);
+    mma_rows_by_tile<C::NS, C::KQ, LD>(dp, oa, vt + nk);
+
+    // element e of tile n is row qw + g + 8 (e >> 1), key k0 + 8n + 2t +
+    // (e & 1); masks only on tiles that cross lens[b] or the diagonal
+    const bool edge = k0 + BT > len || (p.causal && k0 + BT - 1 > qw);
+    unsigned dsf[C::KT][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = qw + g + 8 * (e >> 1);
+        const int col = k0 + 8 * n + 2 * t + (e & 1);
+        float pe = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+        if (edge && (col >= len || (p.causal && col > row))) pe = 0.f;
+        float dpe = dp[n][e];
+        if (p.dropout) dpe *= drop_mult(p, seed, bh, row, col);
+        ds[e] = score_grad(pe, dpe, dl[e >> 1]);
+      }
+      dsf[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    mma_scores_by_tile<C::NO, C::KT, LD>(acc, dsf, kt + kn);
+  }
+
+  // out through the warp's own Q rows: no copy into them is in flight
+  // after the wait and the barrier, and no warp reads them any more
+  cp_wait_all();
+  __syncthreads();
+  store_rows<D, C::NO>(static_cast<bf16*>(p.dq), q_s + 16 * warp * LD, acc,
+                       p.scale, p, b, h, qw, p.Sq);
+}
+
+// the lse and delta of queries [q0, q0 + BT) into dst[0, BT) and
+// dst[BT, 2 BT) by 4-byte cp.async; queries at or past Sq read 0
+template <int BT>
+__device__ __forceinline__ void cp_stats(float* dst, const Params& p, int bh,
+                                         int q0) {
+  const int i = threadIdx.x;
+  if (i < 2 * BT) {
+    const int r = i % BT;
+    const float* src =
+        (i < BT ? p.lse : p.delta) + static_cast<long long>(bh) * p.Sq;
+    const bool in = q0 + r < p.Sq;
+    cp_async4(dst + i, in ? src + q0 + r : src, in ? 4 : 0);
+  }
+}
+
+// dk/dv. Bound on this card: 4 products of B*H*S*S*D/2 multiply-adds
+// (causal) on the tensor cores. One block of 8 warps per (b*h, 128 key
+// rows), 16 a warp, low key tiles (which see the most queries when causal)
+// first. K and V are read once and serve as A fragments; Q, dO, lse and
+// delta tiles of BT queries go through a two-slot cp.async ring. The
+// products are the transposed ones, so nothing round-trips through shared
+// memory: S^T = K Q^T and dP^T = V dO^T (Q, dO as [n][k]); p^T and ds^T on
+// the accumulators (lse and delta per column, from the tile's shared
+// copy); m∘p and ds rounded to bf16 and packed into the A fragments of
+// dV += (m∘p)^T dO and dK += ds^T Q (dO, Q as [k][n] through
+// ldmatrix.trans from the same shared copy). A warp skips the query tiles
+// that lie wholly above its keys (causal) and every tile once its keys are
+// all at or past lens[b]. One owner per dk/dv element, a fixed order.
+template <int D>
+__global__ void __launch_bounds__(32 * kMmaWarps, MmaBwdCfg<D>::kMinBlocks)
+    flash_dkv_mma_kernel(const Params p) {
+  using C = MmaBwdCfg<D>;
+  constexpr int LD = C::LD, BR = C::BR, BT = C::BT, NT = C::kThreadsM;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // BR * LD
+  bf16* v_s = k_s + BR * LD;                      // BR * LD
+  bf16* q_s = v_s + BR * LD;                      // two slots of BT * LD
+  bf16* do_s = q_s + 2 * BT * LD;                 // two slots of BT * LD
+  float* stat_s = reinterpret_cast<float*>(do_s + 2 * BT * LD);  // two
+                                        // slots of BT lse, then BT delta
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BR;
+  const int b = bh / p.H, h = bh % p.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lj = lane >> 3, l8 = lane & 7;
+  const int kw = k0 + 16 * warp;  // the warp's first key
+  const int len = p.lens ? max(0, min(p.lens[b], p.Sk)) : p.Sk;
+  const unsigned seed = p.dropout ? static_cast<unsigned>(p.seed[0]) : 0u;
+  const float osc = p.dropout ? p.drop_scale : 1.f;
+  const float sl2 = p.scale * kLog2e;
+
+  const bf16* q = slice<bf16>(p.q, p, 0, b, h);
+  const bf16* dout = slice<bf16>(p.dout, p, 3, b, h);
+  // causal: queries below k0 see none of the block's keys; keys at or past
+  // len are masked for every query: their dk and dv are 0
+  const int q_begin = p.causal ? k0 : 0;
+  const int ntiles = k0 >= len ? 0 : max(0, (p.Sq - q_begin + BT - 1) / BT);
+
+  cp_rows<D, BR, NT>(k_s, slice<bf16>(p.k, p, 1, b, h), p.st[4], k0, p.Sk);
+  cp_rows<D, BR, NT>(v_s, slice<bf16>(p.v, p, 2, b, h), p.st[7], k0, p.Sk);
+  if (ntiles > 0) {
+    cp_rows<D, BT, NT>(q_s, q, p.st[1], q_begin, p.Sq);
+    cp_rows<D, BT, NT>(do_s, dout, p.st[10], q_begin, p.Sq);
+    cp_stats<BT>(stat_s, p, bh, q_begin);
+  }
+  cp_commit();
+
+  RowFrags<C::KQ, C::kHoldDkv> ka, va;
+  float dk[C::NO][4], dv[C::NO][4];  // keys g and g + 8, cols 8n + 2t, +1
+#pragma unroll
+  for (int n = 0; n < C::NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int nk = ((lj >> 1) * 8 + l8) * LD + (lj & 1) * 8;
+  const int kn = ((lj & 1) * 8 + l8) * LD + (lj >> 1) * 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int q0 = q_begin + j * BT;
+    const int slot = j & 1;
+    const bf16* qt = q_s + slot * BT * LD;
+    const bf16* ot = do_s + slot * BT * LD;
+    const float* lse_t = stat_s + slot * 2 * BT;
+    const float* dl_t = lse_t + BT;
+    cp_wait_all();
+    __syncthreads();
+    if (j + 1 < ntiles) {
+      cp_rows<D, BT, NT>(q_s + (slot ^ 1) * BT * LD, q, p.st[1], q0 + BT,
+                         p.Sq);
+      cp_rows<D, BT, NT>(do_s + (slot ^ 1) * BT * LD, dout, p.st[10],
+                         q0 + BT, p.Sq);
+      cp_stats<BT>(stat_s + (slot ^ 1) * 2 * BT, p, bh, q0 + BT);
+      cp_commit();
+    }
+    if (j == 0) {
+      ka.load(k_s + 16 * warp * LD + kn);
+      va.load(v_s + 16 * warp * LD + kn);
+    }
+    // every query of the tile lies above the warp's keys (causal), or no
+    // key of the warp is visible: every p of the tile is 0 for the warp
+    if ((p.causal && q0 + BT <= kw) || kw >= len) continue;
+
+    float s[C::NS][4], dp[C::NS][4];  // S^T, dP^T: keys x queries
+    mma_rows_by_tile<C::NS, C::KQ, LD>(s, ka, qt + nk);
+    mma_rows_by_tile<C::NS, C::KQ, LD>(dp, va, ot + nk);
+
+    // element e of tile n is key kw + g + 8 (e >> 1), query q0 + 8n + 2t +
+    // (e & 1); the dropout hash keys on (row = query, col = key). As in the
+    // forward, the dropped p is zeroed before its bf16 rounding and the
+    // 1 / (1 - rate) scales dv in float32 at the store
+    const bool edge =
+        q0 + BT > p.Sq || kw + 16 > len || (p.causal && kw + 15 > q0);
+    unsigned pf[C::KT][4], dsf[C::KT][4];
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      float pm[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kw + g + 8 * (e >> 1);
+        const int c = 8 * n + 2 * t + (e & 1);
+        const int query = q0 + c;
+        float pe = exp2f(fmaf(s[n][e], sl2, -lse_t[c] * kLog2e));
+        if (edge && (query >= p.Sq || key >= len ||
+                     (p.causal && key > query)))
+          pe = 0.f;
+        const bool keep = !p.dropout || drop_keep(p, seed, bh, query, key);
+        pm[e] = keep ? pe : 0.f;
+        ds[e] = score_grad(pe, keep ? dp[n][e] * osc : 0.f, dl_t[c]);
+      }
+      pf[n >> 1][(n & 1) * 2] = pack_bf16(pm[0], pm[1]);
+      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pm[2], pm[3]);
+      dsf[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    mma_scores_by_tile<C::NO, C::KT, LD>(dv, pf, ot + kn);
+    mma_scores_by_tile<C::NO, C::KT, LD>(dk, dsf, qt + kn);
+  }
+
+  // out through the warp's own K and V rows (no copy in flight after the
+  // wait and the barrier; no warp reads them any more); keys past Sk are
+  // not written, keys at or past len get 0
+  cp_wait_all();
+  __syncthreads();
+  store_rows<D, C::NO>(static_cast<bf16*>(p.dk), k_s + 16 * warp * LD, dk,
+                       p.scale, p, b, h, kw, p.Sk);
+  store_rows<D, C::NO>(static_cast<bf16*>(p.dv), v_s + 16 * warp * LD, dv,
+                       osc, p, b, h, kw, p.Sk);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdMma = 3 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdMma = 3, kDqMma = 4,
+             kDkvMma = 5 };
 
 template <int D>
 size_t smem_bytes(Which w) {
@@ -863,20 +1294,40 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the mma forward's limits: D 64 or 128, q/k/v and their (b, s, h) strides
-// on 16-byte boundaries (cp.async)
-cudaError_t dispatch_mma(int D, const Params& p, cudaStream_t s) {
-  const void* ptrs[3] = {p.q, p.k, p.v};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<std::uintptr_t>(ptr) % 16)
+template <int D>
+cudaError_t launch_bwd_mma(Which w, const Params& p, cudaStream_t stream) {
+  using C = MmaBwdCfg<D>;
+  void (*kernel)(const Params) =
+      w == kDqMma ? flash_dq_mma_kernel<D> : flash_dkv_mma_kernel<D>;
+  const size_t bytes = w == kDqMma ? C::dq_bytes : C::dkv_bytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = w == kDqMma ? p.Sq : p.Sk;
+  const dim3 grid(p.B * p.H, (rows + C::BR - 1) / C::BR);
+  kernel<<<grid, C::kThreadsM, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the mma kernels' limits: D 64 or 128, q/k/v (and dout for the backward)
+// and their (b, s, h) strides on 16-byte boundaries (cp.async)
+cudaError_t dispatch_mma(int D, Which w, const Params& p, cudaStream_t s) {
+  const int n = w == kFwdMma ? 3 : 4;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<std::uintptr_t>(ptrs[i]) % 16)
       return cudaErrorInvalidValue;
-  for (int i = 0; i < 9; ++i)
+  for (int i = 0; i < 3 * n; ++i)
     if (p.st[i] % 8) return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch_mma<64>(p, s);
+      return w == kFwdMma ? launch_mma<64>(p, s) : launch_bwd_mma<64>(w, p, s);
     case 128:
-      return launch_mma<128>(p, s);
+      return w == kFwdMma ? launch_mma<128>(p, s)
+                          : launch_bwd_mma<128>(w, p, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -890,8 +1341,8 @@ int run(Which w, Params& p, const long long* strides, int D, int bf16,
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (w == kFwdMma)
-    e = bf16 ? dispatch_mma(D, p, s) : cudaErrorInvalidValue;
+  if (w == kFwdMma || w == kDqMma || w == kDkvMma)
+    e = bf16 ? dispatch_mma(D, w, p, s) : cudaErrorInvalidValue;
   else
     e = bf16 ? dispatch_d<__nv_bfloat16>(D, w, p, s)
              : dispatch_d<float>(D, w, p, s);
@@ -994,6 +1445,42 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   p.dk = dk;
   p.dv = dv;
   return run(kDkv, p, strides, D, bf16, stream);
+}
+
+// dq and dk/dv on the tensor cores: bfloat16 only (bf16 must be 1), D 64
+// or 128; q, k, v, dout and their (b, s, h) strides on 16-byte boundaries.
+// Anything else returns cudaErrorInvalidValue without a launch.
+int flash_attention_dq_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const long long* strides,
+                           const void* lse, const void* delta, void* dq,
+                           const void* lens, const void* seed, int B, int H,
+                           int Sq, int Sk, int D, int bf16, float scale,
+                           int causal, int dropout, unsigned thresh,
+                           float drop_scale, int drop_bq, int drop_bk,
+                           void* stream) {
+  Params p = make(q, k, v, dout, lens, seed, B, H, Sq, Sk, scale, causal,
+                  dropout, thresh, drop_scale, drop_bq, drop_bk);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  return run(kDqMma, p, strides, D, bf16, stream);
+}
+
+int flash_attention_dkv_mma(const void* q, const void* k, const void* v,
+                            const void* dout, const long long* strides,
+                            const void* lse, const void* delta, void* dk,
+                            void* dv, const void* lens, const void* seed,
+                            int B, int H, int Sq, int Sk, int D, int bf16,
+                            float scale, int causal, int dropout,
+                            unsigned thresh, float drop_scale, int drop_bq,
+                            int drop_bk, void* stream) {
+  Params p = make(q, k, v, dout, lens, seed, B, H, Sq, Sk, scale, causal,
+                  dropout, thresh, drop_scale, drop_bq, drop_bk);
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = static_cast<const float*>(delta);
+  p.dk = dk;
+  p.dv = dv;
+  return run(kDkvMma, p, strides, D, bf16, stream);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -12,12 +12,14 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
   q/k/v through their strides, so the non-contiguous views that the GPT
   QKV split makes need no copy and no ``(B*H, S, D)`` transpose. Ragged
   tails are masked, not padded.
-- **Two forward routes**, chosen by :func:`fwd_route` from the dtype, the
-  head dim and the rows' alignment alone: ``"mma"`` (bfloat16 at D in
-  :data:`MMA_HEAD_DIMS`, rows on 16-byte boundaries: tensor-core
-  ``mma.sync`` with a ``cp.async`` K/V ring, p rounded to bfloat16 before
-  P·V) and ``"scalar"`` (everything else: float32 FMAs). ``ROUTES`` counts
-  the launches of each.
+- **Two routes for each kernel**, chosen by :func:`fwd_route` and
+  :func:`bwd_route` from the dtype, the head dim and the rows' alignment
+  alone: ``"mma"`` (bfloat16 at D in :data:`MMA_HEAD_DIMS`, rows on
+  16-byte boundaries: tensor-core ``mma.sync`` with a ``cp.async`` ring;
+  the forward rounds p to bfloat16 before P·V, the backward p and ds
+  before the products they feed) and ``"scalar"`` (everything else:
+  float32 FMAs). ``ROUTES`` counts the launches of each kernel on each
+  route.
 - **The plain versions** :func:`flash_attention_plain_fwd` and
   :func:`flash_attention_plain_bwd` are the same maths over the full
   ``S x S`` scores, with the same masks and the same dropout mask
@@ -51,6 +53,7 @@ from .tuner import flash_dims, resolve
 __all__ = ["NEG_INF", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "LANES",
            "HEAD_DIMS", "MMA_HEAD_DIMS", "KERNEL_DTYPES", "MAX_BATCH_HEADS",
            "LAUNCHES", "ROUTES", "flash_gate", "flash_supported", "fwd_route",
+           "bwd_route",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_plain_fwd", "flash_attention_plain_bwd",
            "dropout_mask", "keying_blocks", "load_kernel"]
@@ -64,11 +67,12 @@ HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the launch grid of the scalar and backward kernels has b*h as its y
 MAX_BATCH_HEADS = 65535
-# the head dims the tensor-core forward is instantiated for (bfloat16 only)
+# the head dims the tensor-core kernels are instantiated for (bfloat16 only)
 MMA_HEAD_DIMS = (64, 128)
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-ROUTES = {"flash_fwd_mma": 0, "flash_fwd_scalar": 0}
+ROUTES = {f"{key}_{route}": 0 for key in LAUNCHES
+          for route in ("mma", "scalar")}
 _launch_lock = threading.Lock()
 
 _MASK32 = 0xFFFFFFFF
@@ -102,6 +106,15 @@ def fwd_route(dtype, d: int, aligned: bool) -> str:
     if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and aligned:
         return "mma"
     return "scalar"
+
+
+def bwd_route(dtype, d: int, aligned: bool) -> str:
+    """The backward's route, for the dq and the dk/dv kernel alike:
+    ``"mma"`` (the tensor-core kernels) for bfloat16 at a head dim of
+    :data:`MMA_HEAD_DIMS` whose q/k/v/do rows start on 16-byte boundaries
+    (``aligned``), else ``"scalar"``: the forward's rule, with do's rows
+    counted too."""
+    return fwd_route(dtype, d, aligned)
 
 
 # ---------------------------------------------------------------------------
@@ -293,24 +306,32 @@ _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and return types of the C entry points of a
+    loaded build of ``csrc/flash_attention.cu``; returns ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 6 + [f, i, i, ctypes.c_uint, f, i, i, p]
+    lib.flash_attention_fwd.argtypes = [p] * 8 + tail
+    lib.flash_attention_fwd_mma.argtypes = [p] * 8 + tail
+    lib.flash_attention_dq.argtypes = [p] * 10 + tail
+    lib.flash_attention_dq_mma.argtypes = [p] * 10 + tail
+    lib.flash_attention_dkv.argtypes = [p] * 11 + tail
+    lib.flash_attention_dkv_mma.argtypes = [p] * 11 + tail
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_mma,
+               lib.flash_attention_dq, lib.flash_attention_dq_mma,
+               lib.flash_attention_dkv, lib.flash_attention_dkv_mma):
+        fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use, with nvcc) and load the kernel library."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = _build.load("flash_attention")
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            tail = [i] * 6 + [f, i, i, ctypes.c_uint, f, i, i, p]
-            lib.flash_attention_fwd.argtypes = [p] * 8 + tail
-            lib.flash_attention_fwd_mma.argtypes = [p] * 8 + tail
-            lib.flash_attention_dq.argtypes = [p] * 10 + tail
-            lib.flash_attention_dkv.argtypes = [p] * 11 + tail
-            for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_mma,
-                       lib.flash_attention_dq, lib.flash_attention_dkv):
-                fn.restype = ctypes.c_int
-            lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-            lib.flash_attention_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(_build.load("flash_attention"))
         return _lib
 
 
@@ -372,17 +393,17 @@ def _raise_on(lib, err, what):
                            f"{msg} (cudaError {err})")
 
 
-def _count(key, route=None):
+def _count(key, route):
     with _launch_lock:
         LAUNCHES[key] += 1
-        if route is not None:
-            ROUTES[f"{key}_{route}"] += 1
+        ROUTES[f"{key}_{route}"] += 1
 
 
 def _rows_aligned(*ts):
     """Every tensor starts on a 16-byte boundary and its (b, s, h) strides
     are whole multiples of 8 elements (16 bytes of bfloat16): what the
-    tensor-core forward's 16-byte ``cp.async`` needs."""
+    tensor-core kernels' 16-byte ``cp.async`` needs (q, k, v; and do for
+    the backward)."""
     return all(t.data_ptr() % 16 == 0 and
                all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
 
@@ -402,6 +423,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _pick_route(route, auto, what, dtype, d):
+    """``route`` as asked (None: ``auto``, the route function's pick);
+    ValueError for an unknown route, or for ``"mma"`` where ``auto`` is
+    not ``"mma"``."""
+    if route is None:
+        return auto
+    if route not in ("mma", "scalar") or (route == "mma" and auto != "mma"):
+        raise ValueError(f"flash_attention {what}: route {route!r} does not "
+                         f"take {dtype} at head_dim {d} with these rows "
+                         f"(the route function gives {auto!r})")
+    return route
+
+
 def flash_attention_fwd(q, k, v, lens=None, seed=0, sm_scale=None,
                         causal=False, dropout_rate=0.0,
                         blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), route=None):
@@ -419,13 +453,8 @@ def flash_attention_fwd(q, k, v, lens=None, seed=0, sm_scale=None,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
-    auto = fwd_route(q.dtype, d, _rows_aligned(q, k, v))
-    if route is None:
-        route = auto
-    elif route not in ("mma", "scalar") or (route == "mma" and auto != "mma"):
-        raise ValueError(f"flash_attention forward: route {route!r} does not "
-                         f"take {q.dtype} at head_dim {d} with these rows "
-                         f"(fwd_route gives {auto!r})")
+    route = _pick_route(route, fwd_route(q.dtype, d, _rows_aligned(q, k, v)),
+                        "forward", q.dtype, d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -449,11 +478,14 @@ def flash_attention_fwd(q, k, v, lens=None, seed=0, sm_scale=None,
 
 def flash_attention_bwd(q, k, v, out, lse, do, lens=None, seed=0,
                         sm_scale=None, causal=False, dropout_rate=0.0,
-                        blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+                        blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), route=None):
     """The dq and dk/dv kernels' wrapper: ``(dq, dk, dv)`` as
     :func:`flash_attention_plain_bwd` defines them. CPU tensors take the
     plain version; CUDA tensors compute delta = rowsum(do*out) in float32
-    from ``out`` as stored, then launch both kernels, or raise."""
+    from ``out`` as stored, then launch both kernels, or raise. ``route``:
+    None picks :func:`bwd_route`'s; ``"scalar"`` forces the scalar
+    kernels; ``"mma"`` raises ValueError where :func:`bwd_route` would not
+    pick it. No route gives way to another on an error."""
     if q.device.type == "cpu":
         return flash_attention_plain_bwd(q, k, v, out, lse, do, lens, seed,
                                          sm_scale, causal, dropout_rate,
@@ -462,38 +494,44 @@ def flash_attention_bwd(q, k, v, out, lse, do, lens=None, seed=0,
     delta = _delta(out, do)
     args = (q, k, v, do, lse, delta, lens, seed, sm_scale, causal,
             dropout_rate, blocks)
-    return (_launch_dq(*args), *_launch_dkv(*args))
+    return (_launch_dq(*args, route=route),
+            *_launch_dkv(*args, route=route))
 
 
-def _launch_dq(q, k, v, do, lse, delta, *rest):
+def _launch_dq(q, k, v, do, lse, delta, *rest, route=None):
     """The dq kernel on inputs that passed :func:`_check`, given lse and
-    delta (B, H, Sq) float32 -> dq."""
+    delta (B, H, Sq) float32 -> dq; ``route`` as in
+    :func:`flash_attention_bwd`."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_attention_dq", "flash_dq", (dq,), q, k, v, do, lse,
-                delta, *rest)
+    _launch_bwd("flash_attention_dq", "flash_dq", (dq,), route, q, k, v, do,
+                lse, delta, *rest)
     return dq
 
 
-def _launch_dkv(q, k, v, do, lse, delta, *rest):
+def _launch_dkv(q, k, v, do, lse, delta, *rest, route=None):
     """The dk/dv kernel on inputs that passed :func:`_check`, given lse
-    and delta (B, H, Sq) float32 -> (dk, dv)."""
+    and delta (B, H, Sq) float32 -> (dk, dv); ``route`` as in
+    :func:`flash_attention_bwd`."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("flash_attention_dkv", "flash_dkv", (dk, dv), q, k, v, do,
-                lse, delta, *rest)
+    _launch_bwd("flash_attention_dkv", "flash_dkv", (dk, dv), route, q, k, v,
+                do, lse, delta, *rest)
     return dk, dv
 
 
-def _launch_bwd(entry, key, outs, q, k, v, do, lse, delta, lens=None, seed=0,
-                sm_scale=None, causal=False, dropout_rate=0.0,
+def _launch_bwd(entry, key, outs, route, q, k, v, do, lse, delta, lens=None,
+                seed=0, sm_scale=None, causal=False, dropout_rate=0.0,
                 blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
-    """Launch the C entry point ``entry`` writing ``outs``; counts under
-    ``key``."""
+    """Launch the C entry point ``entry`` (``entry + "_mma"`` on the mma
+    route) writing ``outs``; counts under ``key`` and its route."""
+    b, sq, h, d = q.shape
+    route = _pick_route(route, bwd_route(q.dtype, d,
+                                         _rows_aligned(q, k, v, do)),
+                        f"backward ({key})", q.dtype, d)
     if q.numel() == 0 or k.numel() == 0:
         for o in outs:
             o.zero_()
         return
-    b, sq, h, d = q.shape
     sk = k.shape[1]
     dev = q.device
     lse = lse.to(device=dev, dtype=torch.float32).contiguous()
@@ -502,14 +540,14 @@ def _launch_bwd(entry, key, outs, q, k, v, do, lse, delta, lens=None, seed=0,
     lib = load_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
+        err = getattr(lib, entry + "_mma" if route == "mma" else entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _strides(q, k, v, do), lse.data_ptr(), delta.data_ptr(),
             *[o.data_ptr() for o in outs], _ptr(ln), _ptr(sd), b, h, sq, sk,
             d, int(q.dtype == torch.bfloat16), _scale(d, sm_scale),
             int(bool(causal)), *_drop_args(dropout_rate, blocks), stream)
-    _raise_on(lib, err, key)
-    _count(key)
+    _raise_on(lib, err, f"{key} ({route})")
+    _count(key, route)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,10 +4,11 @@ of (device type, dtype, shape), on the CPU.
 A gate admits exactly what its kernels take, so that a caller sends the rest
 to its plain path and counts a fallback instead of raising:
 ``flash_gate`` (``scaled_dot_product_attention``) and ``fused_ce_gate``
-(``fused_linear_cross_entropy(kernel="auto")``). ``fwd_route`` picks the
-flash forward's kernel: the tensor-core one for bfloat16 at D = 64 or 128
-with rows on 16-byte boundaries, else the scalar one. No tolerance: every
-check is exact.
+(``fused_linear_cross_entropy(kernel="auto")``). ``fwd_route`` and
+``bwd_route`` pick the flash forward's kernel and the backward's pair: the
+tensor-core ones for bfloat16 at D = 64 or 128 with rows on 16-byte
+boundaries (q, k, v; and do for the backward), else the scalar ones. No
+tolerance: every check is exact.
 """
 import numpy as np
 import pytest
@@ -106,6 +107,44 @@ def test_fwd_route(dtype, d, aligned, want):
     assert fa.fwd_route(dtype, d, aligned) == want
 
 
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (BF16, 64, True, "mma"),        # the main path: GPT-base heads
+    (BF16, 128, True, "mma"),       # gpt_1p3b's heads
+    (BF16, 256, True, "scalar"),    # no D = 256 instance of the mma kernels
+    (BF16, 64, False, "scalar"),    # rows (do's too) off 16-byte boundaries
+    (BF16, 128, False, "scalar"),
+    (F32, 64, True, "scalar"),      # float32 keeps its exact FMAs
+    (F32, 128, True, "scalar"),
+    (F32, 256, False, "scalar"),
+    (F16, 64, True, "scalar")])     # no float16 kernel (the gate sends it
+def test_bwd_route(dtype, d, aligned, want):    # to the plain path first)
+    assert fa.bwd_route(dtype, d, aligned) == want
+
+
+def test_routes_count_every_kernel_on_each_route():
+    assert set(fa.ROUTES) == {"flash_fwd_mma", "flash_fwd_scalar",
+                              "flash_dq_mma", "flash_dq_scalar",
+                              "flash_dkv_mma", "flash_dkv_scalar"}
+
+
+@pytest.mark.parametrize("route", [None, "mma", "scalar"])
+def test_the_backward_on_cpu_tensors_takes_the_plain_version(route):
+    rs = np.random.RandomState(3)
+    q, k, v, do = [torch.from_numpy(rs.randn(2, 40, 2, 64).astype(np.float32))
+                   .to(BF16) for _ in range(4)]
+    blocks = fa.keying_blocks(BF16, 64, 40, 40)
+    out, lse = fa.flash_attention_plain_fwd(q, k, v, None, 0, None, True, 0.0,
+                                            blocks)
+    n0, r0 = dict(fa.LAUNCHES), dict(fa.ROUTES)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, None, 0, None, True,
+                                 0.0, blocks, route=route)
+    want = fa.flash_attention_plain_bwd(q, k, v, out, lse, do, None, 0, None,
+                                        True, 0.0, blocks)
+    assert fa.LAUNCHES == n0 and fa.ROUTES == r0
+    for g, w in zip(got, want):
+        assert g.dtype == BF16 and torch.equal(g, w)
+
+
 def test_row_alignment_of_the_qkv_split_and_of_odd_views():
     qkv = torch.zeros(2, 128, 4, 3 * 64, dtype=BF16)
     q, k, v = torch.split(qkv, 64, dim=-1)
@@ -116,3 +155,18 @@ def test_row_alignment_of_the_qkv_split_and_of_odd_views():
     odd = torch.zeros(2, 128, 4, 68, dtype=BF16)[..., :64]   # h stride 68
     assert not fa._rows_aligned(odd)
     assert fa.fwd_route(BF16, 64, fa._rows_aligned(odd)) == "scalar"
+
+
+def test_row_alignment_of_the_backward_counts_do():
+    qkv = torch.zeros(2, 128, 4, 3 * 64, dtype=BF16)
+    q, k, v = torch.split(qkv, 64, dim=-1)
+    do = torch.zeros(2, 128, 4, 64, dtype=BF16)
+    assert fa.bwd_route(BF16, 64, fa._rows_aligned(q, k, v, do)) == "mma"
+    odd_do = torch.zeros(2, 128, 4, 68, dtype=BF16)[..., :64]
+    assert fa._rows_aligned(q, k, v) and not fa._rows_aligned(q, k, v,
+                                                                odd_do)
+    assert fa.bwd_route(BF16, 64, fa._rows_aligned(q, k, v, odd_do)) == \
+        "scalar"
+    shifted_do = torch.zeros(2 * 128 * 4 * 64 + 1, dtype=BF16)[1:].view(
+        2, 128, 4, 64)                                  # starts 2 bytes in
+    assert not fa._rows_aligned(q, k, v, shifted_do)

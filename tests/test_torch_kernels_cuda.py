@@ -120,6 +120,9 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # the tensor-core forward beside FLASH_TOL, as chip_smoke.py holds it:
 # ||out - plain|| / ||plain|| over the whole output and max |lse - plain|
 MMA_FWD_BOUND = {"out_rel": 8e-3, "lse_abs": 5e-6}
+# the tensor-core dq and dk/dv, as chip_smoke.py holds them: ||g - plain||
+# / ||plain|| of each gradient (set from tests/test_torch_flash_bwd_rounding.py)
+MMA_BWD_BOUND = {"dq_rel": 1e-2, "dk_rel": 1e-2, "dv_rel": 1e-2}
 
 
 def _mma_fwd_within_bound(out, lse, ref_out, ref_lse):
@@ -127,6 +130,19 @@ def _mma_fwd_within_bound(out, lse, ref_out, ref_lse):
     rel = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
     assert rel <= MMA_FWD_BOUND["out_rel"], rel
     assert (lse - ref_lse).abs().max().item() <= MMA_FWD_BOUND["lse_abs"]
+
+
+def _mma_bwd_within_bound(grads, ref):
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        g, r = g.float(), r.float()
+        rel = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+        assert rel <= MMA_BWD_BOUND[f"{name}_rel"], (name, rel)
+
+
+def _route_counts(r0):
+    """The launches on each flash route since ``r0`` (a copy of ROUTES),
+    the routes with none left out."""
+    return {k: n - r0[k] for k, n in fa.ROUTES.items() if n != r0[k]}
 
 
 def _flash_inputs(dev, s, d, dtype, b=2, h=4, seed=0):
@@ -153,7 +169,7 @@ def test_flash_kernels_match_plain(cuda_device, case):
     ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                 device=cuda_device)
     blocks = fa.keying_blocks(dtype, d, s, s)
-    n0 = dict(fa.LAUNCHES)
+    n0, r0 = dict(fa.LAUNCHES), dict(fa.ROUTES)
     qg, kg, vg = [x.clone().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(qg, kg, vg, causal=causal, kv_lens=ln,
                              dropout_rate=rate, dropout_seed=7)
@@ -168,6 +184,10 @@ def test_flash_kernels_match_plain(cuda_device, case):
     assert fa.LAUNCHES == {"flash_fwd": n0["flash_fwd"] + 2,
                            "flash_dq": n0["flash_dq"] + 1,
                            "flash_dkv": n0["flash_dkv"] + 1}
+    route = "mma" if dtype == torch.bfloat16 else "scalar"
+    assert _route_counts(r0) == {f"flash_fwd_{route}": 2,
+                                 f"flash_dq_{route}": 1,
+                                 f"flash_dkv_{route}": 1}
     for g, r in zip((out, lse, qg.grad, kg.grad, vg.grad),
                     (ref_out, ref_lse, *ref)):
         assert g.dtype == r.dtype
@@ -237,8 +257,7 @@ def test_flash_mma_forward_matches_plain(cuda_device, case):
     s_out, s_lse = fa.flash_attention_fwd(*args, route="scalar")
     ref_out, ref_lse = fa.flash_attention_plain_fwd(*args)
     torch.cuda.synchronize()
-    assert fa.ROUTES == {"flash_fwd_mma": r0["flash_fwd_mma"] + 1,
-                         "flash_fwd_scalar": r0["flash_fwd_scalar"] + 1}
+    assert _route_counts(r0) == {"flash_fwd_mma": 1, "flash_fwd_scalar": 1}
     for g, r in ((out, ref_out), (lse, ref_lse), (s_out, ref_out),
                  (s_lse, ref_lse)):
         assert g.dtype == r.dtype
@@ -299,8 +318,122 @@ def test_flash_forward_routes_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="route"):
         fa.flash_attention_fwd(q, q, q, route="wgmma")
     torch.cuda.synchronize()
-    assert fa.ROUTES == {"flash_fwd_mma": r0["flash_fwd_mma"] + 1,
-                         "flash_fwd_scalar": r0["flash_fwd_scalar"] + 3}
+    assert _route_counts(r0) == {"flash_fwd_mma": 1, "flash_fwd_scalar": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (s, d, causal, lens, 0.0)
+    for s in (128, 200, 1024) for d in (64, 128) for causal in (True, False)
+    for lens in (None, "s37", [0, 37])] + [
+    (1024, 64, True, None, 0.1), (1024, 128, False, "s37", 0.1),
+    (200, 64, True, [0, 37], 0.1)])
+def test_flash_mma_backward_matches_plain(cuda_device, case):
+    """The tensor-core dq and dk/dv (bfloat16, D = 64 and 128) on the mma
+    forward's out and lse, against the plain backward on the plain
+    forward's, and the scalar kernels on the same inputs beside them."""
+    s, d, causal, lens, rate = case
+    q, k, v, do = _flash_inputs(cuda_device, s, d, torch.bfloat16,
+                                seed=s + d + 2)
+    if lens == "s37":
+        lens = [s, 37]
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda_device)
+    blocks = fa.keying_blocks(torch.bfloat16, d, s, s)
+    rest = (ln, 7, None, causal, rate, blocks)
+    r0 = dict(fa.ROUTES)
+    out, lse = fa.flash_attention_fwd(q, k, v, *rest)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, *rest)
+    scalar = fa.flash_attention_bwd(q, k, v, out, lse, do, *rest,
+                                    route="scalar")
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, *rest)
+    ref = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, *rest)
+    torch.cuda.synchronize()
+    assert _route_counts(r0) == {"flash_fwd_mma": 1, "flash_dq_mma": 1,
+                                 "flash_dkv_mma": 1, "flash_dq_scalar": 1,
+                                 "flash_dkv_scalar": 1}
+    for g, r in zip((*grads, *scalar), (*ref, *ref)):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+    _mma_bwd_within_bound(grads, ref)
+    if lens is not None and 0 in lens:
+        row = lens.index(0)       # no visible key: no gradient at all
+        for g in grads:
+            assert g[row].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_mma_backward_on_the_qkv_split_is_bit_reproducible(cuda_device):
+    """The main path's call (GPT-base, bf16, causal, the QKV split's strided
+    views) runs dq and dk/dv on the tensor-core route, agrees with the plain
+    backward, and two launches give the same bits."""
+    b, s, h, d = 8, 1024, 12, 64
+    rs = np.random.RandomState(3)
+    qkv = torch.as_tensor(rs.randn(b, s, h, 3 * d).astype(np.float32),
+                          device=cuda_device).to(torch.bfloat16)
+    do = torch.as_tensor(rs.randn(b, s, h, d).astype(np.float32),
+                         device=cuda_device).to(torch.bfloat16)
+    q, k, v = torch.split(qkv, d, dim=-1)
+    rest = (None, 0, None, True, 0.0, fa.keying_blocks(q.dtype, d, s, s))
+    out, lse = fa.flash_attention_fwd(q, k, v, *rest)
+    r0 = dict(fa.ROUTES)
+    once = fa.flash_attention_bwd(q, k, v, out, lse, do, *rest)
+    twice = fa.flash_attention_bwd(q, k, v, out, lse, do, *rest)
+    ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, *rest)
+    ref = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse, do, *rest)
+    torch.cuda.synchronize()
+    assert _route_counts(r0) == {"flash_dq_mma": 2, "flash_dkv_mma": 2}
+    assert all(torch.equal(a, b) for a, b in zip(once, twice))
+    for g, r in zip(once, ref):
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+    _mma_bwd_within_bound(once, ref)
+
+
+def _call_bwd_entry(entry, q, k, v, do, lse, delta, outs, bf16):
+    """A backward C entry called as _launch_bwd calls it; its return code."""
+    b, s, h, d = q.shape
+    lib = fa.load_kernel()
+    return getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        fa._strides(q, k, v, do), lse.data_ptr(), delta.data_ptr(),
+        *[o.data_ptr() for o in outs], None, None, b, h, s, s, d, bf16,
+        d ** -0.5, 1, 0, 0, 1.0, 1, 1,
+        torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+def test_flash_backward_routes_on_the_card(cuda_device):
+    """float32, D = 256 and a do off 16-byte boundaries take the scalar
+    dq and dk/dv; asking for the mma route there raises, with no launch;
+    the mma C entries refuse them too (cudaErrorInvalidValue, no launch)."""
+    r0 = dict(fa.ROUTES)
+    lse = torch.zeros(2, 4, 128, device=cuda_device)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v, do = _flash_inputs(cuda_device, 128, d, dtype)
+        fa.flash_attention_bwd(q, k, v, q, lse, do, causal=True)
+        with pytest.raises(ValueError, match="route"):
+            fa.flash_attention_bwd(q, k, v, q, lse, do, route="mma")
+    q, k, v, _ = _flash_inputs(cuda_device, 128, 64, torch.bfloat16)
+    odd_do = torch.zeros(2, 128, 4, 68, dtype=torch.bfloat16,
+                         device=cuda_device)[..., :64]      # h stride 68
+    fa.flash_attention_bwd(q, k, v, q, lse, odd_do, causal=True)
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention_bwd(q, k, v, q, lse, odd_do, route="mma")
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention_bwd(q, k, v, q, lse, q, route="wgmma")
+    torch.cuda.synchronize()
+    assert _route_counts(r0) == {"flash_dq_scalar": 3, "flash_dkv_scalar": 3}
+    dq, dk, dv = (torch.full_like(q, 7.0) for _ in range(3))
+    f32 = [x.float() for x in (q, k, v, q)]
+    for entry, outs in (("flash_attention_dq_mma", (dq,)),
+                        ("flash_attention_dkv_mma", (dk, dv))):
+        assert _call_bwd_entry(entry, q, k, v, odd_do, lse, lse, outs, 1) == 1
+        assert _call_bwd_entry(entry, *f32, lse, lse,
+                               [o.float() for o in outs], 0) == 1
+    torch.cuda.synchronize()
+    assert all((o == 7.0).all() for o in (dq, dk, dv))
 
 
 @pytest.mark.cuda

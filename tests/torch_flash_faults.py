@@ -1,19 +1,22 @@
-"""Plant faults in a copy of the tensor-core flash forward and read how far
-each moves its output from the plain version, against the bars that
-``chip_smoke.py`` holds the kernel to: ``FLASH_TOL`` (elementwise) and
-``MMA_FWD_BOUND`` (the whole output's relative L2 error, the lse's largest
-error). Runs on the card, from the repository root::
+"""Plant faults in a copy of the tensor-core flash kernels and read how far
+each moves its outputs from the plain version, against the bars that
+``chip_smoke.py`` holds the kernels to: ``FLASH_TOL`` (elementwise),
+``MMA_FWD_BOUND`` (the forward: the whole output's relative L2 error, the
+lse's largest error) and ``MMA_BWD_BOUND`` (dq and dk/dv: each gradient's
+relative L2 error). Runs on the card, from the repository root::
 
     python3 tests/torch_flash_faults.py
 
-Each variant (the sound kernel, then each fault of ``FAULTS``) gets its own
-copy of ``paddle_tpu_torch/`` in a temporary directory, with
+Each variant (the sound kernels, then each fault of ``FAULTS``) gets its
+own copy of ``paddle_tpu_torch/`` in a temporary directory, with
 ``csrc/flash_attention.cu`` edited there, and its own process, which builds
 the copy with nvcc (all variants at once) and runs the bf16 cases of
-``chip_smoke.py``'s ``flash_parity`` on the mma route. The checkout is never
-edited. Prints one JSON line per variant, then a summary line; exits 1
-unless the sound kernel holds both bars on every case and each fault
-breaks ``MMA_FWD_BOUND`` on every case whose output it changes.
+``chip_smoke.py``'s ``flash_parity`` on the mma route: the forward, then
+dq and dk/dv on its out and lse. The checkout is never edited. Prints one
+JSON line per variant and case, then a summary line; exits 1 unless the
+sound kernels hold every bar on every case and each fault breaks the bound
+of the kernel it sits in (``MMA_FWD_BOUND`` or ``MMA_BWD_BOUND``) on every
+case whose outputs of that kernel it changes.
 """
 from __future__ import annotations
 
@@ -26,16 +29,32 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (what the sound source holds, what the fault puts in its place)
+# (the kernel it sits in: "fwd" or "bwd", what the sound source holds, what
+# the fault puts in its place)
 FAULTS = {
-    # the second K/V tile of every q tile is never seen
-    "skip_tile": ("    if (p.causal && k0 > qw + 15) continue;\n",
+    # the forward: the second K/V tile of every q tile is never seen
+    "skip_tile": ("fwd", "    if (p.causal && k0 > qw + 15) continue;\n",
                   "    if (p.causal && k0 > qw + 15) continue;\n"
                   "    if (j == 1) continue;\n"),
-    # O is not rescaled when the running max grows
-    "no_rescale": ("      o[n][0] *= alpha[0];\n      o[n][1] *= alpha[0];\n"
+    # the forward: O is not rescaled when the running max grows
+    "no_rescale": ("fwd",
+                   "      o[n][0] *= alpha[0];\n      o[n][1] *= alpha[0];\n"
                    "      o[n][2] *= alpha[1];\n      o[n][3] *= alpha[1];\n",
                    ""),
+    # dk/dv: the second query tile of every key block is never seen
+    "bwd_skip_q_tile": ("bwd",
+                        "    if ((p.causal && q0 + BT <= kw) || kw >= len) "
+                        "continue;\n",
+                        "    if ((p.causal && q0 + BT <= kw) || kw >= len) "
+                        "continue;\n    if (j == 1) continue;\n"),
+    # dq and dk: ds = p∘dp, the − delta left out
+    "bwd_no_delta": ("bwd", "  return p * (dp - delta);\n",
+                     "  return p * dp;\n"),
+    # dq: the last K/V tile of every q tile is never seen
+    "bwd_skip_last_k_tile": ("bwd",
+                             "    if (p.causal && k0 >= qw + 16) continue;\n",
+                             "    if (p.causal && k0 >= qw + 16) continue;\n"
+                             "    if (j == ntiles - 1) continue;\n"),
 }
 
 
@@ -62,6 +81,21 @@ def read_variant(work):
 
     bf16 = torch.bfloat16
     atol, rtol = cs.FLASH_TOL[bf16]
+
+    def rel(g, r):
+        g, r = g.float(), r.float()
+        return ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+
+    def digest(*ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def close(gots, refs):
+        return all(torch.allclose(g.float(), r.float(), atol=atol, rtol=rtol)
+                   for g, r in zip(gots, refs))
+
     for i, (s, d, causal, lens, rate, b, h, split) in enumerate(_cases()):
         rs = np.random.RandomState(i)
         rand = lambda *shape: torch.as_tensor(  # noqa: E731
@@ -70,27 +104,32 @@ def read_variant(work):
             q, k, v = torch.split(rand(b, s, h, 3 * d), d, dim=-1)
         else:
             q, k, v = rand(b, s, h, d), rand(b, s, h, d), rand(b, s, h, d)
+        do = rand(b, s, h, d)
         ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                     device="cuda")
-        args = (q, k, v, ln, 7, None, causal, rate,
-                fa.keying_blocks(bf16, d, s, s))
-        out, lse = fa.flash_attention_fwd(*args, route="mma")
-        ref_out, ref_lse = fa.flash_attention_plain_fwd(*args)
-        o, r = out.float(), ref_out.float()
-        rel = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
+        rest = (ln, 7, None, causal, rate, fa.keying_blocks(bf16, d, s, s))
+        out, lse = fa.flash_attention_fwd(q, k, v, *rest, route="mma")
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, *rest,
+                                       route="mma")
+        ref_out, ref_lse = fa.flash_attention_plain_fwd(q, k, v, *rest)
+        ref_grads = fa.flash_attention_plain_bwd(q, k, v, ref_out, ref_lse,
+                                                 do, *rest)
+        out_rel = rel(out, ref_out)
         lse_err = (lse - ref_lse).abs().max().item()
-        digest = hashlib.sha1(out.view(torch.int16).cpu().numpy().tobytes())
-        digest.update(lse.cpu().numpy().tobytes())
+        bwd_rel = {f"{n}_rel": rel(g, r) for n, g, r in
+                   zip(("dq", "dk", "dv"), grads, ref_grads)}
         print(json.dumps({
             "case": [s, d, causal, lens, rate, b, h, split],
-            "out_rel": rel, "lse_abs": lse_err,
-            "out_abs": (o - r).abs().max().item(),
-            "flash_tol": bool(torch.allclose(o, r, atol=atol, rtol=rtol) and
-                              torch.allclose(lse, ref_lse, atol=atol,
-                                             rtol=rtol)),
-            "mma_bound": (rel <= cs.MMA_FWD_BOUND["out_rel"] and
+            "out_rel": out_rel, "lse_abs": lse_err, **bwd_rel,
+            "out_abs": (out.float() - ref_out.float()).abs().max().item(),
+            "flash_tol": close((out, lse), (ref_out, ref_lse)),
+            "flash_tol_bwd": close(grads, ref_grads),
+            "mma_bound": (out_rel <= cs.MMA_FWD_BOUND["out_rel"] and
                           lse_err <= cs.MMA_FWD_BOUND["lse_abs"]),
-            "digest": digest.hexdigest()}), flush=True)
+            "mma_bwd_bound": all(v <= cs.MMA_BWD_BOUND[k]
+                                 for k, v in bwd_rel.items()),
+            "digest": digest(out, lse),
+            "digest_bwd": digest(*grads)}), flush=True)
 
 
 def _copy(name, base):
@@ -104,7 +143,7 @@ def _copy(name, base):
                            "flash_attention.cu")
         with open(src) as f:
             text = f.read()
-        sound, fault = FAULTS[name]
+        _, sound, fault = FAULTS[name]
         if text.count(sound) != 1:
             raise SystemExit(f"{name}: the sound lines are not in the source "
                              f"once; update FAULTS")
@@ -135,28 +174,38 @@ def main() -> int:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     sound = rows["sound"]
-    ok = all(r["flash_tol"] and r["mma_bound"] for r in sound)
+    ok = all(r["flash_tol"] and r["mma_bound"] and r["flash_tol_bwd"] and
+             r["mma_bwd_bound"] for r in sound)
     summary = {}
     for n in names:
+        # a fault is judged on the outputs of the kernel it sits in; the
+        # sound variant on everything
+        kind = FAULTS[n][0] if n in FAULTS else "fwd"
+        suffix = "_bwd" if kind == "bwd" else ""
         changed = [r for r, s in zip(rows[n], sound)
-                   if r["digest"] != s["digest"]]
+                   if r["digest" + suffix] != s["digest" + suffix]]
         judged = rows[n] if n == "sound" else changed
-        caught = sum(not r["mma_bound"] for r in changed)
+        caught = sum(not r["mma" + suffix + "_bound"] for r in changed)
         if n != "sound":
             ok = ok and caught == len(changed) > 0
+        grad_rel = [max(r["dq_rel"], r["dk_rel"], r["dv_rel"])
+                    for r in judged]
         summary[n] = {
-            "cases": len(rows[n]), "changed": len(changed),
+            "kernel": kind, "cases": len(rows[n]), "changed": len(changed),
             "caught_by_mma_bound": caught,
-            "caught_by_flash_tol": sum(not r["flash_tol"] for r in changed),
+            "caught_by_flash_tol": sum(not r["flash_tol" + suffix]
+                                       for r in changed),
             "out_rel_min": min((r["out_rel"] for r in judged), default=None),
             "out_rel_max": max((r["out_rel"] for r in judged), default=None),
             "lse_abs_max": max((r["lse_abs"] for r in judged), default=None),
-            "out_abs_max": max((r["out_abs"] for r in judged), default=None)}
+            "out_abs_max": max((r["out_abs"] for r in judged), default=None),
+            "grad_rel_min": min(grad_rel, default=None),
+            "grad_rel_max": max(grad_rel, default=None)}
         for r in rows[n]:
             print(json.dumps({"variant": n, **r}), flush=True)
-    from chip_smoke import MMA_FWD_BOUND
+    from chip_smoke import MMA_BWD_BOUND, MMA_FWD_BOUND
     print(json.dumps({"summary": summary, "mma_bound": MMA_FWD_BOUND,
-                      "ok": ok}), flush=True)
+                      "mma_bwd_bound": MMA_BWD_BOUND, "ok": ok}), flush=True)
     return 0 if ok else 1
 
 
