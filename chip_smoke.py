@@ -7,8 +7,11 @@ one NVIDIA card.
 Builds every kernel from ``paddle_tpu_torch/csrc`` with nvcc (one process
 per source, all started together), then:
 
-- serving: holds the paged-attention kernel against its plain PyTorch
-  version, times it, and serves generations at GPT-base widths through
+- serving: holds the paged-attention kernels against their plain PyTorch
+  version (the split route at its own and at forced split counts, also on
+  pools holding NaN wherever no context reaches, and the simple route),
+  checks that repeats are bit-identical, times both routes beside plain
+  and the library, and serves generations at GPT-base widths through
   ``DecodeServer`` and ``SpeculativeDecodeServer``, checking every token
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
@@ -63,6 +66,7 @@ PARITY_TQ = (1, 2, 4, 5, 8, 16, 32)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 dense tensor cores
+LEAD_CYCLES = 1_000_000          # ~0.5 ms of spinning at the H100's clocks
 
 SRC = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -113,15 +117,21 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def time_ms(fn, reps=25, warmup=5, flush=None):
+def time_ms(fn, reps=25, warmup=5, flush=None, lead=False):
     """Median device time of one call (CUDA events), L2 flushed before
-    each timed call when ``flush`` is given."""
+    each timed call when ``flush`` is given. ``lead``: a spin kernel of
+    about 0.5 ms runs before the start event, so that the call's host-side
+    work is queued behind it and the events time the device alone (for
+    calls of a few microseconds, where the host would otherwise keep the
+    card waiting inside the timed interval)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -132,10 +142,10 @@ def time_ms(fn, reps=25, warmup=5, flush=None):
     return float(np.median(times))
 
 
-def parity_case(pa, rs, tq, dtype, lens, b=8, h=12, d=64, ps=16, w=64,
-                p=2048):
-    """Random pool + tables (shuffled pages; slots past each row's pages
-    set to -1 or P+7) on the card; returns the max abs errors."""
+def paged_inputs(rs, tq, dtype, lens, b=8, h=12, d=64, ps=16, w=64,
+                 p=2048):
+    """q, pools, tables and lens on the card: random pools, shuffled pages,
+    slots past each row's pages set to -1 or P+7."""
     dev = "cuda"
     q = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32), device=dev)
     kp = torch.as_tensor(rs.randn(p, ps, h, d).astype(np.float32),
@@ -148,18 +158,69 @@ def parity_case(pa, rs, tq, dtype, lens, b=8, h=12, d=64, ps=16, w=64,
         tab[i, used:] = -1 if i % 2 == 0 else p + 7
     tab = torch.as_tensor(tab, device=dev)
     ln = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
-    kn = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32), device=dev)
-    vn = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32), device=dev)
-    got = pa.paged_attention(q, kp, vp, tab, ln)
-    want = pa.paged_attention_plain(q, kp, vp, tab, ln)
-    torch.cuda.synchronize()
+    return q, kp, vp, tab, ln
+
+
+def _raw_errs(got, want, what):
     errs = {}
     for name, g, r in zip(("acc", "m", "l"), got, want):
-        check(torch.isfinite(g).all().item(), f"kernel {name} not finite")
+        check(torch.isfinite(g).all().item(), f"{what}: {name} not finite")
         check(torch.allclose(g, r, atol=ATOL, rtol=RTOL),
-              f"raw {name} tq={tq} {dtype}: max err "
-              f"{(g - r).abs().max().item()}")
+              f"{what}: raw {name} max err {(g - r).abs().max().item()}")
         errs[name] = (g - r).abs().max().item()
+    return max(errs.values())
+
+
+def nan_outside(pool, tab, ln):
+    """``pool`` with NaN in every slot that no row's context reaches:
+    unused pages and the tail of each row's last page."""
+    p, ps = pool.shape[:2]
+    used = torch.zeros((p, ps), dtype=torch.bool, device=pool.device)
+    w = tab.shape[1]
+    pos = torch.arange(w * ps, device=pool.device)
+    for row, n in zip(tab.long(), ln.tolist()):
+        mine = pos[:min(n, w * ps)]
+        used[row.clamp(0, p - 1)[mine // ps], mine % ps] = True
+    return torch.where(used[..., None, None], pool,
+                       torch.full_like(pool, float("nan")))
+
+
+def parity_case(pa, rs, tq, dtype, lens, b=8, h=12, d=64, ps=16, w=64,
+                p=2048):
+    """Both routes against the plain version on one input: the split route
+    at its own split count and forced to 1, 2 and the table width, on the
+    pools and on the pools with NaN wherever no context reaches; the
+    simple route; then the dispatcher's final output against the gather
+    path. Returns the max abs errors."""
+    q, kp, vp, tab, ln = paged_inputs(rs, tq, dtype, lens, b, h, d, ps, w, p)
+    kn = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32),
+                         device="cuda")
+    vn = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32),
+                         device="cuda")
+    want = pa.paged_attention_plain(q, kp, vp, tab, ln)
+    key = "decode" if tq == 1 else "verify"
+    what = f"tq={tq} {dtype} lens={lens}"
+    errs = {}
+    r0 = dict(pa.ROUTES)
+    errs["split"] = _raw_errs(pa.paged_attention(q, kp, vp, tab, ln), want,
+                              f"split {what}")
+    check(pa.ROUTES[f"{key}_split"] == r0[f"{key}_split"] + 1,
+          f"{what}: the default route is not split")
+    nan_k, nan_v = nan_outside(kp, tab, ln), nan_outside(vp, tab, ln)
+    for splits in (1, 2, w):
+        errs[f"split_{splits}"] = _raw_errs(
+            pa.paged_attention(q, kp, vp, tab, ln, splits=splits), want,
+            f"split={splits} {what}")
+        errs[f"split_{splits}_nan_pool"] = _raw_errs(
+            pa.paged_attention(q, nan_k, nan_v, tab, ln, splits=splits),
+            want, f"split={splits} NaN pool {what}")
+    errs["split_nan_pool"] = _raw_errs(
+        pa.paged_attention(q, nan_k, nan_v, tab, ln), want,
+        f"split NaN pool {what}")
+    errs["simple"] = _raw_errs(
+        pa.paged_attention(q, kp, vp, tab, ln, route="simple"), want,
+        f"simple {what}")
+    torch.cuda.synchronize()
     for new in (False, True):
         extra = dict(k_new=kn, v_new=vn) if new else {}
         out = pa.paged_decode_attention(q, kp, vp, tab, ln, kernel="kernel",
@@ -173,27 +234,54 @@ def parity_case(pa, rs, tq, dtype, lens, b=8, h=12, d=64, ps=16, w=64,
     return errs
 
 
-def kernel_timing(pa, rs, tq, flush, b=8, h=12, d=64, ps=16, w=64, p=2048,
-                  ctx=1024):
-    """Kernel, plain and library times at one shape; every row's context
-    is ``ctx`` tokens, so the kernel reads b*ctx*h*d of K and of V."""
-    dev = "cuda"
-    q = torch.as_tensor(rs.randn(b, tq, h, d).astype(np.float32), device=dev)
-    kp = torch.as_tensor(rs.randn(p, ps, h, d).astype(np.float32), device=dev)
-    vp = torch.as_tensor(rs.randn(p, ps, h, d).astype(np.float32), device=dev)
-    tab = torch.as_tensor(np.stack([rs.permutation(p)[:w] for _ in range(b)])
-                          .astype(np.int32), device=dev)
-    ln = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+def paged_repeat(pa, rs, tq, ctx=1024, b=8):
+    """Repeat launches of the split route at the main shape are
+    bit-identical (no atomics, a fixed merge order)."""
+    q, kp, vp, tab, _ = paged_inputs(rs, tq, torch.float32, [ctx] * b, b=b)
+    ln = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
+    first = [t.clone() for t in pa.paged_attention(q, kp, vp, tab, ln)]
+    for _ in range(5):
+        for f, g in zip(first, pa.paged_attention(q, kp, vp, tab, ln)):
+            check(torch.equal(f, g), f"split route tq={tq}: repeat launches "
+                                     "differ")
+    return True
+
+
+def kernel_timing(pa, rs, tq, flush, b=8, dtype=torch.float32, h=12, d=64,
+                  ps=16, w=64, p=2048, ctx=1024, sweep=()):
+    """The split route (at its own split count and at each count of
+    ``sweep``), the simple route, plain and library times at one shape,
+    each behind a lead spin (device time alone); every row's context is
+    ``ctx`` tokens, so the kernels read b*ctx*h*d of K and of V."""
+    q, kp, vp, tab, _ = paged_inputs(rs, tq, dtype, [ctx] * b, b, h, d, ps,
+                                     w, p)
+    ln = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
     # library yardstick: one fused attention call on the same K/V, already
     # gathered contiguous (it excludes the gather; the port never calls it)
     kc = pa._gather_ctx(kp, tab)[:, :ctx].transpose(1, 2).contiguous()
     vc = pa._gather_ctx(vp, tab)[:, :ctx].transpose(1, 2).contiguous()
-    qt = q.transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous().to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln), flush=flush)
+    key = "decode" if tq == 1 else "verify"
+    r0 = dict(pa.ROUTES)
+    ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln), flush=flush,
+                 lead=True)
+    check(pa.ROUTES[f"{key}_split"] > r0[f"{key}_split"] and
+          pa.ROUTES[f"{key}_simple"] == r0[f"{key}_simple"],
+          f"timing tq={tq}: the split route was not taken")
+    simple_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln,
+                                                   route="simple"),
+                        flush=flush, lead=True)
     plain_ms = time_ms(lambda: pa.paged_attention_plain(q, kp, vp, tab, ln),
-                       flush=flush)
-    library_ms = time_ms(lambda: sdpa(qt, kc, vc), flush=flush)
+                       flush=flush, lead=True)
+    library_ms = time_ms(lambda: sdpa(qt, kc, vc), flush=flush, lead=True)
+    sweep_ms = {str(n): time_ms(lambda: pa.paged_attention(
+        q, kp, vp, tab, ln, splits=n), flush=flush, lead=True)
+        for n in sweep}
+    # the same call with every row empty: launches and fixed work only
+    ln0 = torch.zeros_like(ln)
+    empty_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln0),
+                       flush=flush, lead=True)
     elem = kp.element_size()
     moved = (2 * b * ctx * h * d * elem          # K and V context read once
              + q.numel() * 4 + tab.numel() * 4 + ln.numel() * 4
@@ -201,10 +289,16 @@ def kernel_timing(pa, rs, tq, flush, b=8, h=12, d=64, ps=16, w=64, p=2048,
     flops = 2 * 2 * b * h * tq * ctx * d         # QK^T and PV
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
-    return {"tq": tq, "ms": ms, "plain_ms": plain_ms,
+    bound = max(t_bytes, t_ops)
+    return {"tq": tq, "b": b, "pools": str(dtype).split(".")[-1],
+            "splits": pa.paged_splits(b, h, w, ps, sm_count()),
+            "ms": ms, "empty_ms": empty_ms, "simple_ms": simple_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": moved, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "over_bound": ms / bound, "library_over_split": library_ms / ms,
+            "simple_over_split": simple_ms / ms, "splits_ms": sweep_ms}
 
 
 def oracle_margins(params, prompt, generated):
@@ -247,8 +341,9 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
         hits0 = cache.prefix_hit_tokens
         calls0 = [f.calls for f in step.jit_fns]
         torch.cuda.synchronize()
-        for k in pa.LAUNCHES:
-            pa.LAUNCHES[k] = 0
+        for counts in (pa.LAUNCHES, pa.ROUTES):
+            for k in counts:
+                counts[k] = 0
         tuner.FALLBACKS.clear()
         t0 = time.perf_counter()
         reqs = [srv.submit_generate(pr, max_new) for pr in prompts[1:]]
@@ -256,6 +351,7 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(pa.LAUNCHES)
+        routes = dict(pa.ROUTES)
         fallbacks = tuner.FALLBACKS["paged_attention"]
         lat = sorted(r.latency for r in reqs)
         stats = srv.stats()
@@ -264,7 +360,7 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
     check(st["pages_used"] == st["evictable"],
           f"pages leaked after drain: {st}")
     report = {
-        "launches": launches, "fallbacks": fallbacks,
+        "launches": launches, "routes": routes, "fallbacks": fallbacks,
         "prefix_hit_tokens": cache.prefix_hit_tokens - hits0,
         "decode_tokens_per_s": len(reqs) * max_new / wall,
         "wall_s": wall,
@@ -278,6 +374,28 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
         "spec_decode": stats.get("spec_decode"),
     }
     return [[int(t) for t in warm[0]]] + outs, report
+
+
+@contextlib.contextmanager
+def paged_route_forced(pa, route):
+    """Within the block, every paged launch takes ``route`` (the split
+    route's yardstick), after the main path's own counted run."""
+    picked = pa.paged_route
+    pa.paged_route = lambda dtype, d, aligned: route
+    try:
+        yield
+    finally:
+        pa.paged_route = picked
+
+
+def check_split_routes(rep):
+    """Every decode and verify launch of a serving run took the split
+    route."""
+    launches, routes = rep["launches"], rep["routes"]
+    for key in ("decode", "verify"):
+        check(routes[f"{key}_split"] == launches[key] and
+              routes[f"{key}_simple"] == 0,
+              f"serving {key}: {launches[key]} launches, routes {routes}")
 
 
 def _device_time(prof):
@@ -334,7 +452,12 @@ def profile_serving(params, prompts, max_new, dm, kvc, serving):
                 r.result(timeout=600)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    return _profile_report(prof, wall)[0]
+    rep, rows = _profile_report(prof, wall)
+    paged = [(us, name, n) for us, name, n in rows if "paged_" in name]
+    rep["paged_device_ms"] = sum(us for us, _, _ in paged) / 1e3
+    rep["paged_by_kernel"] = [{"name": name[:80], "device_ms": us / 1e3,
+                               "count": n} for us, name, n in paged]
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -756,7 +879,8 @@ def fwd_at_entry(fc, hid, w, lbl32, splits=None):
 
 
 def sm_count():
-    """The card's SMs, which the tiled forward's split rule reads."""
+    """The card's SMs, which the split rules of the tiled CE forward and of
+    the paged split route read."""
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
@@ -1223,6 +1347,46 @@ def gates(fa, fc, nn, tuner, optim, rs):
             "float16_loss": loss.item(), "adamw_slot_dtype": "bfloat16"}
 
 
+def paged_kernel_phases(pa, card, rs):
+    """Phases ``parity``, ``paged_repeat`` and ``timing`` of the paged
+    kernels, inputs drawn from ``rs``. Returns (max abs error by kernel,
+    timings by (tq, b, pools))."""
+    # 3. kernel parity against the plain version, on the card: both routes,
+    # forced split counts and the NaN pool (parity_case), then repeats
+    lens_a = [0, 1, 15, 16, 17, 513, 1023, 1024]
+    lens_b = [0, 1, 15, 16, 17, 513, 5000, 1024]   # 5000 > W*ps: capped
+    max_err = {"decode": 0.0, "verify": 0.0}
+    cases = ([(tq, torch.float32, lens) for tq in PARITY_TQ
+              for lens in (lens_a, lens_b)] +
+             [(tq, torch.bfloat16, lens_a) for tq in (1, 5, 8)])
+    for tq, dtype, lens in cases:
+        errs = parity_case(pa, rs, tq, dtype, lens)
+        key = "decode" if tq == 1 else "verify"
+        max_err[key] = max(max_err[key], *errs.values())
+        emit(phase="parity", tq=tq, dtype=str(dtype).split(".")[-1],
+             lens=lens, max_abs_err=errs, atol=ATOL, rtol=RTOL)
+    emit(phase="paged_repeat", bit_identical={
+        tq: paged_repeat(pa, rs, tq) for tq in (1, 5, 32)})
+
+    # 4. timing (every row 1024 cached tokens): the split route beside the
+    # simple route, plain and the library, at B 8 and B 1, float32 pools
+    # (and bf16 at Tq 1), with a sweep of split counts at the main shape
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    timing = {}
+    sweep = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
+    for tq, b, dtype in ((1, 8, torch.float32), (5, 8, torch.float32),
+                         (32, 8, torch.float32), (1, 1, torch.float32),
+                         (5, 1, torch.float32), (32, 1, torch.float32),
+                         (1, 8, torch.bfloat16)):
+        t = kernel_timing(pa, rs, tq, flush, b=b, dtype=dtype,
+                          sweep=sweep if b == 8 and dtype == torch.float32
+                          and tq in (1, 32) else ())
+        timing[(tq, b, str(dtype))] = t
+        emit(phase="timing", card=card, **t)
+    del flush
+    return max_err, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -1269,28 +1433,9 @@ def main() -> int:
                     "Compiling entry" in ln]
                 for n, i in _build.BUILD_INFO.items()})
 
-    # 3. kernel parity against the plain version, on the card
+    # 3-4. the paged kernels: parity, repeats, timing
     rs = np.random.RandomState(0)
-    lens_a = [0, 1, 15, 16, 17, 513, 1023, 1024]
-    lens_b = [0, 1, 15, 16, 17, 513, 5000, 1024]   # 5000 > W*ps: capped
-    max_err = {"decode": 0.0, "verify": 0.0}
-    cases = ([(tq, torch.float32, lens) for tq in PARITY_TQ
-              for lens in (lens_a, lens_b)] +
-             [(tq, torch.bfloat16, lens_a) for tq in (1, 5, 8)])
-    for tq, dtype, lens in cases:
-        errs = parity_case(pa, rs, tq, dtype, lens)
-        key = "decode" if tq == 1 else "verify"
-        max_err[key] = max(max_err[key], *errs.values())
-        emit(phase="parity", tq=tq, dtype=str(dtype).split(".")[-1],
-             lens=lens, max_abs_err=errs, atol=ATOL, rtol=RTOL)
-
-    # 4. timing (B=8, every row 1024 cached tokens, float32 pools)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    timing = {}
-    for tq in (1, 5, 32):
-        timing[tq] = kernel_timing(pa, rs, tq, flush)
-        emit(phase="timing", card=card, **timing[tq])
-    del flush
+    max_err, timing = paged_kernel_phases(pa, card, rs)
 
     # 5. serving at GPT-base widths against the oracle and the golden file
     with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
@@ -1326,7 +1471,9 @@ def main() -> int:
     check(rep["launches"]["decode"] > 0 and rep["launches"]["verify"] > 0,
           f"kernel launches {rep['launches']}")
     check(rep["fallbacks"] == 0, f"{rep['fallbacks']} fallbacks")
+    check_split_routes(rep)
     main_launches = rep["launches"]
+    rep_main_rate = rep["decode_tokens_per_s"]
     emit(phase="serving", card=card, **rep)
 
     # 6. speculative decoding: the n-gram drafter as shipped, then a
@@ -1338,6 +1485,7 @@ def main() -> int:
     for i, toks in enumerate(outs):
         check(toks == oracle[i], f"spec (n-gram) prompt {i} != oracle")
     check(rep["fallbacks"] == 0, f"{rep['fallbacks']} fallbacks")
+    check_split_routes(rep)
     emit(phase="spec_ngram", card=card, **rep)
 
     drafter = DraftModelDrafter(lambda hist, k: dm.dense_generate(
@@ -1348,6 +1496,7 @@ def main() -> int:
     for i, toks in enumerate(outs):
         check(toks == oracle[i], f"spec (draft model) prompt {i} != oracle")
     check(rep["fallbacks"] == 0, f"{rep['fallbacks']} fallbacks")
+    check_split_routes(rep)
     check(rep["launches"]["verify"] > 0 and
           any(s[1] == 8 for s in rep["verify_shapes"]),
           f"no 1+K=5 verify window (bucketed to 8) reached the kernel: "
@@ -1355,6 +1504,21 @@ def main() -> int:
     check(rep["spec_decode"]["tokens_per_target_step"] > 1.0,
           "a perfect drafter did not raise tokens per target step")
     emit(phase="spec_draft_model", card=card, **rep)
+
+    # 6b. the same serving run with every paged launch on the simple route,
+    # then on the split route again: decode tokens/s of the two routes in
+    # turns, a yardstick for the main run's
+    rates = {"split": [rep_main_rate]}
+    for route in ("simple", "split"):
+        with paged_route_forced(pa, route):
+            outs, rep = serve(serving.DecodeServer, params, prompts, max_new,
+                              {}, pa, dm, kvc, serving, tuner)
+        for i, toks in enumerate(outs):
+            check(toks == oracle[i], f"served ({route}) prompt {i} != oracle")
+        check(rep["routes"][f"decode_{route}"] == rep["launches"]["decode"],
+              f"serving on the {route} route: routes {rep['routes']}")
+        rates.setdefault(route, []).append(rep["decode_tokens_per_s"])
+    emit(phase="serving_routes", card=card, decode_tokens_per_s=rates)
 
     # 7. where the time goes in a steady serving window
     emit(phase="profile", card=card,
@@ -1588,14 +1752,15 @@ def main() -> int:
     # 17. kernels
     kernels = []
     for key, tq in (("decode", 1), ("verify", 32)):
-        t = timing[tq]
+        t = timing[(tq, 8, str(torch.float32))]
         kernels.append({
             "name": f"paged_attention_{key}", "route": "cuda",
-            "source": SRC, "replaces": REPLACES[key],
+            "paged_route": "split", "source": SRC, "replaces": REPLACES[key],
             "launches": main_launches[key], "max_abs_err": max_err[key],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "ms": t["ms"], "simple_ms": t["simple_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "splits": t["splits"]})
     for name, t in ftiming.items():
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SRC,

@@ -6,16 +6,22 @@ keys/values live scattered across fixed-size pool pages
 (``inference/kv_cache.py``); a per-sequence block table names the pages in
 order.
 
-- **The kernel** (decode steps Tq == 1, and uniform multi-token chunks
+- **The kernels** (decode steps Tq == 1, and uniform multi-token chunks
   1 < Tq <= 32: speculative-verify windows and same-width prefill chunks):
-  ``csrc/paged_attention.cu``, one CUDA kernel for ``sm_90a`` with Tq as a
-  parameter, replacing the TPU's ``_paged_decode_kernel`` and
-  ``_paged_verify_kernel``. :func:`paged_attention` is its wrapper and
+  ``csrc/paged_attention.cu`` for ``sm_90a``, with Tq as a parameter,
+  replacing the TPU's ``_paged_decode_kernel`` and
+  ``_paged_verify_kernel``. :func:`paged_attention` is their wrapper and
   returns the *unnormalized* online-softmax stats ``(acc, m, l)``;
-  :func:`paged_attention_plain` computes the same in plain PyTorch. The
-  wrapper takes the plain version only for tensors on the CPU; on a CUDA
-  tensor it launches the kernel or raises. ``LAUNCHES`` counts launches
-  (``"decode"`` for Tq == 1, ``"verify"`` for Tq > 1).
+  :func:`paged_attention_plain` computes the same in plain PyTorch. Two
+  routes (:func:`paged_route`): ``"split"``, the split-context kernel over
+  :func:`paged_splits` splits a row, each block fed by a ``cp.async`` ring,
+  then an ordered merge kernel (:func:`paged_attention_split_plain` is that
+  plan in plain PyTorch), taken whenever q and the pools start on 16-byte
+  boundaries; ``"simple"``, the first design (one block a (row, head),
+  scalar loads), for a pointer off those boundaries. The wrapper takes the
+  plain version only for tensors on the CPU; on a CUDA tensor it launches
+  a kernel or raises. ``LAUNCHES`` counts calls (``"decode"`` for
+  Tq == 1, ``"verify"`` for Tq > 1), ``ROUTES`` the route each took.
 - **The epilogue** folds the chunk tokens' own self-attention term (one
   score for a decode step, a causal (Tq, Tq) block for a chunk) into the
   stats and divides, in PyTorch, as the JAX package does it in jnp outside
@@ -45,15 +51,24 @@ import torch
 from . import _build
 from .tuner import record_fallback
 
-__all__ = ["NEG_INF", "MAX_VERIFY_TQ", "LAUNCHES", "paged_decode_supported",
-           "paged_attention", "paged_attention_plain", "load_kernel",
-           "paged_decode_attention", "paged_prefill_attention"]
+__all__ = ["NEG_INF", "MAX_VERIFY_TQ", "LAUNCHES", "ROUTES",
+           "SPLIT_BLOCKS_PER_SM", "MIN_SPLIT_KEYS", "paged_decode_supported",
+           "paged_route", "paged_splits", "paged_attention",
+           "paged_attention_plain", "paged_attention_split_plain",
+           "load_kernel", "paged_decode_attention", "paged_prefill_attention"]
 
 NEG_INF = -1e30          # finite mask value, as the JAX package's kernels use
 MAX_VERIFY_TQ = 32       # widest multi-query chunk the kernel takes
 HEAD_DIMS = (32, 64, 128, 256)
 
+# the split route's grid aims at this many blocks an SM (a block is 4
+# warps), and gives no split fewer than MIN_SPLIT_KEYS keys of a full table
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_KEYS = 64
+
 LAUNCHES = {"decode": 0, "verify": 0}
+ROUTES = {"decode_split": 0, "decode_simple": 0, "verify_split": 0,
+          "verify_simple": 0}
 _launch_lock = threading.Lock()
 
 
@@ -111,8 +126,95 @@ def paged_attention_plain(q, k_pool, v_pool, tables, lens,
     return acc, m, l
 
 
+def paged_attention_split_plain(q, k_pool, v_pool, tables, lens, splits: int,
+                                sm_scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The split route's plan in plain PyTorch: each row's
+    ``ceil(len / page_size)`` pages cut into ``splits`` runs of
+    ``ceil(pages / splits)`` whole pages (the last ones short or empty); per
+    split the max ``m_s``, sum ``l_s`` and unnormalized ``acc_s`` of the
+    split's keys (an empty split gives ``NEG_INF``, 0, 0); the splits
+    merged in the order 0..splits-1 with ``alpha_s = exp(m_s - m)``.
+    Returns ``(acc, m, l)`` as :func:`paged_attention_plain` defines
+    them. Used by the tests."""
+    if splits < 1:
+        raise ValueError(f"paged_attention: {splits} splits")
+    b, tq, h, d = q.shape
+    ps = k_pool.shape[1]
+    s_len = tables.shape[1] * ps
+    scale = _scale(d, sm_scale)
+    kc = _gather_ctx(k_pool, tables).float()                 # (B, S, H, D)
+    vc = _gather_ctx(v_pool, tables).float()
+    lens = lens.to(device=q.device, dtype=torch.long).clamp(0, s_len)
+    pages = (lens + ps - 1) // ps
+    per_split = (pages + splits - 1) // splits
+    s = torch.einsum("bqhd,bshd->bhqs", q.float() * scale, kc)
+    cols = torch.arange(s_len, device=q.device)[None, :]
+    parts = []
+    for k in range(splits):
+        lo = torch.minimum(k * per_split * ps, lens)[:, None]
+        hi = torch.minimum((k + 1) * per_split * ps, lens)[:, None]
+        mine = (cols >= lo) & (cols < hi)                     # (B, S)
+        sk = torch.where(mine[:, None, None, :], s,
+                         torch.full_like(s, NEG_INF))
+        mk = sk.amax(dim=-1)
+        pk = torch.exp(sk - mk[..., None]) * (sk > NEG_INF * 0.5)
+        parts.append((mk, pk.sum(dim=-1),
+                      torch.einsum("bhqs,bshd->bhqd", pk, vc)))
+    m = torch.stack([mk for mk, _, _ in parts]).amax(dim=0)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for mk, lk, acck in parts:
+        alpha = torch.exp(mk - m)
+        acc = acc + alpha[..., None] * acck
+        l = l + alpha * lk
+    return acc, m, l
+
+
+def paged_route(dtype, d: int, aligned: bool) -> str:
+    """The kernel route for pools of ``dtype`` at head dim ``d``:
+    ``"split"`` when q and both pools start on 16-byte boundaries (the
+    split kernel's ``cp.async`` copies need it), else ``"simple"``.
+    ValueError for a type or head dim that neither kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel: pools {dtype}, "
+                         f"head dim {d}")
+    return "split" if aligned else "simple"
+
+
+def paged_splits(b: int, h: int, width: int, page_size: int,
+                 sm_count: int) -> int:
+    """Context splits a row for the split route, from shapes only (the
+    host never reads ``lens``): the most that keep the ``b * h * splits``
+    blocks within :data:`SPLIT_BLOCKS_PER_SM` blocks an SM (a partial
+    second wave costs more than a few idle slots), 1 when ``b * h``
+    blocks already reach that, and never more than the table's ``width``
+    pages (each split at least one page) or than leave a full table's
+    split fewer than :data:`MIN_SPLIT_KEYS` keys."""
+    fill = SPLIT_BLOCKS_PER_SM * sm_count // max(1, b * h)
+    cap = min(width, width * page_size // MIN_SPLIT_KEYS)
+    return max(1, min(fill, cap))
+
+
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded build of
+    ``csrc/paged_attention.cu``."""
+    fn = lib.paged_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.paged_attention_split_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.paged_attention_error_string.argtypes = [ctypes.c_int]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -122,23 +224,37 @@ def load_kernel() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = _build.load("paged_attention")
-            fn = lib.paged_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 +
-                           [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-            lib.paged_attention_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(_build.load("paged_attention"))
         return _lib
 
 
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def paged_attention(q, k_pool, v_pool, tables, lens,
-                    sm_scale: Optional[float] = None
+                    sm_scale: Optional[float] = None,
+                    route: Optional[str] = None,
+                    splits: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's wrapper: ``(acc, m, l)`` as :func:`paged_attention_plain`
+    """The kernels' wrapper: ``(acc, m, l)`` as :func:`paged_attention_plain`
     defines them. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/paged_attention.cu`` on the current stream, or raise."""
+    ``csrc/paged_attention.cu`` on the current stream, or raise.
+
+    route: None (the route :func:`paged_route` names), ``"split"`` (raises
+    where q or a pool is off a 16-byte boundary) or ``"simple"``. splits:
+    the split route's splits a row, None for :func:`paged_splits`."""
+    if route not in (None, "split", "simple"):
+        raise ValueError(f"paged_attention: unknown route {route!r}")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, tables, lens,
                                      sm_scale)
@@ -168,6 +284,19 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
                          f"lens {tuple(lens.shape)} do not match batch {b}")
     width = tables.shape[1]
     qf = q.to(torch.float32).contiguous()
+    aligned = _aligned(qf, k_pool, v_pool)
+    picked = paged_route(k_pool.dtype, d, aligned)
+    if route == "split" and not aligned:
+        raise ValueError("paged_attention split route: q and the pools must "
+                         "start on 16-byte boundaries")
+    route = route or picked
+    if route == "split":
+        n_split = (paged_splits(b, h, width, ps, _sm_count(dev))
+                   if splits is None else int(splits))
+        if n_split < 1:
+            raise ValueError(f"paged_attention: {n_split} splits")
+    elif splits is not None:
+        raise ValueError("paged_attention: splits apply to the split route")
     tab = tables.to(device=dev, dtype=torch.int32).contiguous()
     ln = lens.to(device=dev, dtype=torch.int32).contiguous()
     acc = torch.empty((b, h, tq, d), dtype=torch.float32, device=dev)
@@ -176,19 +305,31 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
     if b == 0:
         return acc, m, l
     lib = load_kernel()
+    ptrs = (qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tab.data_ptr(), ln.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr())
+    bf16 = int(k_pool.dtype == torch.bfloat16)
+    scale = _scale(d, sm_scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paged_attention_fwd(
-            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tab.data_ptr(), ln.data_ptr(), acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, tq, h, d, num_pages, ps, width,
-            int(k_pool.dtype == torch.bfloat16), _scale(d, sm_scale), stream)
+        if route == "split":
+            ws = (torch.empty((b, h, n_split, tq, d + 2), dtype=torch.float32,
+                              device=dev) if n_split > 1 else None)
+            err = lib.paged_attention_split_fwd(
+                *ptrs, None if ws is None else ws.data_ptr(), b, tq, h, d,
+                num_pages, ps, width, bf16, n_split, scale, stream)
+        else:
+            err = lib.paged_attention_fwd(
+                *ptrs, b, tq, h, d, num_pages, ps, width, bf16, scale,
+                stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged_attention kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"paged_attention {route} kernel launch failed: "
+                           f"{msg} (cudaError {err})")
+    key = "decode" if tq == 1 else "verify"
     with _launch_lock:
-        LAUNCHES["decode" if tq == 1 else "verify"] += 1
+        LAUNCHES[key] += 1
+        ROUTES[f"{key}_{route}"] += 1
     return acc, m, l
 
 

@@ -90,6 +90,142 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         pa.paged_attention(q, kp.cpu(), vp, tables, lens)
 
 
+def _routes(r0):
+    return {k: pa.ROUTES[k] - r0[k] for k in pa.ROUTES
+            if pa.ROUTES[k] != r0[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [1, 2, 5, 32])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8, 11])
+def test_split_route_matches_plain_at_every_split_count(cuda_device, splits,
+                                                        tq, dtype):
+    # 8 = the table's width, 11 more than it: the extra splits are empty
+    args = _case(cuda_device, 64, tq, dtype, seed=100 + splits + tq)
+    r0 = dict(pa.ROUTES)
+    got = pa.paged_attention(*args, splits=splits)
+    want = pa.paged_attention_plain(*args)
+    model = pa.paged_attention_split_plain(*args, splits)
+    torch.cuda.synchronize()
+    assert _routes(r0) == {("decode" if tq == 1 else "verify") + "_split": 1}
+    for g, w, mo in zip(got, want, model):
+        torch.testing.assert_close(g, w, **TOL)
+        torch.testing.assert_close(g, mo, **TOL)
+    # the empty row: every split empty, m = NEG_INF, l = 0, acc = 0
+    assert (got[1][0] == pa.NEG_INF).all().item()
+    assert got[2][0].abs().max().item() == 0.0
+    assert got[0][0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("tq", [1, 8, 32])
+def test_split_route_matches_plain_at_other_head_dims(cuda_device, tq, d,
+                                                      dtype):
+    args = _case(cuda_device, d, tq, dtype, seed=200 + d + tq)
+    for splits in (1, 3):
+        got = pa.paged_attention(*args, splits=splits)
+        want = pa.paged_attention_plain(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+
+
+def _main_shape(dev, tq, dtype, b=8, h=12, d=64, ps=16, pool=2048, width=64,
+                ctx=1024, seed=0):
+    rs = np.random.RandomState(seed)
+    f = lambda *s: torch.as_tensor(  # noqa: E731
+        rs.randn(*s).astype(np.float32), device=dev)
+    tables = np.stack([rs.permutation(pool)[:width] for _ in range(b)])
+    return (f(b, tq, h, d), f(pool, ps, h, d).to(dtype),
+            f(pool, ps, h, d).to(dtype),
+            torch.as_tensor(tables.astype(np.int32), device=dev),
+            torch.full((b,), ctx, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5, 32])
+def test_split_route_is_bit_reproducible(cuda_device, tq):
+    args = _main_shape(cuda_device, tq, torch.float32)
+    first = [t.clone() for t in pa.paged_attention(*args)]
+    for _ in range(3):
+        again = pa.paged_attention(*args)
+        for f, a in zip(first, again):
+            assert torch.equal(f, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [1, 5, 32])
+def test_split_route_never_reads_outside_the_used_pages(cuda_device, tq,
+                                                        dtype):
+    # every pool slot that no row's context reaches holds NaN: unused
+    # pages, and the tail of each row's last page
+    q, kp, vp, tables, lens = _case(cuda_device, 64, tq, dtype, seed=7 + tq)
+    ps = kp.shape[1]
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda_device)
+    for row, n in zip(tables.tolist(), lens.tolist()):
+        n = min(n, len(row) * ps)
+        for pos in range(n):
+            used[row[pos // ps], pos % ps] = True
+    nan_k = torch.where(used[..., None, None], kp, float("nan")).to(dtype)
+    nan_v = torch.where(used[..., None, None], vp, float("nan")).to(dtype)
+    want = pa.paged_attention_plain(q, kp, vp, tables, lens)
+    for splits in (1, 3, 11):
+        got = pa.paged_attention(q, nan_k, nan_v, tables, lens,
+                                 route="split", splits=splits)
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all().item(), splits
+            torch.testing.assert_close(g, w, **TOL)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5])
+def test_misaligned_pool_takes_the_simple_route(cuda_device, tq):
+    q, kp, vp, tables, lens = _case(cuda_device, 64, tq, torch.float32,
+                                    seed=3)
+    key = "decode" if tq == 1 else "verify"
+    for args in ((q, _misaligned(kp), vp), (q, kp, _misaligned(vp)),
+                 (_misaligned(q), kp, vp)):
+        r0 = dict(pa.ROUTES)
+        got = pa.paged_attention(*args, tables, lens)
+        assert _routes(r0) == {f"{key}_simple": 1}
+        for g, w in zip(got, pa.paged_attention_plain(q, kp, vp, tables,
+                                                      lens)):
+            torch.testing.assert_close(g, w, **TOL)
+        with pytest.raises(ValueError):        # the split route refuses it
+            pa.paged_attention(*args, tables, lens, route="split")
+    assert pa.paged_route(torch.float32, 64, False) == "simple"
+
+
+@pytest.mark.cuda
+def test_split_wrapper_rejects_what_neither_route_takes(cuda_device):
+    q, kp, vp, tables, lens = _case(cuda_device, 64, 1, torch.float32)
+    with pytest.raises(ValueError):            # float16 pools
+        pa.paged_attention(q, kp.half(), vp.half(), tables, lens)
+    with pytest.raises(ValueError):            # no such route
+        pa.paged_attention(q, kp, vp, tables, lens, route="gather")
+    with pytest.raises(ValueError):            # no split
+        pa.paged_attention(q, kp, vp, tables, lens, splits=0)
+    with pytest.raises(ValueError):            # splits on the simple route
+        pa.paged_attention(q, kp, vp, tables, lens, route="simple",
+                           splits=2)
+    with pytest.raises(ValueError):            # Tq past the kernels' 32
+        pa.paged_attention(torch.zeros(6, 33, 3, 64, device=cuda_device),
+                           kp, vp, tables, lens)
+
+
 @pytest.mark.cuda
 def test_decode_server_on_card_matches_oracle(cuda_device):
     params = dm.params_from_jax(
