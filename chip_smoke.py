@@ -33,7 +33,16 @@ per source, all started together), then:
   each, and the latter again with dh and dw on the staged route as a
   yardstick for its losses; then bench.py's other single-card variants
   (``dense_b8``, ``fused_b32``, ``fused_b32_remat``, and ``fused_b8`` with
-  gradient merge over two chunks).
+  gradient merge over two chunks);
+- data parallelism over an NCCL process group of one rank: the
+  compressed gradient exchange of real GPT-base gradients under fp32,
+  bf16, int8 and int4, held bit for bit against the same calls on the CPU
+  over gloo, with its time, the card's busy time in it and its wire model
+  (``dp_exchange``);
+  bench.py's ``fused_b8_int8dp`` and ``fused_b8_int4dp`` and int8 with
+  four buckets (every bucket issued inside the backward), each against
+  ``fused_b8``'s losses and time (``train_dp``); loss scaling under ``auto_cast(bfloat16)`` with one
+  tainted step, against the reference's scale sequence (``amp``).
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -103,6 +112,19 @@ FLASH_SEED = 7
 # lse and tgt are float32 in both: atol 1e-4
 CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CE_STAT_ATOL = 1e-4
+# the amp phase: GPT-base widths at depth 2, float32 master weights under
+# auto_cast(bfloat16) and this GradScaler; the step at index 2 is tainted
+# with inf. The scale after each step and the one skip are the values the
+# JAX reference gives (pinned on the CPU by tests/test_torch_amp.py)
+AMP_SCALER = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
+                  decr_every_n_nan_or_inf=1)
+AMP_TAINTED = (2,)
+AMP_SCALES = (32768.0, 65536.0, 32768.0, 32768.0, 65536.0)
+# train_dp: the largest relative gap between a quantized run's losses and
+# fused_b8's over the same 10 timed steps, by policy. Ten times the gap of
+# the same comparison on the CPU at depth 2 and narrow widths (bf16, 12
+# steps; tests/test_torch_data_parallel.py::test_quantized_loss_band)
+DP_LOSS_BAND = {"int8": 1e-3, "int4": 3.5e-2}
 # the fused-CE kernels by name (no name holds another)
 CE_KERNELS = ("ce_fwd_tiled_kernel", "ce_fwd_merge_kernel", "ce_fwd_kernel",
               "ce_dh_kernel", "ce_dw_kernel", "ce_bwd_tiled_kernel")
@@ -1147,18 +1169,22 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
 
 
 def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
-                     head="chunked", **trainer_kw):
+                     head="chunked", layers=12, bf16=True, opt=None,
+                     **trainer_kw):
     """bench.py's GPT-base variants: bf16 params, AdamW(3e-4), dropout 0,
     one fixed batch of random ids. head: "chunked" (fused_b*: chunked CE,
     chunk 8192), "pallas" (fused_b8_pallas_ce: the fused CE kernels) or
-    "dense" (dense_b*: logits + cross_entropy). Returns (trainer, (inputs,
-    labels), n_params)."""
+    "dense" (dense_b*: logits + cross_entropy). ``layers`` cuts the depth,
+    ``bf16=False`` keeps float32 weights, ``opt`` replaces the AdamW.
+    Returns (trainer, (inputs, labels), n_params)."""
     framework.seed(0)
     model = gpt.GPTForPretraining(
         tensor_parallel=False, vocab_size=50304, hidden_size=768,
-        num_layers=12, num_heads=12, max_position_embeddings=seq,
+        num_layers=layers, num_heads=12, max_position_embeddings=seq,
         attn_dropout=0.0, hidden_dropout=0.0)
-    model.bfloat16()
+    if bf16:
+        model.bfloat16()
+    opt = opt if opt is not None else optim.AdamW(3e-4)
     n_params = sum(p.numel() for p in model.parameters())
     rs = np.random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
@@ -1167,12 +1193,12 @@ def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
                               .astype(np.int32)).cuda()
     if head == "dense":
         trainer = engine.ParallelTrainer(
-            model, optim.AdamW(3e-4),
+            model, opt,
             lambda logits, lbl: nn.functional.cross_entropy(logits, lbl),
             **trainer_kw)
         return trainer, (ids, labels), n_params
     trainer = engine.ParallelTrainer(
-        fused_loss_layer(nn, model, 8192, ce_kernel=head), optim.AdamW(3e-4),
+        fused_loss_layer(nn, model, 8192, ce_kernel=head), opt,
         lambda out, _l: out, **trainer_kw)
     return trainer, ((ids, labels), 0.0), n_params
 
@@ -1385,6 +1411,262 @@ def paged_kernel_phases(pa, card, rs):
         emit(phase="timing", card=card, **t)
     del flush
     return max_err, timing
+
+
+def no_decay(name):
+    """AdamW's decay filter of the data-parallel runs: biases and norms
+    take no decay."""
+    return not (name.endswith("bias") or ".ln" in name or "norm" in name)
+
+
+def dp_setup():
+    """An NCCL process group of one rank on the card (the default group)
+    and a gloo group beside it; a data mesh over each. Every collective is
+    the identity at one rank; one all_reduce on each checks the groups."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import env, mesh
+    from paddle_tpu_torch.distributed.spawn import free_port
+    env.init_parallel_env(device="cuda:0", world_size=1, rank=0,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    gloo_pg = dist.new_group(backend="gloo")
+    check(dist.get_backend() == "nccl" and
+          dist.get_backend(gloo_pg) == "gloo",
+          f"backends {dist.get_backend()}, {dist.get_backend(gloo_pg)}")
+    one = torch.ones(4, device="cuda")
+    dist.all_reduce(one)
+    cpu_one = torch.ones(4)
+    dist.all_reduce(cpu_one, group=gloo_pg)
+    check(float(one.sum()) == 4.0 and float(cpu_one.sum()) == 4.0,
+          "an all_reduce over one rank changed its input")
+    nccl = mesh.build_mesh({"data": 1})
+    gloo = mesh.Mesh({"data": 1}, group=gloo_pg)
+    return nccl, gloo, gloo_pg
+
+
+def base_grads(nn, gpt, engine, optim, framework):
+    """Real GPT-base gradients (bf16) of one fused_b8 step, by name."""
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework)
+    inputs, _ = batch
+    params = dict(trainer.params)
+    loss = trainer.model(inputs)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    out = {k: g.detach() for k, g in zip(params, grads)}
+    del trainer, batch, loss, grads
+    return out, n_params
+
+
+def _same_bits(a, b):
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def profile_calls(fn, calls=2):
+    """Per call of ``fn``, from a torch.profiler trace of ``calls`` calls:
+    the device's busy time (the union of its kernels' intervals), its
+    kernel launches, the wall time under the profiler and the device's
+    idle share of it, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, busy_us = _device_time(prof)
+    check(rows, "the profiler saw no kernel on the card")
+    return {"device_busy_ms": busy_us / 1e3 / calls,
+            "kernels_per_call": sum(n for _, _, n in rows) / calls,
+            "profiled_wall_ms": wall * 1e3 / calls,
+            "profiled_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top": [{"name": k[:80], "device_ms": us / 1e3 / calls,
+                     "count": n / calls} for us, k, n in rows[:6]]}
+
+
+def dp_exchange(cm, nccl, gloo, grads):
+    """compressed_tree_mean of real GPT-base gradients under each policy on
+    the card (NCCL mesh of one rank) and on the CPU (gloo mesh of one
+    rank), twice (the second call consumes the first's residuals): means
+    and residuals bit-identical, and the quantizers' payloads and scales
+    over the whole flat gradient bit-identical; the exchange's time, its
+    device busy time and idle share (``profile_calls``); the wire model's
+    bytes at 2, 4 and 8 ranks."""
+    cpu = {k: v.cpu() for k, v in grads.items()}
+    numel = sum(v.numel() for v in grads.values())
+    flat = torch.cat([grads[k].float().reshape(-1) for k in sorted(grads)])
+    flat_cpu = flat.cpu()
+    fp32_bytes = {n: cm.tree_wire_bytes(grads, n, "fp32") for n in (2, 4, 8)}
+    out = {}
+    for pol in ("fp32", "bf16", "int8", "int4"):
+        quant = pol in cm.QUANTIZED_POLICIES
+        row = {"policy": pol}
+        if quant:
+            blk = cm.resolve_block(pol, None)
+            qfn = (cm.quantize_int8_blocks if pol == "int8"
+                   else cm.quantize_int4_blocks)
+            pad = (-flat.numel()) % blk
+            q, sc = qfn(torch.nn.functional.pad(flat, (0, pad)), blk)
+            q_c, sc_c = qfn(torch.nn.functional.pad(flat_cpu, (0, pad)), blk)
+            check(_same_bits(q, q_c) and _same_bits(sc, sc_c),
+                  f"{pol} payload or scales differ between card and CPU")
+            if pol == "int4":
+                check(_same_bits(cm.pack_int4(q), cm.pack_int4(q_c)),
+                      "packed int4 payloads differ between card and CPU")
+            del q, sc, q_c, sc_c
+        res_g = cm.init_residuals(grads) if quant else None
+        res_c = cm.init_residuals(cpu) if quant else None
+        for call in (1, 2):
+            m_g, res_g = cm.compressed_tree_mean(grads, "data", policy=pol,
+                                                 residuals=res_g, mesh=nccl)
+            m_c, res_c = cm.compressed_tree_mean(cpu, "data", policy=pol,
+                                                 residuals=res_c, mesh=gloo)
+            for k in grads:
+                check(_same_bits(m_g[k], m_c[k]),
+                      f"{pol} call {call}: mean of {k} differs card/CPU")
+                if quant:
+                    check(_same_bits(res_g[k], res_c[k]),
+                          f"{pol} call {call}: residual of {k} differs")
+                else:
+                    check(_same_bits(m_g[k], grads[k]),
+                          f"{pol} at one rank is not the identity")
+        row["bit_identical_card_vs_cpu"] = True
+        if quant:
+            row["residual_norm"] = cm.residual_norm(res_g)
+            check(row["residual_norm"] > 0, f"{pol}: no quantization error")
+            row["mean_rel_err"] = float(
+                sum(torch.sum((m_g[k].float() - grads[k].float()) ** 2)
+                    for k in grads).sqrt() /
+                sum(torch.sum(grads[k].float() ** 2)
+                    for k in grads).sqrt())
+        call = (lambda: cm.compressed_tree_mean(
+            grads, "data", policy=pol, residuals=res_g, mesh=nccl))
+        # the call's events (the host's launch gaps inside), then the
+        # device's busy time and idle share from a profiler trace
+        row["ms"] = time_ms(call, reps=5, warmup=1)
+        row.update(profile_calls(call))
+        row["idle_share_of_ms"] = 1.0 - row["device_busy_ms"] / row["ms"]
+        row["wire_bytes_per_rank"] = {
+            n: cm.tree_wire_bytes(grads, n, pol) for n in (2, 4, 8)}
+        row["compression_x"] = {
+            n: fp32_bytes[n] / row["wire_bytes_per_rank"][n]
+            for n in (2, 4, 8)}
+        row["numel"] = numel
+        out[pol] = row
+        del m_g, m_c, res_c
+    for pol, lo, hi in (("int8", 3.8, 4.0), ("int4", 7.0, 7.5)):
+        x = out[pol]["compression_x"][8]
+        check(lo <= x <= hi, f"{pol} compression {x} outside [{lo}, {hi}]")
+    return out
+
+
+def train_dp(fa, tuner, cm, nn, gpt, engine, optim, framework, nccl,
+             fused_b8):
+    """bench.py's fused_b8_int8dp and fused_b8_int4dp, then int8 with four
+    buckets, each as ``train`` runs fused_b8 (2 warm-up + 10 timed steps,
+    bf16) on the data mesh of one rank over NCCL, with AdamW keeping
+    biases and norms out of its decay; losses within DP_LOSS_BAND of
+    fused_b8's from the same run."""
+    out = {}
+    for name, kw in (("fused_b8_int8dp", dict(grad_sync="int8")),
+                     ("fused_b8_int4dp", dict(grad_sync="int4")),
+                     ("fused_b8_int8dp_buckets4",
+                      dict(grad_sync="int8", grad_sync_buckets=4))):
+        trainer, batch, n_params = gpt_base_trainer(
+            nn, gpt, engine, optim, framework, mesh=nccl,
+            opt=optim.AdamW(3e-4, apply_decay_param_fun=no_decay), **kw)
+        check(trainer.n_data == 1 and len(trainer.comm_err) == len(
+            trainer.params), "the quantized trainer holds no residuals")
+        check(len(trainer.grad_sync_bucket_keys) ==
+              kw.get("grad_sync_buckets", 1),
+              f"buckets {len(trainer.grad_sync_bucket_keys)}")
+        # buckets issued from the backward's tensor hooks, per step: what
+        # finish() finds already issued when autograd.grad has returned
+        issued, real_finish = [], engine._BucketHooks.finish
+
+        def finish(self, grads):
+            issued.append(len(self.finishers))
+            return real_finish(self, grads)
+
+        engine._BucketHooks.finish = finish
+        try:
+            rep = train(fa, tuner, trainer, batch, n_params)
+        finally:
+            engine._BucketHooks.finish = real_finish
+        buckets = len(trainer.grad_sync_bucket_keys)
+        check(issued == ([buckets] * 12 if buckets > 1 else []),
+              f"{name}: buckets issued inside the backward, per step: "
+              f"{issued} of {buckets}")
+        rep["profile"] = {k: v for k, v in profile_train(
+            trainer, batch, steps=2).items()
+            if k in ("wall_s", "device_busy_s", "busy_share", "by_group")}
+        rel = [abs(a - b) / abs(b) for a, b in zip(rep["losses"],
+                                                  fused_b8["losses"])]
+        band = DP_LOSS_BAND[kw["grad_sync"]]
+        check(max(rel) <= band, f"{name}: losses {rep['losses']} vs "
+              f"fused_b8 {fused_b8['losses']}: {max(rel)} > {band}")
+        res = cm.residual_norm(dict(trainer.comm_err))
+        check(res > 0, f"{name}: the residuals never moved")
+        rep.update(
+            grad_sync=kw["grad_sync"],
+            buckets=buckets, buckets_issued_in_backward=issued,
+            bucket_params=[len(b) for b in trainer.grad_sync_bucket_keys],
+            wire_bytes_per_step_this_run=trainer._wire_bytes_per_step,
+            wire_bytes_per_step_at_8_ranks=cm.tree_wire_bytes(
+                {k: p.detach() for k, p in trainer.params.items()}, 8,
+                kw["grad_sync"]),
+            residual_norm=res, rel_loss_vs_fused_b8=rel,
+            max_rel_loss_vs_fused_b8=max(rel), band=band,
+            ms_per_step_fused_b8=fused_b8["ms_per_step"],
+            tokens_per_s_fused_b8=fused_b8["tokens_per_s"],
+            ms_over_fused_b8=rep["ms_per_step"] / fused_b8["ms_per_step"])
+        out[name] = rep
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def amp_phase(amp, fa, nn, gpt, engine, optim, framework):
+    """GPT-base widths at depth 2 with float32 master weights, under
+    auto_cast(bfloat16) and a GradScaler; step AMP_TAINTED is tainted with
+    inf. The scale after each step and the skip count must be the
+    reference's (AMP_SCALES)."""
+    trainer, batch, _ = gpt_base_trainer(
+        nn, gpt, engine, optim, framework, layers=2, bf16=False,
+        scaler=amp.GradScaler(**AMP_SCALER))
+    inputs, lbls = batch
+    for c in (fa.LAUNCHES, fa.ROUTES):
+        for key in c:
+            c[key] = 0
+    losses, scales = [], []
+    for step in range(len(AMP_SCALES)):
+        taint = float("inf") if step in AMP_TAINTED else None
+        with amp.auto_cast(dtype="bfloat16"):
+            losses.append(float(trainer.train_step(inputs, lbls,
+                                                   grad_taint=taint)))
+        scales.append(trainer.loss_scale())
+    skipped = trainer.skipped_steps()
+    check(scales == list(AMP_SCALES), f"loss scales {scales} != "
+          f"{list(AMP_SCALES)}")
+    check(skipped == len(AMP_TAINTED), f"{skipped} skipped steps")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    name = "inner.gpt.h.0.attn.qkv_proj.weight"
+    check(trainer.get_param(name).dtype == torch.float32,
+          "the master weights are not float32")
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTES)
+    check(launches["flash_fwd"] == 2 * len(AMP_SCALES) and
+          routes["flash_fwd_mma"] == launches["flash_fwd"],
+          f"bf16 attention under auto_cast: launches {launches}, "
+          f"routes {routes}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "scales": scales, "skipped_steps": skipped,
+            "tainted": list(AMP_TAINTED), "scaler": AMP_SCALER,
+            "flash_launches": launches, "flash_routes": routes}
 
 
 def main() -> int:
@@ -1674,6 +1956,7 @@ def main() -> int:
     rep = train(fa, tuner, trainer, batch, n_params)
     train_launches = rep["launches"]
     fused_b8_losses = rep["losses"]
+    fused_b8 = rep
     emit(phase="train", card=card, **rep)
 
     # 14. where the time of a GPT-base step goes
@@ -1749,7 +2032,30 @@ def main() -> int:
           f"gradient-merge losses {acc['losses']} vs fused_b8 "
           f"{fused_b8_losses[:3]}")
 
-    # 17. kernels
+    # 17. data parallelism over NCCL (one rank): the compressed exchange of
+    # real GPT-base gradients, card against CPU, then bench.py's
+    # fused_b8_int8dp / fused_b8_int4dp and int8 with four buckets
+    import torch.distributed as dist
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import compressed as cm
+    nccl, gloo, _ = dp_setup()
+    try:
+        grads, n_params = base_grads(nn, gpt, engine, optim, framework)
+        for pol, row in dp_exchange(cm, nccl, gloo, grads).items():
+            emit(phase="dp_exchange", card=card, params=n_params, **row)
+        del grads
+        torch.cuda.empty_cache()
+        for name, rep in train_dp(fa, tuner, cm, nn, gpt, engine, optim,
+                                  framework, nccl, fused_b8).items():
+            emit(phase="train_dp", card=card, variant=name, **rep)
+
+        # 18. loss scaling under auto_cast at GPT-base widths, depth 2
+        emit(phase="amp", card=card,
+             **amp_phase(amp, fa, nn, gpt, engine, optim, framework))
+    finally:
+        dist.destroy_process_group()
+
+    # 19. kernels
     kernels = []
     for key, tq in (("decode", 1), ("verify", 32)):
         t = timing[(tq, 8, str(torch.float32))]

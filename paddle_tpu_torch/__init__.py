@@ -19,7 +19,11 @@ the paged decode/verify attention kernel; GPT training on one device
 (``text.models.gpt``, ``nn``, ``optimizer`` with its LR schedulers,
 ``regularizer``, ``distributed.engine`` with remat and gradient merge,
 ``framework.random``), with the flash-attention forward, dq and dk/dv
-kernels and the fused LM-head cross-entropy forward, dh and dw kernels.
+kernels and the fused LM-head cross-entropy forward, dh and dw kernels;
+data-parallel training over ``torch.distributed`` (``distributed``: env,
+mesh, collectives, the compressed int8/int4 gradient exchange,
+``DataParallel``, ``spawn``, the data-parallel ``ParallelTrainer``) and
+``amp`` (``auto_cast``, ``decorate``, ``GradScaler``).
 """
-__all__ = ["distributed", "framework", "inference", "nn", "ops",
+__all__ = ["amp", "distributed", "framework", "inference", "nn", "ops",
            "optimizer", "regularizer", "resilience", "telemetry", "text"]

@@ -2,7 +2,8 @@
 
 Port of the three of ``paddle_tpu/nn/functional/common.py`` on the GPT
 path. ``linear`` keeps the reference's ``(in, out)`` weight layout:
-``x @ W + b``, never ``torch.nn.functional.linear``. ``dropout`` draws its
+``x @ W + b``, never ``torch.nn.functional.linear``, and casts through
+``amp.cast_if_amp`` as the reference's does. ``dropout`` draws its
 keep mask on the generator of the tensor's device
 (``framework.random``).
 """
@@ -10,13 +11,16 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_if_amp
 from ...framework.random import get_generator
 
 __all__ = ["linear", "dropout", "embedding"]
 
 
 def linear(x, weight, bias=None, name=None):
-    """y = x @ W + b, weight (in_features, out_features)."""
+    """y = x @ W + b, weight (in_features, out_features). Under
+    ``amp.auto_cast`` x and W are cast to the amp dtype first."""
+    x, weight = cast_if_amp("linear", x, weight)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias.to(out.dtype)

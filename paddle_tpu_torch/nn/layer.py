@@ -11,6 +11,12 @@ what the reference builds by hand (parameters, sublayers, buffers,
   ``{structured_name: array}`` (``paddle_tpu.nn.Layer.state_dict()``) 1:1.
   Name sets must be equal and shapes equal, else it raises.
 
+Beside it, :func:`set_trainer_state_from_numpy` loads a reference
+``ParallelTrainer``'s whole ``state`` (as numpy) into the port's trainer:
+parameters and buffers, optimizer step and slots, this rank's row of the
+replica-major error-feedback residuals (``comm_err``) and the NaN guard's
+and loss scaler's state.
+
 Names are the reference's: the module tree is built in the same order,
 ``Linear.weight`` keeps the reference's ``(in, out)`` layout, and a tied
 weight (the GPT head's) is registered once, under its owner's name, as the
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Layer"]
+__all__ = ["Layer", "set_trainer_state_from_numpy"]
 
 
 def _as_tensor(value) -> torch.Tensor:
@@ -73,3 +79,51 @@ class Layer(nn.Module):
                                  f"{tuple(t.shape)}")
             t.copy_(v.to(dtype=t.dtype))
         return self
+
+
+@torch.no_grad()
+def _copy_into(dst: torch.Tensor, value, name: str):
+    v = _as_tensor(value)
+    if tuple(v.shape) != tuple(dst.shape):
+        raise ValueError(f"shape mismatch for {name}: got {tuple(v.shape)}, "
+                         f"expected {tuple(dst.shape)}")
+    dst.copy_(v.to(dtype=dst.dtype))
+
+
+def _load_tree(dst, src, path):
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"{path}: keys differ: {sorted(dst)} vs "
+                             f"{sorted(src)}")
+        for k in dst:
+            _load_tree(dst[k], src[k], f"{path}.{k}")
+    else:
+        _copy_into(dst, src, path)
+
+
+def set_trainer_state_from_numpy(trainer, state: Mapping[str, object]):
+    """Load a reference ``ParallelTrainer.state`` (its leaves as numpy
+    arrays) into the port's ``trainer`` in place.
+
+    ``state["params"]`` and ``state["buffers"]`` go through the model's
+    :meth:`Layer.set_state_dict_from_numpy`; ``state["opt"]`` must have the
+    port optimizer's structure (``step`` and ``slots``); ``comm_err[k]``
+    is replica-major, ``(R, *shape)``, and this rank takes row
+    ``trainer.data_rank``; ``state["guard"]`` holds ``skipped`` and, with a
+    scaler, ``amp`` (``scale``, ``good``, ``bad``)."""
+    trainer.model.set_state_dict_from_numpy(
+        {**state["params"], **state.get("buffers", {})})
+    _load_tree(trainer.opt_state, state["opt"], "opt")
+    comm_err = state.get("comm_err", {})
+    if set(comm_err) != set(trainer.comm_err):
+        raise ValueError(f"comm_err names differ: {sorted(comm_err)} vs "
+                         f"{sorted(trainer.comm_err)}")
+    for k, rows in comm_err.items():
+        _copy_into(trainer.comm_err[k],
+                   np.asarray(rows)[trainer.data_rank], f"comm_err.{k}")
+    guard = state.get("guard", {})
+    if "skipped" in guard:
+        _copy_into(trainer.skipped, guard["skipped"], "guard.skipped")
+    if trainer.amp is not None:
+        _load_tree(trainer.amp, guard["amp"], "guard.amp")
+    return trainer

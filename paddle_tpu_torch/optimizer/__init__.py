@@ -1,9 +1,10 @@
-"""paddle_tpu_torch.optimizer — ``Adam``, ``AdamW``, gradient clipping and
-the LR schedulers (``lr``)."""
+"""paddle_tpu_torch.optimizer — ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+gradient clipping and the LR schedulers (``lr``)."""
 from . import lr  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import (SGD, Adam, AdamW, Momentum,  # noqa: F401
+                        Optimizer)
 
-__all__ = ["lr", "Optimizer", "Adam", "AdamW", "ClipGradByValue",
-           "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]

@@ -1,4 +1,4 @@
-"""Optimizers: ``Optimizer``, ``Adam`` and ``AdamW``.
+"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam`` and ``AdamW``.
 
 Port of ``paddle_tpu/optimizer/optimizer.py``'s functional core. An
 optimizer is two functions over ``{name: tensor}`` dicts that the trainer
@@ -13,7 +13,11 @@ lr) -> (new_params, new_state)``. The math is the reference's:
   (``"bfloat16"``, ``"float32"``, ``"float16"``, or a numpy or jnp dtype of
   that name), mapped at construction (:func:`slot_dtype_of`);
 - AdamW's decoupled decay is ``p - lr * wd * p32`` on the PRE-step float32
-  parameter;
+  parameter, on every parameter or, given ``apply_decay_param_fun``, on
+  those whose name it accepts (GPT and BERT recipes keep biases and
+  LayerNorm out);
+- ``Momentum`` keeps a float32 ``velocity`` slot (``v = mu * v + g``, with
+  the Nesterov variant); ``SGD`` keeps none;
 - the step count is a 0-d int32 tensor on the parameters' device, so bias
   correction reads no host value.
 
@@ -32,7 +36,8 @@ import torch
 from .clip import clip_grads
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "slot_dtype_of"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
+           "slot_dtype_of"]
 
 # the slot dtypes a name may give (the reference reads it with jnp.dtype)
 _SLOT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -91,6 +96,10 @@ class Optimizer:
     def init_slots(self, value: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
 
+    def _decays(self, name) -> bool:
+        """Whether decoupled decay applies to parameter ``name``."""
+        return True
+
     def update(self, p, g, slots, lr, step):
         """Per-parameter float32 update -> (new_p, new_slots)."""
         raise NotImplementedError
@@ -125,11 +134,38 @@ class Optimizer:
                 else:
                     g = g + wd * p32
             np_, ns = self.update(p32, g, state["slots"][k], lr, step)
-            if wd and decoupled:
+            if wd and decoupled and self._decays(k):
                 np_ = np_ - lr * wd * p32
             new_params[k] = np_.to(p.dtype)
             new_slots[k] = ns
         return new_params, {"step": step, "slots": new_slots}
+
+
+class SGD(Optimizer):
+    def update(self, p, g, slots, lr, step):
+        return p - lr * g, slots
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, **kw):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def init_slots(self, value):
+        return {"velocity": torch.zeros(value.shape, dtype=torch.float32,
+                                        device=value.device)}
+
+    def update(self, p, g, slots, lr, step):
+        v = self._momentum * slots["velocity"] + g
+        if self._use_nesterov:
+            p = p - lr * (g + self._momentum * v)
+        else:
+            p = p - lr * v
+        return p, {"velocity": v}
 
 
 class Adam(Optimizer):
@@ -162,7 +198,8 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
-    """Decoupled weight decay, applied to every parameter."""
+    """Decoupled weight decay: on every parameter, or on those whose name
+    ``apply_decay_param_fun(name)`` accepts."""
 
     _decoupled_wd = True
 
@@ -170,10 +207,11 @@ class AdamW(Adam):
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
                  multi_precision=False, slot_dtype=None, name=None):
-        if apply_decay_param_fun is not None:
-            raise NotImplementedError(
-                "apply_decay_param_fun waits in ROADMAP.md (Queue 1): every "
-                "parameter decays")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          slot_dtype, name)
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _decays(self, name) -> bool:
+        fn = self._apply_decay_param_fun
+        return fn is None or bool(fn(name))

@@ -20,7 +20,9 @@ The serving sites record: ``serving_requests_total{outcome}``,
 ``resilience_faults_injected_total{kind,site}``, ``spans_recorded_total``,
 ``traces_kept_total{reason}``, ``flight_dumps_total{reason}`` and
 ``slo_alerts_total{rule}``. The trainer (``distributed/engine.py``)
-records ``step_time_seconds`` and ``tokens_per_sec``.
+records ``step_time_seconds``, ``tokens_per_sec`` and, for its gradient
+exchange, ``grad_sync_bytes_total{policy,link,bucket}``,
+``grad_sync_compression_x`` and ``grad_sync_residual_norm``.
 
 The JAX package's MFU denominator (a TPU peak) is deliberately not carried
 over: the port states no TPU number as its own.

@@ -265,23 +265,59 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu():
                         lambda out, _l: out)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(grad_sync="int8"),
+@pytest.mark.parametrize("kwargs", [dict(mesh_axis="pipe"),
+                                    dict(mesh_axis="model"),
                                     dict(zero_stage=2),
                                     dict(micro_batches=2),
-                                    dict(fp16_allreduce=True),
-                                    dict(grad_sync="bf16"),
-                                    dict(scaler=object())])
+                                    dict(zero_stage=1, grad_sync="int8"),
+                                    dict(integrity_check_every=5),
+                                    dict(mesh_axis="sep")])
 def test_trainer_options_that_wait_raise(kwargs):
+    """What still waits in ROADMAP.md raises there: mesh axes other than
+    data, ZeRO, pipeline micro-batches and the integrity check (data
+    parallelism, the grad_sync policies and the loss scaler are ported:
+    ``test_trainer_options_ported_since_build``)."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
     _, port = _pair()
+    kwargs = dict(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if "mesh_axis" in kwargs:
+            kwargs["mesh"] = build_mesh({kwargs.pop("mesh_axis"): 2})
         ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
                         lambda out, _l: out, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("kwargs,policy", [
+    (dict(grad_sync="int8"), "int8"), (dict(fp16_allreduce=True), "bf16"),
+    (dict(grad_sync="bf16"), "bf16"), (dict(grad_sync="int4"), "int4"),
+    (dict(scaler="scaler"), "fp32"), (dict(mesh="data1"), "fp32")])
+def test_trainer_options_ported_since_build(kwargs, policy):
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    _, port = _pair()
+    kwargs = dict(kwargs)
+    if "scaler" in kwargs:
+        kwargs["scaler"] = GradScaler(init_loss_scaling=8.0)
+    if "mesh" in kwargs:
+        kwargs["mesh"] = build_mesh({"data": 1})
+    tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                         lambda out, _l: out, device="cpu", **kwargs)
+    assert tr.grad_sync == policy
+    assert bool(tr.comm_err) == (policy in ("int8", "int4"))
+    loss = tr.train_step(_batch(), 0.0)
+    assert np.isfinite(float(loss)) and tr.skipped_steps() == 0
+
+
 def test_adamw_decay_selection_waits():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(3e-4, apply_decay_param_fun=lambda name: "bias" not in name)
+    """AdamW's ``apply_decay_param_fun`` (no longer waiting): names it
+    rejects take no decoupled decay."""
+    zero = {"w": torch.zeros(2, 2), "bias": torch.zeros(2)}
+    ones = {"w": torch.ones(2, 2), "bias": torch.ones(2)}
+    opt = AdamW(0.5, weight_decay=0.1,
+                apply_decay_param_fun=lambda name: "bias" not in name)
+    new, _ = opt.apply_gradients(ones, zero, opt.init_state(ones))
+    assert torch.all(new["w"] == 1.0 - 0.5 * 0.1)
+    assert torch.all(new["bias"] == 1.0)
 
 
 def test_unported_paths_raise_and_auto_counts_the_fallback():
