@@ -7,11 +7,20 @@ one NVIDIA card.
 Builds every kernel from ``paddle_tpu_torch/csrc`` with nvcc (one process
 per source, all started together), then:
 
+- tuning: ``python -m paddle_tpu_torch.ops.tuner``'s H100 suite, twice,
+  into a temporary overlay the rest of the run resolves through: every
+  candidate split count of the CE forward and of the paged split route
+  held against the plain version, then timed; the winners beside the
+  formula, the drift of the second sweep, the seed's rows against this
+  run's winners; ``resolve`` and the next launches take the winners, the
+  reference's generic rows answer as off the card (``tune``);
+
 - serving: holds the paged-attention kernels against their plain PyTorch
   version (the split route at its own and at forced split counts, also on
   pools holding NaN wherever no context reaches, and the simple route),
-  checks that repeats are bit-identical, times both routes beside plain
-  and the library, and serves generations at GPT-base widths through
+  checks that repeats are bit-identical, times both routes (the split
+  route at the formula's and at the tuned count) beside plain and the
+  library, and serves generations at GPT-base widths through
   ``DecodeServer`` and ``SpeculativeDecodeServer``, checking every token
   against the dense oracle and the JAX reference's golden tokens
   (``paddle_tpu_torch/testdata/decode_golden.json``);
@@ -30,8 +39,14 @@ per source, all started together), then:
   ``cross_entropy``); runs full GPT-base training steps in bfloat16,
   bench.py's ``fused_b8`` (chunked CE) and this slice's main path
   ``fused_b8_pallas_ce`` (the fused CE kernels), profiling three steps of
-  each, and the latter again with dh and dw on the staged route as a
-  yardstick for its losses; then bench.py's other single-card variants
+  each; three more of the latter inside ``telemetry.scope`` with the
+  profiler on, checking the run's four artifacts, a calibration fit and
+  the one-rank merge (``telemetry``); its checkpoint: six steps with
+  ``CheckpointManager`` saves after steps 3 and 6, a byte of step 6
+  inverted, a fresh trainer restored (falling back to step 3) and
+  resumed bit for bit (``checkpoint``); the main path again with dh and
+  dw on the staged route as a yardstick for its losses; then bench.py's
+  other single-card variants
   (``dense_b8``, ``fused_b32``, ``fused_b32_remat``, and ``fused_b8`` with
   gradient merge over two chunks);
 - data parallelism over an NCCL process group of one rank: the
@@ -57,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -271,10 +287,12 @@ def paged_repeat(pa, rs, tq, ctx=1024, b=8):
 
 def kernel_timing(pa, rs, tq, flush, b=8, dtype=torch.float32, h=12, d=64,
                   ps=16, w=64, p=2048, ctx=1024, sweep=()):
-    """The split route (at its own split count and at each count of
-    ``sweep``), the simple route, plain and library times at one shape,
-    each behind a lead spin (device time alone); every row's context is
-    ``ctx`` tokens, so the kernels read b*ctx*h*d of K and of V."""
+    """The split route (at the formula's split count, ``ms``; at the count
+    the tuning DB resolves, ``tuned_ms``, as the main path calls it; and
+    at each count of ``sweep``), the simple route, plain and library times
+    at one shape, each behind a lead spin (device time alone); every row's
+    context is ``ctx`` tokens, so the kernels read b*ctx*h*d of K and of
+    V."""
     q, kp, vp, tab, _ = paged_inputs(rs, tq, dtype, [ctx] * b, b, h, d, ps,
                                      w, p)
     ln = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
@@ -285,12 +303,20 @@ def kernel_timing(pa, rs, tq, flush, b=8, dtype=torch.float32, h=12, d=64,
     qt = q.transpose(1, 2).contiguous().to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     key = "decode" if tq == 1 else "verify"
-    r0 = dict(pa.ROUTES)
-    ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln), flush=flush,
-                 lead=True)
+    formula = pa.paged_splits(b, h, w, ps, sm_count())
+    tuned = pa.route_splits(dtype, b, tq, h, d, ps, w, sm_count())
+    ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln,
+                                            splits=formula),
+                 flush=flush, lead=True)
+    # the call as the main path makes it: the count resolved from the DB
+    r0, s0 = dict(pa.ROUTES), pa.SPLITS[(key, tuned)]
+    tuned_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln),
+                       flush=flush, lead=True)
     check(pa.ROUTES[f"{key}_split"] > r0[f"{key}_split"] and
-          pa.ROUTES[f"{key}_simple"] == r0[f"{key}_simple"],
-          f"timing tq={tq}: the split route was not taken")
+          pa.ROUTES[f"{key}_simple"] == r0[f"{key}_simple"] and
+          pa.SPLITS[(key, tuned)] > s0,
+          f"timing tq={tq}: the split route at {tuned} splits was not "
+          "taken")
     simple_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln,
                                                    route="simple"),
                         flush=flush, lead=True)
@@ -313,8 +339,9 @@ def kernel_timing(pa, rs, tq, flush, b=8, dtype=torch.float32, h=12, d=64,
     t_ops = flops / H100_F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     return {"tq": tq, "b": b, "pools": str(dtype).split(".")[-1],
-            "splits": pa.paged_splits(b, h, w, ps, sm_count()),
-            "ms": ms, "empty_ms": empty_ms, "simple_ms": simple_ms,
+            "splits": formula, "ms": ms, "tuned_splits": tuned,
+            "tuned_ms": tuned_ms, "empty_ms": empty_ms,
+            "simple_ms": simple_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": moved, "flops": flops,
             "bound_ms": bound,
@@ -366,6 +393,7 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
         for counts in (pa.LAUNCHES, pa.ROUTES):
             for k in counts:
                 counts[k] = 0
+        pa.SPLITS.clear()
         tuner.FALLBACKS.clear()
         t0 = time.perf_counter()
         reqs = [srv.submit_generate(pr, max_new) for pr in prompts[1:]]
@@ -374,6 +402,7 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
         wall = time.perf_counter() - t0
         launches = dict(pa.LAUNCHES)
         routes = dict(pa.ROUTES)
+        splits = {f"{k}:{n}": c for (k, n), c in sorted(pa.SPLITS.items())}
         fallbacks = tuner.FALLBACKS["paged_attention"]
         lat = sorted(r.latency for r in reqs)
         stats = srv.stats()
@@ -382,7 +411,8 @@ def serve(srv_cls, params, prompts, max_new, srv_kw, pa, dm, kvc, serving,
     check(st["pages_used"] == st["evictable"],
           f"pages leaked after drain: {st}")
     report = {
-        "launches": launches, "routes": routes, "fallbacks": fallbacks,
+        "launches": launches, "routes": routes, "splits": splits,
+        "fallbacks": fallbacks,
         "prefix_hit_tokens": cache.prefix_hit_tokens - hits0,
         "decode_tokens_per_s": len(reqs) * max_new / wall,
         "wall_s": wall,
@@ -801,7 +831,7 @@ def ce_parity_case(fc, hid, w, lbl, scale, twice=False):
               "ignored rows have a nonzero dh")
     errs["route"] = route
     errs["fwd_route"] = fwd
-    errs["splits"] = fc.fwd_splits(n, v, sm_count()) \
+    errs["splits"] = fc.tiled_splits(hid.dtype, n, h, v, sm_count()) \
         if fwd == "tiled" else None
     return errs
 
@@ -918,13 +948,14 @@ def _ce_fwd_work(n, h, v, e):
 
 
 def ce_fwd_timing(fc, flush, hid, w, lbl):
-    """The forward at one call: the tiled route (through ``ce_fwd``), the
-    staged kernel (at its C entry), the plain version and the library
-    forward (cuBLAS bf16 hid @ w + F.cross_entropy), one after another in
-    this run, with the bound; the staged kernel is held against the plain
-    version on the same inputs first. Then the tiled kernel over other
-    numbers of vocab splits than the rule's (a reading of the rule, no
-    check)."""
+    """The forward at one call: the tiled route (through ``ce_fwd``, at
+    the formula's vocab splits, ``ms``, and at the count the tuning DB
+    resolves, ``tuned_ms``, as the main path calls it), the staged kernel
+    (at its C entry), the plain version and the library forward (cuBLAS
+    bf16 hid @ w + F.cross_entropy), one after another in this run, with
+    the bound; the staged kernel is held against the plain version on the
+    same inputs first. Then the tiled kernel over other numbers of vocab
+    splits than the rule's (a reading of the rule, no check)."""
     n, h = hid.shape
     v = w.shape[1]
     check(fc.fwd_route(hid.dtype, h) == "tiled", f"H {h}: not tiled")
@@ -935,7 +966,13 @@ def ce_fwd_timing(fc, flush, hid, w, lbl):
         err = (g - r).abs().max().item()
         check(err <= CE_STAT_ATOL, f"staged forward {name}: max err {err}")
     del got, ref_lse, ref_tgt
-    ms = time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush)
+    splits = fc.fwd_splits(n, v, sm_count())
+    tuned = fc.tiled_splits(hid.dtype, n, h, v, sm_count())
+    ms = time_ms(lambda: fc.ce_fwd(hid, w, lbl, splits=splits), flush=flush)
+    s0 = fc.SPLITS[tuned]
+    tuned_ms = time_ms(lambda: fc.ce_fwd(hid, w, lbl), flush=flush)
+    check(fc.SPLITS[tuned] > s0, f"the forward did not take the DB's "
+          f"{tuned} splits")
     staged = time_ms(lambda: fwd_at_entry(fc, hid, w, lbl32), flush=flush)
     plain = time_ms(lambda: fc.fused_ce_plain_fwd(hid, w, lbl), reps=5,
                     flush=flush)
@@ -946,14 +983,13 @@ def ce_fwd_timing(fc, flush, hid, w, lbl):
     check(ms < staged and ms < plain,
           f"tiled forward {ms} ms not below the staged kernel {staged} ms "
           f"and the plain version {plain} ms (N {n}, H {h}, V {v})")
-    splits = fc.fwd_splits(n, v, sm_count())
     sweep = {k: time_ms(lambda: fwd_at_entry(fc, hid, w, lbl32, k),
                         flush=flush)
              for k in sorted({1, 2, splits - 1, splits, splits + 1,
                               2 * splits, 4 * splits}) if k >= 1}
     return {"shape": [n, h, v], "fwd_route": "tiled", "splits": splits,
-            "ms_by_splits": sweep,
-            "ms": ms, "staged_ms": staged, "plain_ms": plain,
+            "ms_by_splits": sweep, "ms": ms, "tuned_splits": tuned,
+            "tuned_ms": tuned_ms, "staged_ms": staged, "plain_ms": plain,
             "library_fwd_ms": lib, "bound_ms": bound, "bound_by": bound_by,
             "flops": flops, "bytes": moved, "tflops": flops / ms / 1e9,
             "staged_over_tiled": staged / ms, "tiled_over_library": ms / lib}
@@ -1042,6 +1078,8 @@ def ce_timing(fc, chunked_ce, flush):
             **whole}
     res["ce_fwd"].update(fwd_route="tiled", staged_ms=fwd["staged_ms"],
                          splits=fwd["splits"],
+                         tuned_splits=fwd["tuned_splits"],
+                         tuned_ms=fwd["tuned_ms"],
                          ms_by_splits=fwd["ms_by_splits"])
     for name in staged:
         check(ms[name] < staged[name]["staged_ms"] and
@@ -1131,8 +1169,12 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
     for counts in (fa.LAUNCHES, fa.ROUTES, fc.LAUNCHES, fc.ROUTES):
         for key in counts:
             counts[key] = 0
+    fc.SPLITS.clear()
     losses = [trainer.train_step(inputs, lbls) for _ in gold["losses"]]
     losses = [x.item() for x in losses]
+    # float32 takes the staged forward: no split count reaches this run
+    check(not fc.SPLITS, f"train_golden ({head}) launched tiled forwards "
+          f"{dict(fc.SPLITS)}")
     launches = dict(fa.LAUNCHES)
     # float32: every flash kernel stays on its scalar route
     check(fa.ROUTES == {f"{key}_{route}": launches[key] * (route == "scalar")
@@ -1220,6 +1262,8 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     for c in counts:
         for key in c:
             c[key] = 0
+    if fc is not None:
+        fc.SPLITS.clear()
     tuner.FALLBACKS.clear()
     losses = []
     t0 = time.perf_counter()
@@ -1231,6 +1275,7 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
     flash_routes = dict(fa.ROUTES)
     ce_launches = dict(fc.LAUNCHES) if fc is not None else {}
     ce_routes = dict(fc.ROUTES) if fc is not None else {}
+    ce_splits = dict(fc.SPLITS) if fc is not None else {}
     fallbacks = tuner.FALLBACKS["flash_attention"]
     ce_fallbacks = tuner.FALLBACKS["fused_ce"]
     losses = [float(x) for x in losses]
@@ -1268,8 +1313,8 @@ def train(fa, tuner, trainer, batch, n_params, warmup=2, iters=10, fc=None):
             "params": n_params, "model_flops_per_step": flops / iters,
             "mfu_vs_989_tflops": flops / dt / H100_BF16_FLOPS,
             "launches": launches, "flash_routes": flash_routes,
-            "ce_launches": ce_launches,
-            "ce_routes": ce_routes, "flash_fallbacks": fallbacks,
+            "ce_launches": ce_launches, "ce_routes": ce_routes,
+            "ce_splits": ce_splits, "flash_fallbacks": fallbacks,
             "fused_ce_fallbacks": ce_fallbacks, "skipped_steps": 0}
 
 
@@ -1401,6 +1446,7 @@ def paged_kernel_phases(pa, card, rs):
     timing = {}
     sweep = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
     for tq, b, dtype in ((1, 8, torch.float32), (5, 8, torch.float32),
+                         (8, 8, torch.float32),
                          (32, 8, torch.float32), (1, 1, torch.float32),
                          (5, 1, torch.float32), (32, 1, torch.float32),
                          (1, 8, torch.bfloat16)):
@@ -1669,10 +1715,348 @@ def amp_phase(amp, fa, nn, gpt, engine, optim, framework):
             "flash_launches": launches, "flash_routes": routes}
 
 
+def tune_phase(tuner, fc, pa, fa, calibration, card, rs):
+    """``tune``: the tuner's H100 suite, twice, into the overlay that
+    ``PADDLE_TPU_TORCH_TUNING_DB`` names (a temporary file; the rest of the
+    run resolves through it). Every candidate of every case must pass its
+    bar against the plain version before it is timed; then ``resolve``
+    must give the winner, the next CE forward and paged launches at the
+    suite's shapes must take it, and the reference's generic rows (flash
+    blocks, CE blocks, q_pad) must answer as off the card. Reports each
+    candidate, the winners beside the formula, the ``tuner:<kernel>``
+    drift of the second sweep against the first, and whether the seed's
+    H100 rows equal this run's winners (a difference is no failure)."""
+    cases = tuner.suite("h100")
+    seed = tuner.TuningDB.load(tuner.default_db_path())
+    calibration.reset()
+    sweeps = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        db = tuner.tune(cases)
+        keys = {}
+        for kernel, case, dtype in cases:
+            dims = (tuner.ce_dims(case["h"], case["v"], case["n"])
+                    if kernel == tuner.CE_SPLIT_KERNEL else
+                    tuner.paged_split_dims(case["b"], case["h"], case["d"],
+                                           case["ps"], case["width"],
+                                           case["tq"]))
+            key = tuner.make_key(kernel, tuner.device_kind(), dtype, dims)
+            e = db.lookup(key)
+            check(e is not None and e["validated"] == "device",
+                  f"tune: no device row for {key}")
+            check(e["swept"] == len(e["candidates"]) and
+                  all(c["mean_us"] is not None for c in e["candidates"]),
+                  f"tune: a candidate of {key} failed its bar: "
+                  f"{e['candidates']}")
+            for c in e["candidates"]:
+                emit(phase="tune_candidate", card=card, sweep=i, key=key,
+                     splits=c["config"]["splits"], max_err=c["max_err"],
+                     us=c["mean_us"])
+            emit(phase="tune", card=card, sweep=i, key=key,
+                 winner=e["config"]["splits"], winner_us=e["mean_us"],
+                 formula=e["default"]["config"]["splits"],
+                 formula_us=e["default"]["mean_us"],
+                 fastest=e["fastest"]["config"]["splits"],
+                 fastest_us=e["fastest"]["mean_us"],
+                 formula_over_fastest=(e["default"]["mean_us"] /
+                                       e["fastest"]["mean_us"]))
+            keys[key] = (kernel, dtype, dims, e)
+        sweeps.append(keys)
+        emit(phase="tune_sweep", card=card, sweep=i,
+             seconds=time.perf_counter() - t0)
+    drift = {key: sweeps[1][key][3]["mean_us"] / sweeps[0][key][3]["mean_us"]
+             for key in sweeps[1]}
+    # a pair for every key the DB already timed: the seed's rows in the
+    # first sweep, the first sweep's in the second
+    summary = calibration.summary()
+    for k in (tuner.CE_SPLIT_KERNEL, tuner.PAGED_SPLIT_KERNEL):
+        want = sum(1 + ((seed.lookup(key) or {}).get("mean_us") is not None)
+                   for key, row in sweeps[1].items() if row[0] == k)
+        check(summary[f"tuner:{k}"]["n"] == want,
+              f"tune: {summary} calibration pairs, {want} for {k}")
+    emit(phase="tune_drift", card=card, fresh_over_prior=drift,
+         calibration={k: v for k, v in summary.items()
+                      if k.startswith("tuner:")})
+    # the overlay holds the second sweep: resolve and the launches take it
+    winners = {}
+    for key, (kernel, dtype, dims, e) in sweeps[1].items():
+        want = e["config"]["splits"]
+        got = tuner.resolve(kernel, dtype, dims, e["default"]["config"])
+        check(got == ({"splits": want}, "db"), f"resolve {key}: {got}")
+        winners[key] = want
+    hid, w, lbl, _ = ce_main_inputs()
+    want = winners[[k for k in winners if "h768," in k][0]]
+    s0 = fc.SPLITS[want]
+    fc.ce_fwd(hid, w, lbl)
+    check(fc.SPLITS[want] == s0 + 1, f"the next CE forward did not take "
+          f"{want} splits: {dict(fc.SPLITS)}")
+    del hid, w, lbl
+    for tq in (1, 8):
+        want = winners[[k for k in winners
+                        if k.startswith(tuner.PAGED_SPLIT_KERNEL) and
+                        k.endswith(f",sq{tq}")][0]]
+        q, kp, vp, tab, ln = paged_inputs(rs, tq, torch.float32, [1024] * 8)
+        key = "decode" if tq == 1 else "verify"
+        s0 = pa.SPLITS[(key, want)]
+        pa.paged_attention(q, kp, vp, tab, ln)
+        check(pa.SPLITS[(key, want)] == s0 + 1, f"the next paged {key} "
+              f"launch did not take {want} splits: {dict(pa.SPLITS)}")
+    # the reference's generic rows answer as they do off the card
+    for key, e in seed.entries.items():
+        if "|any|" not in key:
+            continue
+        dtype = {"bfloat16": torch.bfloat16,
+                 "float32": torch.float32}[e["dtype"]]
+        dflt = {k: -1 for k in e["config"]}
+        check(tuner.resolve(e["kernel"], dtype, e["dims"], dflt) ==
+              (e["config"], "db"), f"generic row {key} on the card")
+    check(fa.keying_blocks(torch.bfloat16, 64, 1024, 1024) == (256, 512),
+          "the flash blocks that key the dropout mask moved")
+    check(fc.resolve_blocks(torch.bfloat16, 8192, 768, 50304) == (256, 2048),
+          "the reference's CE blocks moved")
+    same = {key: seed.lookup(key) is not None and
+            seed.lookup(key)["config"] == sweeps[i][key][3]["config"]
+            for i in range(2) for key in sweeps[i]}
+    emit(phase="tune_vs_seed", card=card, seed_rows_equal_winners={
+        key: {"seed": (seed.lookup(key) or {}).get("config"),
+              "sweep0": sweeps[0][key][3]["config"],
+              "sweep1": sweeps[1][key][3]["config"]} for key in sweeps[1]},
+        all_equal=all(same.values()))
+    return winners
+
+
+@contextlib.contextmanager
+def splits_memoised(pa):
+    """Within the block, the paged wrapper takes its split count from a
+    plain dict instead of resolving it through the tuning DB: the
+    yardstick of ``resolve``'s host cost in serving."""
+    resolve = pa.route_splits
+    memo = {}
+
+    def route_splits(*args):
+        if args not in memo:
+            memo[args] = resolve(*args)
+        return memo[args]
+    pa.route_splits = route_splits
+    try:
+        yield
+    finally:
+        pa.route_splits = resolve
+
+
+def resolve_host_us(pa, calls=20000):
+    """Host microseconds a call of ``route_splits`` (the DB resolution a
+    paged launch makes) and of the bare formula take, at the serving
+    shape."""
+    args = (torch.float32, 8, 1, 12, 64, 16, 64, sm_count())
+    out = {}
+    for name, fn in (("route_splits", lambda: pa.route_splits(*args)),
+                     ("paged_splits", lambda: pa.paged_splits(
+                         8, 12, 64, 16, args[-1]))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[f"{name}_us"] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def _prom_names(text):
+    """Metric names of a Prometheus text exposition; raises on a line that
+    is not a comment or ``name{labels} value``."""
+    import re
+    names = set()
+    pat = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$')
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pat.match(line)
+        check(m is not None, f"metrics.prom: bad line {line!r}")
+        float(m.group(3))
+        names.add(m.group(1))
+    return names
+
+
+def telemetry_phase(trainer, batch, n_params, work, card):
+    """``telemetry``: three ``fused_b8_pallas_ce`` steps inside
+    ``telemetry.scope(run_dir)`` with the profiler on (host ranges and the
+    card) and every step a kept trace. The four artifacts must be there
+    and valid; ``calibration.fit`` takes the measured steps with FLOPs from
+    PERF.md's formula and ``peak_flops_per_sec`` must read the fitted rate
+    back from a temporary overlay; ``gather_registries`` at one rank must
+    return the merge tagged with process 0."""
+    from paddle_tpu_torch import profiler, telemetry
+    from paddle_tpu_torch.telemetry import aggregate, calibration, tracing
+    run_dir = os.path.join(work, "telemetry_run")
+    os.environ["PADDLE_TPU_TORCH_CALIBRATION_DB"] = os.path.join(
+        work, "calibration_db.json")
+    os.environ.pop("PADDLE_TPU_TORCH_PEAK_FLOPS", None)
+    calibration.clear_cache()
+    inputs, lbls = batch
+    ids = inputs[0]
+    tokens = ids.numel()
+    float(trainer.train_step(inputs, lbls))
+    tracing.enable(policy=tracing.KeepPolicy(keep_all=True))
+    profiler.start_profiler("All")
+    secs = []
+    try:
+        with telemetry.scope(run_dir) as sc:
+            for i in range(3):
+                tr = tracing.start_trace("train_step", step=i)
+                t0 = time.perf_counter()
+                trainer.train_step(inputs, lbls)    # synced: telemetry on
+                secs.append(time.perf_counter() - t0)
+                tr.close("completed")
+            merged = aggregate.gather_registries()
+            snapshot = sc.registry.to_dict()
+    finally:
+        profiler.stop_profiler(profile_path="", verbose=False)
+        tracing.disable()
+        tracing.reset()
+    files = sorted(os.listdir(run_dir))
+    check(files == ["events.jsonl", "metrics.prom", "trace.json",
+                    "traces_kept.json"], f"telemetry artifacts: {files}")
+    with open(os.path.join(run_dir, "metrics.prom")) as f:
+        names = _prom_names(f.read())
+    for name in ("step_time_seconds_count", "tokens_per_sec",
+                 "kernel_config_resolved_total"):
+        check(name in names, f"metrics.prom lacks {name}: {sorted(names)}")
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    check(events[0]["event"] == "scope_start" and
+          events[-1]["event"] == "summary", "events.jsonl: "
+          f"{[e['event'] for e in events]}")
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        trace = json.load(f)
+    ranges = [e for e in trace["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "host"]
+    check([e["name"] for e in ranges] == ["train_step"] * 3 and
+          all(e["dur"] > 0 and e["ts"] >= 0 for e in ranges),
+          f"trace.json host ranges: {ranges}")
+    with open(os.path.join(run_dir, "traces_kept.json")) as f:
+        kept = json.load(f)["traces"]
+    check(len(kept) == 3, f"{len(kept)} kept traces")
+    rows, busy_us = _device_time(profiler.device_profile())
+    check(rows, "the device trace holds no kernel")
+    flops = (6 * n_params + 6 * 12 * ids.shape[1] * 768) * tokens
+    fit = calibration.fit(compute_samples=[
+        {"flops": flops, "seconds": t} for t in secs])
+    peak = telemetry.peak_flops_per_sec()
+    check(peak == fit["entry"]["peak_flops_per_sec"],
+          f"peak_flops_per_sec {peak} is not the fitted "
+          f"{fit['entry']['peak_flops_per_sec']}")
+    step_series = merged["step_time_seconds"]["series"]
+    check(list(step_series) == ["process_index=0"] and
+          step_series["process_index=0"] ==
+          snapshot["step_time_seconds"]["series"][""],
+          f"gather_registries at one rank: {step_series}")
+    resolved = snapshot["kernel_config_resolved_total"]["series"]
+    return {"artifacts": files, "step_seconds": secs,
+            "tokens_per_s": [tokens / t for t in secs],
+            "device_busy_ms_3_steps": busy_us / 1e3,
+            "fitted_peak_flops_per_sec": peak,
+            "fitted_over_989_tflops": peak / H100_BF16_FLOPS,
+            "calibration_device": fit["device"],
+            "kernel_config_resolved_total": resolved,
+            "kept_traces": len(kept), "trace_events":
+                len(trace["traceEvents"])}
+
+
+def _flip_a_byte(step_dir):
+    """One byte of the largest file of a saved step, inverted."""
+    files = [os.path.join(step_dir, n) for n in os.listdir(step_dir)
+             if n != "MANIFEST.json"]
+    path = max(files, key=os.path.getsize)
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return os.path.basename(path)
+
+
+def checkpoint_phase(nn, gpt, engine, optim, framework, work, card):
+    """``checkpoint``: run A, ``fused_b8_pallas_ce`` (batch 8 x 1024,
+    dropout 0), takes 6 steps and ``CheckpointManager`` saves its whole
+    state after steps 3 and 6; one byte of step 6 is then inverted. A fresh
+    trainer's ``restore()`` must fall back to step 3, counting one
+    fallback, and its next 3 steps must give run A's last 3 losses and
+    final parameters bit for bit."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    root = os.path.join(work, "ckpt")
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    inputs, lbls = batch
+    mgr = ck.CheckpointManager(root, max_to_keep=3)
+    saves = {}
+    losses_a = []
+    with telemetry.scope(None, profile=False) as sc:
+        for i in range(1, 7):
+            losses_a.append(trainer.train_step(inputs, lbls))
+            if i in (3, 6):
+                t0 = time.perf_counter()
+                check(mgr.save(i, trainer.state), f"save of step {i}")
+                saves[i] = time.perf_counter() - t0
+        save_bytes = sc.registry.get("checkpoint_bytes_total").value(
+            op="save")
+        stall_ms = sc.registry.get("ckpt_step_stall_ms").sum()
+    final_a = {n: p.detach().clone() for n, p in trainer.params.items()}
+    losses_a = [x.item() for x in losses_a]
+    del trainer
+    torch.cuda.empty_cache()
+    check(mgr.all_steps() == [3, 6] and mgr.latest_valid_step() == 6,
+          f"steps {mgr.all_steps()}")
+    flipped = _flip_a_byte(os.path.join(root, "6"))
+    trainer, _, _ = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                     head="pallas")
+    with telemetry.scope(None, profile=False) as sc:
+        t0 = time.perf_counter()
+        trainer.state = mgr.restore(template=trainer.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_bytes = sc.registry.get("checkpoint_bytes_total").value(
+            op="restore")
+        fallbacks = sc.registry.get("ckpt_restore_fallbacks_total").value()
+    check(mgr.last_restored_step == 3 and mgr.restore_fallbacks_total == 1
+          and fallbacks == 1, f"restore took step {mgr.last_restored_step} "
+          f"with {mgr.restore_fallbacks_total} fallbacks")
+    dtypes = {str(p.dtype) for p in trainer.params.values()}
+    slot_dtypes = {str(v.dtype) for s in trainer.opt_state["slots"].values()
+                   for v in s.values()}
+    check(dtypes == {"torch.bfloat16"} and slot_dtypes == {"torch.float32"},
+          f"restored dtypes {dtypes}, slots {slot_dtypes}")
+    losses_b = [trainer.train_step(inputs, lbls).item() for _ in range(3)]
+    check(losses_b == losses_a[3:], f"resumed losses {losses_b} != run A's "
+          f"{losses_a[3:]}")
+    same = all(torch.equal(p, final_a[n]) for n, p in trainer.params.items())
+    check(same, "resumed parameters differ from run A's")
+    del trainer, final_a
+    torch.cuda.empty_cache()
+    return {"params": n_params, "losses_a": losses_a, "losses_b": losses_b,
+            "bit_equal": True, "save_seconds": saves,
+            "save_bytes_each": save_bytes / 2,
+            "step_stall_ms_total": stall_ms, "restore_seconds": restore_s,
+            "restore_bytes": restore_bytes,
+            "save_gb_per_s": save_bytes / 2 / saves[3] / 1e9,
+            "restore_gb_per_s": restore_bytes / restore_s / 1e9,
+            "corrupted": f"6/{flipped}", "restored_step": 3,
+            "restore_fallbacks": fallbacks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card only")
+    # the tuner's overlay, the telemetry run, the calibration overlay and
+    # the checkpoints live here, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        os.environ["PADDLE_TPU_TORCH_TUNING_DB"] = os.path.join(
+            work, "tuning_db.json")
+        return run(work)
+
+
+def run(work) -> int:
     sys.path.insert(0, HERE)
     from paddle_tpu_torch import framework, nn, optimizer as optim
     from paddle_tpu_torch.distributed import engine
@@ -1685,6 +2069,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fc
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.telemetry import calibration
     from paddle_tpu_torch.text.models import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1715,8 +2100,13 @@ def main() -> int:
                     "Compiling entry" in ln]
                 for n, i in _build.BUILD_INFO.items()})
 
-    # 3-4. the paged kernels: parity, repeats, timing
+    # 2b. the tuner's sweep of the port's split counts: the rest of the run
+    # resolves through what it wrote
     rs = np.random.RandomState(0)
+    tuner.clear_cache()
+    winners = tune_phase(tuner, fc, pa, fa, calibration, card, rs)
+
+    # 3-4. the paged kernels: parity, repeats, timing
     max_err, timing = paged_kernel_phases(pa, card, rs)
 
     # 5. serving at GPT-base widths against the oracle and the golden file
@@ -1801,6 +2191,22 @@ def main() -> int:
               f"serving on the {route} route: routes {rep['routes']}")
         rates.setdefault(route, []).append(rep["decode_tokens_per_s"])
     emit(phase="serving_routes", card=card, decode_tokens_per_s=rates)
+
+    # 6c. the host cost of resolving the split count on every paged launch:
+    # the wrapper's resolution beside a plain dict, serving in turns
+    rates = {}
+    for variant in ("resolve", "memo", "memo", "resolve"):
+        ctx = splits_memoised(pa) if variant == "memo" else \
+            contextlib.nullcontext()
+        with ctx:
+            outs, rep = serve(serving.DecodeServer, params, prompts, max_new,
+                              {}, pa, dm, kvc, serving, tuner)
+        for i, toks in enumerate(outs):
+            check(toks == oracle[i], f"served ({variant}) prompt {i} != "
+                  "oracle")
+        rates.setdefault(variant, []).append(rep["decode_tokens_per_s"])
+    emit(phase="serving_resolve", card=card, decode_tokens_per_s=rates,
+         **resolve_host_us(pa))
 
     # 7. where the time goes in a steady serving window
     emit(phase="profile", card=card,
@@ -1974,6 +2380,10 @@ def main() -> int:
                                "ce_dh_tiled": 10, "ce_dh_staged": 0,
                                "ce_dw_tiled": 10, "ce_dw_staged": 0},
           f"fused CE routes on the main path: {rep['ce_routes']}")
+    ce_winner = winners[[k for k in winners if "h768," in k][0]]
+    check(rep["ce_splits"] == {ce_winner: 10},
+          f"the main path's CE forwards took {rep['ce_splits']} splits, "
+          f"not the tuned {ce_winner}")
     emit(phase="train_fused_ce", card=card, **rep)
     prof = profile_train(trainer, batch)
     groups = prof["by_group"]
@@ -1988,8 +2398,18 @@ def main() -> int:
     check(f32_gemm < 1.0, f"float32 GEMMs left on the fused path: "
           f"{f32_gemm} ms per step")
     emit(phase="train_fused_ce_profile", card=card, **prof)
-    del trainer, batch
     fused_ce_losses = rep["losses"]
+
+    # 15a. the same trainer inside telemetry.scope with the profiler on:
+    # the run's four artifacts, a calibration fit, the one-rank merge
+    emit(phase="telemetry", card=card,
+         **telemetry_phase(trainer, batch, n_params, work, card))
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # 15c. checkpoint: save, a torn newer step, restore, resume bit for bit
+    emit(phase="checkpoint", card=card,
+         **checkpoint_phase(nn, gpt, engine, optim, framework, work, card))
 
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training
@@ -2059,6 +2479,7 @@ def main() -> int:
     kernels = []
     for key, tq in (("decode", 1), ("verify", 32)):
         t = timing[(tq, 8, str(torch.float32))]
+        t8 = timing[(8, 8, str(torch.float32))]
         kernels.append({
             "name": f"paged_attention_{key}", "route": "cuda",
             "paged_route": "split", "source": SRC, "replaces": REPLACES[key],
@@ -2066,7 +2487,11 @@ def main() -> int:
             "ms": t["ms"], "simple_ms": t["simple_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "splits": t["splits"]})
+            "splits": t["splits"], "tuned_splits": t["tuned_splits"],
+            "tuned_ms": t["tuned_ms"],
+            **({"tq8": {k: t8[k] for k in (
+                "splits", "ms", "tuned_splits", "tuned_ms", "bound_ms",
+                "plain_ms", "library_ms")}} if key == "verify" else {})})
     for name, t in ftiming.items():
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SRC,
@@ -2092,10 +2517,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in t if key.endswith("fwd_ms") or
                key.endswith("fwd_bwd_ms") or key.startswith("staged_") or
-               key in ("fwd_route", "splits")},
+               key in ("fwd_route", "splits", "tuned_splits", "tuned_ms")},
             **({"h2048": {key: ce_h2048[key] for key in (
                 "shape", "ms", "staged_ms", "plain_ms", "library_fwd_ms",
-                "bound_ms", "bound_by", "splits")}}
+                "bound_ms", "bound_by", "splits", "tuned_splits",
+                "tuned_ms")}}
                if name == "ce_fwd" else {})})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,7 +23,13 @@ kernels and the fused LM-head cross-entropy forward, dh and dw kernels;
 data-parallel training over ``torch.distributed`` (``distributed``: env,
 mesh, collectives, the compressed int8/int4 gradient exchange,
 ``DataParallel``, ``spawn``, the data-parallel ``ParallelTrainer``) and
-``amp`` (``auto_cast``, ``decorate``, ``GradScaler``).
+``amp`` (``auto_cast``, ``decorate``, ``GradScaler``); the tuning DB with
+the port's split counts measured on the card (``ops.tuner``), the run's
+telemetry artifacts (``telemetry.scope``, ``export``, ``aggregate``,
+``calibration``), host and device profiling (``profiler``), checkpoints
+(``distributed.checkpoint``, ``framework_io``, the optimizer's and the
+trainer's state) and the retry policy (``resilience.retry``).
 """
-__all__ = ["amp", "distributed", "framework", "inference", "nn", "ops",
-           "optimizer", "regularizer", "resilience", "telemetry", "text"]
+__all__ = ["amp", "distributed", "framework", "framework_io", "inference",
+           "nn", "ops", "optimizer", "profiler", "regularizer", "resilience",
+           "telemetry", "text"]

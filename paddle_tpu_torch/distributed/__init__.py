@@ -1,8 +1,9 @@
 """paddle_tpu_torch.distributed — data parallelism over
 ``torch.distributed``: the environment (``env``), the mesh (``mesh``), the
 collectives (``collective``), the compressed gradient exchange
-(``compressed``), ``DataParallel``, ``spawn``, ``fleet.utils`` and
-``engine.ParallelTrainer``."""
+(``compressed``), ``DataParallel``, ``spawn``, ``fleet.utils``,
+``engine.ParallelTrainer`` and ``checkpoint`` (the trainer's state on
+disk)."""
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
                          alltoall, barrier, broadcast, get_group, new_group,
                          recv, reduce, reduce_scatter, scatter, send, wait)

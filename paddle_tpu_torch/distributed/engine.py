@@ -92,6 +92,19 @@ value when the optimizer has one.
 micro-batches, the integrity check and any mesh axis but ``data`` wait in
 ``ROADMAP.md`` (Queue 1) and raise ``NotImplementedError``.
 
+**State and checkpoints.** :attr:`ParallelTrainer.state` is the
+reference's ``trainer.state`` over the live tensors (parameters, buffers,
+optimizer state, residuals, NaN guard and loss scale); assigning to it
+copies a restored state in place. ``save_checkpoint``/``load_checkpoint``
+write and read it through ``distributed/checkpoint.py`` (one rank; more
+raise), and ``CheckpointManager.save(step, trainer.state)`` /
+``trainer.state = manager.restore(template=trainer.state)`` resume a run
+bit for bit. The optimizer state lives on the optimizer
+(``optimizer.state``), so ``optimizer.state_dict()`` holds it.
+
+While the profiler is on (``profiler.start_profiler``), each step is a
+``train_step`` host range, synced on the device.
+
 With telemetry on, each step records ``step_time_seconds`` (wall time
 synced on the device), ``tokens_per_sec`` (the lead input's first two dims
 over that time) and, where the exchange moves data (more than one rank),
@@ -110,6 +123,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from .._device import resolve_device
 from ..framework.random import get_generator
@@ -446,6 +460,9 @@ class ParallelTrainer:
         k = self.accumulate_steps
         tel = _telemetry.enabled()
         t0 = time.perf_counter() if tel else 0.0
+        # the host range of the profiler's trace, only while it is on
+        ev = (_profiler.RecordEvent("train_step").begin()
+              if _profiler.is_profiler_enabled() else None)
         inputs = _to_device(inputs, self.device)
         labels = _to_device(labels, self.device)
         lead = _lead(inputs)
@@ -493,9 +510,13 @@ class ParallelTrainer:
                 p.copy_(new_params[n])
             self.opt_state = new_opt
         loss = loss.detach()
+        if (tel or ev is not None) and self.device.type == "cuda":
+            # the documented sync point: the step's wall time and its host
+            # range include the device's execution
+            torch.cuda.synchronize(self.device)
+        if ev is not None:
+            ev.end()
         if tel:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
             self._record_step_telemetry(time.perf_counter() - t0, inputs)
         return loss
 
@@ -574,6 +595,62 @@ class ParallelTrainer:
                 "L2 norm of the error-feedback residual").set(
                     residual_norm(dict(self.comm_err)))
 
+    # -- state and checkpoints ----------------------------------------------
+    @property
+    def opt_state(self):
+        """The optimizer state (``step`` and ``slots``), kept on the
+        optimizer so that ``optimizer.state_dict()`` holds it."""
+        return self.optimizer.state
+
+    @opt_state.setter
+    def opt_state(self, value):
+        self.optimizer.state = value
+
+    @property
+    def state(self) -> dict:
+        """The trainer's whole state over its live tensors, the reference's
+        ``ParallelTrainer.state``: ``params`` (every model parameter, each
+        once), ``buffers`` (the persistent ones), ``opt``, ``comm_err``
+        (this rank's residuals) and ``guard`` (``skipped``, and ``amp``
+        with a scaler). Assigning a state of the same structure copies it
+        into the live tensors in place; a dtype or shape that differs
+        raises."""
+        params = OrderedDict(self.model.named_parameters())
+        seen = {id(p) for p in params.values()}
+        buffers = OrderedDict(
+            (k, v) for k, v in self.model.state_dict(keep_vars=True).items()
+            if id(v) not in seen)
+        guard = {"skipped": self.skipped}
+        if self.amp is not None:
+            guard["amp"] = self.amp
+        return {"params": params, "buffers": buffers, "opt": self.opt_state,
+                "comm_err": self.comm_err, "guard": guard}
+
+    @state.setter
+    def state(self, value: dict):
+        _copy_state(self.state, value, "state")
+
+    def _single_rank(self, what):
+        if self.n_data > 1:
+            _waits(f"{what} of a run over {self.n_data} ranks",
+                   "item 15a: checkpoints of per-rank and sharded state")
+
+    def save_checkpoint(self, path: str, use_async: bool = False):
+        """Save :attr:`state` as a checkpoint directory
+        (``distributed/checkpoint.py``)."""
+        from .checkpoint import save_checkpoint as _save
+        self._single_rank("save_checkpoint")
+        return _save(path, self.state, use_async=use_async)
+
+    def load_checkpoint(self, path: str):
+        """Restore :attr:`state` from a checkpoint directory, in place, on
+        this trainer's device."""
+        from .checkpoint import load_checkpoint as _load
+        self._single_rank("load_checkpoint")
+        live = self.state
+        _copy_state(live, _load(path, template=live), "state")
+        return self.state
+
     def skipped_steps(self) -> int:
         """Steps the NaN guard skipped so far (one host sync)."""
         return int(self.skipped.item())
@@ -592,6 +669,24 @@ class ParallelTrainer:
 
     def get_opt_slot(self, name, slot) -> Optional[torch.Tensor]:
         return self.opt_state["slots"].get(name, {}).get(slot)
+
+
+@torch.no_grad()
+def _copy_state(dst, src, path):
+    """Copy the tree ``src`` into the live tensors of ``dst`` in place."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"{path}: keys differ: {sorted(dst)} vs "
+                             f"{sorted(src)}")
+        for k in dst:
+            _copy_state(dst[k], src[k], f"{path}.{k}")
+        return
+    src = torch.as_tensor(src)
+    if src.dtype != dst.dtype or src.shape != dst.shape:
+        raise ValueError(f"{path}: {src.dtype} {tuple(src.shape)} does not "
+                         f"match the trainer's {dst.dtype} "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
 
 
 def _keep(finite, new, old):

@@ -37,6 +37,8 @@ __all__ = ["Layer", "set_trainer_state_from_numpy"]
 
 
 def _as_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):    # e.g. framework_io's bfloat16
+        return value.detach().cpu().clone()
     arr = np.asarray(value)
     if arr.dtype.kind not in "fiub" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)   # bfloat16 arrives as an ml_dtypes type

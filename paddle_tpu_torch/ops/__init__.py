@@ -6,6 +6,6 @@ forward, dq and dk/dv kernels (``csrc/flash_attention.cu``);
 ``fused_ce`` the fused LM-head cross-entropy forward, dh and dw kernels
 (``csrc/fused_ce.cu``); ``chunked_ce`` the chunked LM-head cross entropy
 (plain PyTorch); ``_build`` compiles kernels with nvcc at first use;
-``tuner`` keeps the shape buckets, the flash and fused-CE rows of the
-tuning DB and the fallback counter.
+``tuner`` keeps the tuning DB (the reference's rows and the port's split
+counts measured on the card), its sweep and the fallback counter.
 """

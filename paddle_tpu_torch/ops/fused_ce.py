@@ -20,10 +20,14 @@ device memory.
   is written as a ``(V, H)`` buffer and returned as its ``(H, V)`` view.
 - **Two forward routes**, chosen by :func:`fwd_route` from the dtype and
   H alone: ``"tiled"`` (bfloat16 at any H that is a multiple of 64: an
-  ``mma.sync`` GEMM over token tiles x the vocab splits of
-  :func:`fwd_splits`, the online logsumexp on its accumulators, the splits
-  merged by a second kernel) and ``"staged"`` (float32 and every other H:
-  the first design).
+  ``mma.sync`` GEMM over token tiles x vocab splits, the online
+  logsumexp on its accumulators, the splits merged in order by a second
+  kernel) and ``"staged"`` (float32 and every other H: the first design).
+  The split count is the tuning DB's row for the card and shape
+  (:func:`tiled_splits`, measured by ``python -m
+  paddle_tpu_torch.ops.tuner``), else the :func:`fwd_splits` formula;
+  ``SPLITS`` counts tiled launches by the count they took. A count changes
+  the float32 summation order of ``lse``, not its bar.
 - **Two backward routes**, chosen by :func:`bwd_route` from the dtype and
   H alone: ``"tiled"`` (bfloat16 at H in :data:`TILED_HIDDEN`: own rows
   resident, each streamed tile read once by ``cp.async``, the sums in
@@ -50,6 +54,7 @@ device memory.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -57,11 +62,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .tuner import ce_dims, resolve
+from .tuner import CE_SPLIT_KERNEL, ce_dims, resolve, resolve_splits
 
 __all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
            "ROUTES", "STAGED_MAX_HIDDEN", "TILED_HIDDEN", "bwd_route",
-           "fwd_route", "fwd_splits", "fused_lm_ce", "fused_ce_gate",
+           "fwd_route", "fwd_splits", "tiled_splits", "SPLITS",
+           "fused_lm_ce", "fused_ce_gate",
            "fused_ce_supported", "resolve_blocks", "ce_fwd",
            "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_fwd_split",
            "fused_ce_plain_dh", "fused_ce_plain_dw", "load_kernel",
@@ -77,6 +83,8 @@ NEG_INF = -1e30
 LAUNCHES = {"ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
 ROUTES = {"ce_fwd_tiled": 0, "ce_fwd_staged": 0, "ce_dh_tiled": 0,
           "ce_dh_staged": 0, "ce_dw_tiled": 0, "ce_dw_staged": 0}
+# tiled forward launches by the vocab splits they took
+SPLITS: "collections.Counter[int]" = collections.Counter()
 _launch_lock = threading.Lock()
 
 # the H the tiled backward kernel is instantiated for (bfloat16 only)
@@ -292,6 +300,14 @@ def fwd_splits(n: int, v: int, sms: int) -> int:
     return max(1, min(fill, vocab_tiles // FWD_MIN_SPLIT_TILES))
 
 
+def tiled_splits(dtype, n: int, h: int, v: int, sms: int) -> int:
+    """The vocab splits a tiled forward launch takes: the tuning DB's row
+    for this card, shape and dtype (``tuner.resolve`` of
+    ``fused_ce_fwd_tiled``), else :func:`fwd_splits`."""
+    return resolve_splits(CE_SPLIT_KERNEL, dtype, ce_dims(h, v, n),
+                          fwd_splits(n, v, sms))
+
+
 def max_hidden(dtype) -> int:
     """The largest H the backward kernels take, over both routes."""
     tiled = max(TILED_HIDDEN) if dtype == torch.bfloat16 else 0
@@ -326,11 +342,13 @@ def _raise_on(lib, err, what):
                            f"(cudaError {err})")
 
 
-def _count(key, route=None):
+def _count(key, route=None, splits=None):
     with _launch_lock:
         LAUNCHES[key] += 1
         if route is not None:
             ROUTES[f"{key}_{route}"] += 1
+        if splits is not None:
+            SPLITS[splits] += 1
 
 
 def _aligned(t):
@@ -351,7 +369,8 @@ def _tiled_operands(hid, w):
     return hid, w
 
 
-def _launch(entry, key, hid, w, lbl, extra, route=None, ints=()):
+def _launch(entry, key, hid, w, lbl, extra, route=None, ints=(),
+            splits=None):
     n, h = hid.shape
     v = w.shape[1]
     lib = load_kernel()
@@ -362,14 +381,15 @@ def _launch(entry, key, hid, w, lbl, extra, route=None, ints=()):
             lbl.data_ptr(), *[t.data_ptr() for t in extra], n, h, v,
             int(hid.dtype == torch.bfloat16), *ints, stream)
     _raise_on(lib, err, key)
-    _count(key, route)
+    _count(key, route, splits)
 
 
-def ce_fwd(hid, w, labels):
+def ce_fwd(hid, w, labels, splits: Optional[int] = None):
     """The forward kernel's wrapper: ``(lse, tgt)`` as
     :func:`fused_ce_plain_fwd` defines them, on the route
     :func:`fwd_route` names. CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise."""
+    tensors launch the kernel, or raise. ``splits``: the tiled route's
+    vocab splits, None for :func:`tiled_splits`."""
     if hid.device.type == "cpu":
         return fused_ce_plain_fwd(hid, w, labels)
     hid, lbl = _check(hid, w, labels)
@@ -381,12 +401,17 @@ def ce_fwd(hid, w, labels):
         route = fwd_route(hid.dtype, h)
         if route == "tiled":
             hid, w = _tiled_operands(hid, w)
-            splits = fwd_splits(n, v, torch.cuda.get_device_properties(
-                hid.device).multi_processor_count)
+            if splits is None:
+                splits = tiled_splits(hid.dtype, n, h, v,
+                                      torch.cuda.get_device_properties(
+                                          hid.device).multi_processor_count)
+            splits = int(splits)
+            if splits < 1:
+                raise ValueError(f"fused_ce: {splits} vocab splits")
             work = torch.empty((3, splits, n), dtype=torch.float32,
                                device=hid.device)
             _launch("fused_ce_fwd_tiled", "ce_fwd", hid, w, lbl,
-                    (lse, tgt, work), route, ints=(splits,))
+                    (lse, tgt, work), route, ints=(splits,), splits=splits)
         else:
             _launch("fused_ce_fwd", "ce_fwd", hid, w, lbl, (lse, tgt), route)
     else:

@@ -14,7 +14,9 @@ order.
   returns the *unnormalized* online-softmax stats ``(acc, m, l)``;
   :func:`paged_attention_plain` computes the same in plain PyTorch. Two
   routes (:func:`paged_route`): ``"split"``, the split-context kernel over
-  :func:`paged_splits` splits a row, each block fed by a ``cp.async`` ring,
+  :func:`route_splits` splits a row (the tuning DB's count for the card
+  and shape, else the :func:`paged_splits` formula; ``SPLITS`` counts
+  launches by it), each block fed by a ``cp.async`` ring,
   then an ordered merge kernel (:func:`paged_attention_split_plain` is that
   plan in plain PyTorch), taken whenever q and the pools start on 16-byte
   boundaries; ``"simple"``, the first design (one block a (row, head),
@@ -41,6 +43,7 @@ Layouts are the JAX package's: q ``(B, Tq, H, D)``, pools
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 import threading
@@ -49,11 +52,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .tuner import record_fallback
+from .tuner import (PAGED_SPLIT_KERNEL, paged_split_dims, record_fallback,
+                    resolve_splits)
 
 __all__ = ["NEG_INF", "MAX_VERIFY_TQ", "LAUNCHES", "ROUTES",
            "SPLIT_BLOCKS_PER_SM", "MIN_SPLIT_KEYS", "paged_decode_supported",
-           "paged_route", "paged_splits", "paged_attention",
+           "paged_route", "paged_splits", "route_splits", "SPLITS",
+           "paged_attention",
            "paged_attention_plain", "paged_attention_split_plain",
            "load_kernel", "paged_decode_attention", "paged_prefill_attention"]
 
@@ -69,6 +74,8 @@ MIN_SPLIT_KEYS = 64
 LAUNCHES = {"decode": 0, "verify": 0}
 ROUTES = {"decode_split": 0, "decode_simple": 0, "verify_split": 0,
           "verify_simple": 0}
+# split-route launches by (decode or verify, the splits a row they took)
+SPLITS: "collections.Counter[Tuple[str, int]]" = collections.Counter()
 _launch_lock = threading.Lock()
 
 
@@ -197,6 +204,16 @@ def paged_splits(b: int, h: int, width: int, page_size: int,
     return max(1, min(fill, cap))
 
 
+def route_splits(dtype, b: int, tq: int, h: int, d: int, page_size: int,
+                 width: int, sm_count: int) -> int:
+    """The splits a row a split-route launch takes: the tuning DB's row
+    for this card, shape and pool dtype (``tuner.resolve`` of
+    ``paged_split``), else :func:`paged_splits`."""
+    return resolve_splits(PAGED_SPLIT_KERNEL, dtype,
+                          paged_split_dims(b, h, d, page_size, width, tq),
+                          paged_splits(b, h, width, page_size, sm_count))
+
+
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -252,7 +269,7 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
 
     route: None (the route :func:`paged_route` names), ``"split"`` (raises
     where q or a pool is off a 16-byte boundary) or ``"simple"``. splits:
-    the split route's splits a row, None for :func:`paged_splits`."""
+    the split route's splits a row, None for :func:`route_splits`."""
     if route not in (None, "split", "simple"):
         raise ValueError(f"paged_attention: unknown route {route!r}")
     if q.device.type == "cpu":
@@ -291,7 +308,8 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
                          "start on 16-byte boundaries")
     route = route or picked
     if route == "split":
-        n_split = (paged_splits(b, h, width, ps, _sm_count(dev))
+        n_split = (route_splits(k_pool.dtype, b, tq, h, d, ps, width,
+                                _sm_count(dev))
                    if splits is None else int(splits))
         if n_split < 1:
             raise ValueError(f"paged_attention: {n_split} splits")
@@ -330,6 +348,8 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
     with _launch_lock:
         LAUNCHES[key] += 1
         ROUTES[f"{key}_{route}"] += 1
+        if route == "split":
+            SPLITS[(key, n_split)] += 1
     return acc, m, l
 
 

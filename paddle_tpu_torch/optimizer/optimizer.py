@@ -21,6 +21,10 @@ lr) -> (new_params, new_state)``. The math is the reference's:
 - the step count is a 0-d int32 tensor on the parameters' device, so bias
   correction reads no host value.
 
+``state_dict()``/``set_state_dict()`` carry the optimizer state (``step``
+and ``slots``, which ``ParallelTrainer`` keeps on its optimizer as
+``optimizer.state``) and an ``LRScheduler``'s state, as the reference's.
+
 ``torch.optim.AdamW`` is not used: on bfloat16 parameters its math runs in
 bfloat16. The learning rate is a float or an ``LRScheduler``
 (``optimizer/lr.py``), whose value ``get_lr`` reads; ``set_lr`` raises under
@@ -71,6 +75,8 @@ class Optimizer:
             else float(learning_rate)
         self.regularization = weight_decay
         self._grad_clip = grad_clip
+        # {"step", "slots"} of the trainer this optimizer drives
+        self.state = None
 
     def get_lr(self) -> float:
         if isinstance(self._lr, LRScheduler):
@@ -139,6 +145,29 @@ class Optimizer:
             new_params[k] = np_.to(p.dtype)
             new_slots[k] = ns
         return new_params, {"step": step, "slots": new_slots}
+
+    def state_dict(self) -> dict:
+        """``{"state": {"step", "slots"}}`` (new dicts over the same
+        tensors) when the optimizer holds a state, and ``{"LR_Scheduler":
+        ...}`` under a scheduler."""
+        out = {}
+        if self.state is not None:
+            out["state"] = _tree_copy(self.state)
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
+        return out
+
+    def set_state_dict(self, state_dict: dict):
+        if "state" in state_dict:
+            self.state = _tree_copy(state_dict["state"])
+        if "LR_Scheduler" in state_dict and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state_dict["LR_Scheduler"])
+
+
+def _tree_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    return tree
 
 
 class SGD(Optimizer):

@@ -1,1 +1,2 @@
-"""paddle_tpu_torch.resilience — fault injection and backoff for serving."""
+"""paddle_tpu_torch.resilience — fault injection (``faults``) and the
+byte-budgeted retry with backoff (``retry``)."""

@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the serving recovery paths.
+"""Deterministic fault injection for the serving and checkpoint recovery
+paths.
 
 Port of ``paddle_tpu/resilience/faults.py``, limited to the kinds whose
 instrumentation sites the port has:
@@ -6,6 +7,13 @@ instrumentation sites the port has:
 ==================  ======================================================
 kind                effect at the instrumented site
 ==================  ======================================================
+``ckpt_io``         a checkpoint save (``CheckpointManager.save``,
+                    ``save_checkpoint``) raises ``IOError`` before the
+                    write; recovery is the byte-budgeted retry, then
+                    local staging
+``ckpt_torn``       the commit after a checkpoint write truncates one data
+                    file, skips the manifest and raises
+                    ``SimulatedCrash``, a ``kill -9`` mid-save
 ``serving_io``      the serving replica's batch execute raises ``IOError``;
                     recovery is failover to the surviving replicas
 ``replica_stall``   the serving replica wedges inside the batch execute
@@ -31,10 +39,15 @@ import random
 import threading
 from typing import List, Optional
 
-__all__ = ["KINDS", "inject", "fires", "fire_spec", "maybe_raise",
-           "reset"]
+__all__ = ["KINDS", "SimulatedCrash", "inject", "fires", "fire_spec",
+           "maybe_raise", "reset"]
 
-KINDS = ("serving_io", "replica_stall")
+KINDS = ("ckpt_io", "ckpt_torn", "serving_io", "replica_stall")
+
+
+class SimulatedCrash(RuntimeError):
+    """An injected hard crash (a ``kill -9``). Not an OSError, so the retry
+    decorator does not absorb it."""
 
 
 class _Fault:

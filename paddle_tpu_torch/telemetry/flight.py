@@ -6,7 +6,8 @@ span end) plus the registry's recent metric marks, dumped to
 ``flight_<reason>_<step>.json`` when something anomalous happens. Serving
 dumps on drain; the SLO monitor dumps on a burn-rate breach.
 
-Dumps land in the directory given to ``configure(out_dir)`` or in
+Dumps land in the directory given to ``configure(out_dir)`` (which
+``telemetry.scope(run_dir)`` sets to the run directory) or in
 ``PADDLE_TPU_FLIGHT_DIR``. Without either, ``dump`` is a no-op returning
 None; the ring itself always records.
 """
@@ -36,15 +37,17 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=capacity)
         self._marks_tail = marks_tail
         self.out_dir: Optional[str] = None
+        self.process_index: int = 0
         self.dumps: List[str] = []
 
     def record(self, span_rec: dict):
         self._ring.append(span_rec)   # deque.append is atomic
 
-    def configure(self, out_dir: Optional[str]):
+    def configure(self, out_dir: Optional[str], process_index: int = 0):
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
         self.out_dir = out_dir
+        self.process_index = process_index
 
     def _resolve_dir(self) -> Optional[str]:
         if self.out_dir:
@@ -69,6 +72,7 @@ class FlightRecorder:
             "reason": reason,
             "step": int(step) if step is not None else 0,
             "pid": os.getpid(),
+            "process_index": self.process_index,
             "wall_time": time.time(),
             "perf_counter_ns": time.perf_counter_ns(),
             "spans": spans,
@@ -109,8 +113,10 @@ def reset(capacity: int = 2048):
     _recorder = FlightRecorder(capacity=capacity)
 
 
-def configure(out_dir: Optional[str]):
-    _recorder.configure(out_dir)
+def configure(out_dir: Optional[str], process_index: int = 0):
+    """Where dumps land (``telemetry.scope`` points it at the run directory)
+    and the process index each dump records."""
+    _recorder.configure(out_dir, process_index=process_index)
 
 
 def record(span_rec: dict):

@@ -63,6 +63,9 @@ class StreamingQuantile:
             self._sorted = sorted(self._values)
         return self._sorted[min(n - 1, int(float(q) * n))]
 
+    def median(self) -> Optional[float]:
+        return self.quantile(0.5)
+
 
 def _label_key(labels: Dict[str, object]) -> LabelKey:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))

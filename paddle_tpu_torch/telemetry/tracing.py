@@ -22,6 +22,8 @@ propagate across threads. Accounting is closed:
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -31,7 +33,8 @@ __all__ = [
     "Span", "Trace", "Tracer", "KeepPolicy",
     "enable", "disable", "enabled", "get_tracer", "reset",
     "start_trace", "use_span", "current_span", "add_event", "child_span",
-    "snapshot_kept", "accounting", "accounted",
+    "snapshot_kept", "write_kept", "accounting", "accounted",
+    "chrome_events", "thread_names", "min_t0_ns",
 ]
 
 _KEEP_OUTCOMES = ("shed", "expired", "failed", "failover", "divergence")
@@ -368,9 +371,56 @@ def snapshot_kept() -> List[dict]:
     return _tracer.snapshot_kept()
 
 
+def write_kept(path: str) -> Optional[str]:
+    """Write the kept traces to ``path`` as JSON; None when nothing was
+    kept."""
+    kept = _tracer.snapshot_kept()
+    if not kept:
+        return None
+    with open(path, "w") as f:
+        json.dump({"traces": kept}, f, indent=1)
+    return path
+
+
 def accounting() -> dict:
     return _tracer.accounting()
 
 
 def accounted() -> bool:
     return _tracer.accounted()
+
+
+def chrome_events(base_ns: int) -> List[dict]:
+    """Kept-trace spans as chrome-trace ``ph:"X"`` events rebased to
+    ``base_ns``, for ``telemetry.export.chrome_trace``."""
+    out = []
+    pid = os.getpid()
+    for tr in _tracer.snapshot_kept():
+        for sp in tr["spans"]:
+            if sp["t1_ns"] is None:
+                continue
+            out.append({
+                "name": sp["name"], "cat": "trace", "ph": "X",
+                "ts": (sp["t0_ns"] - base_ns) / 1e3,
+                "dur": (sp["t1_ns"] - sp["t0_ns"]) / 1e3,
+                "pid": pid, "tid": sp["tid"],
+                "args": {"trace_id": sp["trace_id"],
+                         "status": sp["status"], **sp["attrs"]},
+            })
+    return out
+
+
+def thread_names() -> Dict[int, str]:
+    """tid -> thread name observed on the kept traces' spans."""
+    names: Dict[int, str] = {}
+    for tr in _tracer.snapshot_kept():
+        for sp in tr["spans"]:
+            names[sp["tid"]] = sp["thread"]
+    return names
+
+
+def min_t0_ns() -> Optional[int]:
+    """The earliest span start among the kept traces (export rebasing)."""
+    t0s = [sp["t0_ns"] for tr in _tracer.snapshot_kept()
+           for sp in tr["spans"]]
+    return min(t0s) if t0s else None

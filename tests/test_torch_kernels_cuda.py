@@ -757,8 +757,10 @@ def test_fused_ce_tiled_forward_matches_plain(cuda_device, shape,
     lse, tgt = fused_ce.ce_fwd(hid, w, lbl)
     assert fused_ce.ROUTES["ce_fwd_tiled"] == r0["ce_fwd_tiled"] + 1
     rl, rt = fused_ce.fused_ce_plain_fwd(hid, w, lbl)
-    splits = fused_ce.fwd_splits(n, v, torch.cuda.get_device_properties(
-        cuda_device).multi_processor_count)
+    # the count the wrapper took: the tuning DB's row, else the formula
+    splits = fused_ce.tiled_splits(
+        torch.bfloat16, n, h, v, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count)
     ml, mt = fused_ce.fused_ce_plain_fwd_split(hid, w, lbl, splits)
     for got, want in ((lse, rl), (tgt, rt), (lse, ml), (tgt, mt)):
         assert (got - want).abs().max().item() <= 1e-4
