@@ -141,6 +141,9 @@ AMP_SCALES = (32768.0, 65536.0, 32768.0, 32768.0, 65536.0)
 # the same comparison on the CPU at depth 2 and narrow widths (bf16, 12
 # steps; tests/test_torch_data_parallel.py::test_quantized_loss_band)
 DP_LOSS_BAND = {"int8": 1e-3, "int4": 3.5e-2}
+# eager: the port's optimizers on the card against the JAX reference's
+# (optimizer_golden.json), the CPU tests' bar (tests/test_torch_optimizer.py)
+OPT_TOL = (1e-5, 1e-7)      # rtol, atol
 # the fused-CE kernels by name (no name holds another)
 CE_KERNELS = ("ce_fwd_tiled_kernel", "ce_fwd_merge_kernel", "ce_fwd_kernel",
               "ce_dh_kernel", "ce_dw_kernel", "ce_bwd_tiled_kernel")
@@ -1210,6 +1213,27 @@ def train_golden(fa, fc, nn, gpt, engine, optim, head="chunked"):
             "ce_launches": ce_launches, "ce_routes": ce_routes}
 
 
+def gpt_base_model(gpt, framework, seq=1024, layers=12, bf16=True):
+    """bench.py's GPT-base model from seed 0, dropout 0, bf16 by default
+    (``layers`` cuts the depth), on the CPU."""
+    framework.seed(0)
+    model = gpt.GPTForPretraining(
+        tensor_parallel=False, vocab_size=50304, hidden_size=768,
+        num_layers=layers, num_heads=12, max_position_embeddings=seq,
+        attn_dropout=0.0, hidden_dropout=0.0)
+    return model.bfloat16() if bf16 else model
+
+
+def gpt_base_batch(batch=8, seq=1024):
+    """One fixed batch of random ids and labels on the card."""
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                           .astype(np.int32)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                              .astype(np.int32)).cuda()
+    return ids, labels
+
+
 def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
                      head="chunked", layers=12, bf16=True, opt=None,
                      **trainer_kw):
@@ -1219,20 +1243,10 @@ def gpt_base_trainer(nn, gpt, engine, optim, framework, batch=8, seq=1024,
     "dense" (dense_b*: logits + cross_entropy). ``layers`` cuts the depth,
     ``bf16=False`` keeps float32 weights, ``opt`` replaces the AdamW.
     Returns (trainer, (inputs, labels), n_params)."""
-    framework.seed(0)
-    model = gpt.GPTForPretraining(
-        tensor_parallel=False, vocab_size=50304, hidden_size=768,
-        num_layers=layers, num_heads=12, max_position_embeddings=seq,
-        attn_dropout=0.0, hidden_dropout=0.0)
-    if bf16:
-        model.bfloat16()
+    model = gpt_base_model(gpt, framework, seq, layers, bf16)
     opt = opt if opt is not None else optim.AdamW(3e-4)
     n_params = sum(p.numel() for p in model.parameters())
-    rs = np.random.RandomState(0)
-    ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
-                           .astype(np.int32)).cuda()
-    labels = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
-                              .astype(np.int32)).cuda()
+    ids, labels = gpt_base_batch(batch, seq)
     if head == "dense":
         trainer = engine.ParallelTrainer(
             model, opt,
@@ -1962,13 +1976,14 @@ def telemetry_phase(trainer, batch, n_params, work, card):
                 len(trace["traceEvents"])}
 
 
-def _flip_a_byte(step_dir):
-    """One byte of the largest file of a saved step, inverted."""
+def _flip_a_byte(step_dir, at=0.5):
+    """One byte of the largest file of a saved step, inverted (at the
+    fraction ``at`` of its length)."""
     files = [os.path.join(step_dir, n) for n in os.listdir(step_dir)
              if n != "MANIFEST.json"]
     path = max(files, key=os.path.getsize)
     with open(path, "r+b") as f:
-        f.seek(os.path.getsize(path) // 2)
+        f.seek(int(os.path.getsize(path) * at))
         b = f.read(1)
         f.seek(-1, 1)
         f.write(bytes([b[0] ^ 0xFF]))
@@ -2042,6 +2057,512 @@ def checkpoint_phase(nn, gpt, engine, optim, framework, work, card):
             "restore_gb_per_s": restore_bytes / restore_s / 1e9,
             "corrupted": f"6/{flipped}", "restored_step": 3,
             "restore_fallbacks": fallbacks}
+
+
+# ---------------------------------------------------------------------------
+# this slice: the eager optimizer API, remat policies, asynchronous saves
+# ---------------------------------------------------------------------------
+
+def zero_counts(fa, fc):
+    """Every launch, route and split count of the six training kernels
+    set to 0, just before a path runs."""
+    for c in (fa.LAUNCHES, fa.ROUTES, fc.LAUNCHES, fc.ROUTES):
+        for key in c:
+            c[key] = 0
+    fc.SPLITS.clear()
+
+
+def check_path(fa, fc, what, flash_fwd, flash_bwd, ce):
+    """The counts of a path just after it ran: ``flash_fwd`` forwards,
+    ``flash_bwd`` dq and dk/dv launches, ``ce`` of each CE kernel, every
+    flash launch on the mma route and every CE launch on the tiled one.
+    Returns the launches by kernel."""
+    launches = {**fa.LAUNCHES, **fc.LAUNCHES}
+    want = {"flash_fwd": flash_fwd, "flash_dq": flash_bwd,
+            "flash_dkv": flash_bwd, "ce_fwd": ce, "ce_dh": ce, "ce_dw": ce}
+    check(launches == want, f"{what}: launches {launches} != {want}")
+    routes = {**fa.ROUTES, **fc.ROUTES}
+    check(all(n == 0 for k, n in routes.items()
+              if k.endswith("_scalar") or k.endswith("_staged")),
+          f"{what}: routes {routes}")
+    return launches
+
+
+def make_optimizer(optim, name, kwargs, parameters):
+    """``tests/torch_optimizer_golden.py``'s ``make`` on the port: a golden
+    case's keyword arguments, ``exclude`` as Lamb's and Lars's exclusion."""
+    kw = dict(kwargs, parameters=parameters)
+    sub = kw.pop("exclude", None)
+    if name == "Lamb" and sub:
+        kw["exclude_from_weight_decay_fn"] = lambda key: sub in str(key)
+    if name == "Lars" and sub:
+        kw["exclude_from_weight_decay"] = [sub]
+    if "sparsity" in kw:
+        kw["sparsity"] = tuple(kw["sparsity"])
+    return getattr(optim, name)(**kw)
+
+
+def optimizer_golden(optim):
+    """Each optimizer's three eager ``step()``s on the card against the
+    JAX reference's ``apply_gradients`` (``paddle_tpu_torch/testdata/
+    optimizer_golden.json``), within ``OPT_TOL``; the largest absolute
+    error by optimizer."""
+    import base64
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "optimizer_golden.json")) as f:
+        gold = json.load(f)
+    rec = gold["recipe"]
+    shapes = {k: tuple(v) for k, v in rec["shapes"].items()}
+
+    def arrays(seed):
+        rs = np.random.RandomState(seed)
+        return {k: rs.randn(*s).astype(np.float32) for k, s in shapes.items()}
+
+    errs = {}
+    for case in gold["cases"]:
+        params = {}
+        for k, v in arrays(rec["param_seed"]).items():
+            p = torch.nn.Parameter(torch.from_numpy(v).cuda())
+            if k in rec["lr_scales"]:
+                p.optimize_attr = {"learning_rate": rec["lr_scales"][k]}
+            params[k] = p
+        opt = make_optimizer(optim, case["name"], case["kwargs"],
+                             list(params.items()))
+        for i in range(rec["steps"]):
+            for k, g in arrays(rec["grad_seed"] + i).items():
+                params[k].grad = torch.from_numpy(g).cuda()
+            opt.step()
+            opt.clear_grad()
+        check(int(opt.state["step"]) == rec["steps"] and
+              opt.state["step"].is_cuda, f"{case['name']}: state step")
+        err = 0.0
+        for k, shape in shapes.items():
+            want = np.frombuffer(base64.b64decode(case["params"][k]),
+                                 dtype="<f4").reshape(shape)
+            got = params[k].detach().cpu().numpy()
+            np.testing.assert_allclose(got, want, rtol=OPT_TOL[0],
+                                       atol=OPT_TOL[1],
+                                       err_msg=f"{case['name']} {k}")
+            err = max(err, float(np.max(np.abs(got - want))))
+        errs[case["name"]] = err
+    return errs
+
+
+def eager_steps(model, opt, batch, warmup, iters):
+    """The reference's dygraph loop, ``loss = model(batch);
+    loss.backward(); opt.step(); opt.clear_grad()``: the losses and the ms
+    of a timed step (synced before and after the timed steps)."""
+    losses = []
+
+    def one():
+        loss = model(batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+
+    for _ in range(warmup):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        one()
+    torch.cuda.synchronize()
+    return [x.item() for x in losses], (time.perf_counter() - t0) / iters * 1e3
+
+
+def eager_phase(fa, fc, nn, gpt, engine, optim, framework, amp):
+    """``eager``: the golden optimizer steps; then ``fused_b8_pallas_ce``'s
+    model and batch trained through the eager API, ``AdamW(3e-4,
+    parameters=model.parameters())`` for 2 + 5 steps, which must give the
+    losses and weights of ``ParallelTrainer`` on the same model and batch
+    bit for bit (both call one ``apply_gradients``; the kernels are
+    deterministic), then ``Lamb`` for 2 + 3 steps; then
+    ``GradScaler.minimize`` on the ``amp`` phase's depth-2 float32 model
+    under ``auto_cast(bfloat16)``, the step at index 2 tainted: the scale
+    after each step must be ``AMP_SCALES``, with one skipped step."""
+    golden_err = optimizer_golden(optim)
+    ids, lbl = gpt_base_batch()
+    # the yardstick: the trainer's steps on the same weights and batch
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    inputs, lbls = batch
+    t_losses = [trainer.train_step(inputs, lbls) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_losses += [trainer.train_step(inputs, lbls) for _ in range(5)]
+    torch.cuda.synchronize()
+    trainer_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t_losses = [x.item() for x in t_losses]
+    t_final = {n: p.detach().clone()
+               for n, p in trainer.model.named_parameters()}
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    model = fused_loss_layer(nn, gpt_base_model(gpt, framework), 8192,
+                             ce_kernel="pallas").cuda()
+    opt = optim.AdamW(3e-4, parameters=model.parameters())
+    zero_counts(fa, fc)
+    losses, ms = eager_steps(model, opt, (ids, lbl), warmup=2, iters=5)
+    launches = check_path(fa, fc, "eager AdamW", 12 * 7, 12 * 7, 7)
+    diff = [i for i, (a, b) in enumerate(zip(losses, t_losses)) if a != b]
+    check(not diff, f"eager AdamW loss after {diff[0] if diff else 0} "
+          f"updates {losses[diff[0]] if diff else None} != the trainer's "
+          f"{t_losses[diff[0]] if diff else None}")
+    same = all(torch.equal(p, t_final[n]) for n, p in model.named_parameters())
+    check(same, "eager AdamW weights differ from the trainer's")
+    del model, opt, t_final
+    torch.cuda.empty_cache()
+
+    model = fused_loss_layer(nn, gpt_base_model(gpt, framework), 8192,
+                             ce_kernel="pallas").cuda()
+    opt = optim.Lamb(2e-3, lamb_weight_decay=0.01,
+                     parameters=model.named_parameters(),
+                     exclude_from_weight_decay_fn=lambda k: not no_decay(k))
+    zero_counts(fa, fc)
+    lamb_losses, lamb_ms = eager_steps(model, opt, (ids, lbl), warmup=2,
+                                       iters=3)
+    lamb_launches = check_path(fa, fc, "eager Lamb", 12 * 5, 12 * 5, 5)
+    check(all(np.isfinite(lamb_losses)) and lamb_losses[-1] < lamb_losses[0],
+          f"Lamb losses {lamb_losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"params": n_params, "optimizer_golden_max_abs_err": golden_err,
+            "optimizer_golden_tol": OPT_TOL,
+            "adamw": {"losses": losses, "trainer_losses": t_losses,
+                      "bit_equal_to_trainer": True, "ms_per_step": ms,
+                      "trainer_ms_per_step": trainer_ms,
+                      "launches": launches},
+            "lamb": {"losses": lamb_losses, "ms_per_step": lamb_ms,
+                     "launches": lamb_launches},
+            "grad_scaler": eager_amp(amp, fa, nn, gpt, optim, framework)}
+
+
+def eager_amp(amp, fa, nn, gpt, optim, framework):
+    """``GradScaler.minimize`` over an eager AdamW on the ``amp`` phase's
+    model (depth 2, float32 weights, chunked CE) under
+    ``auto_cast(bfloat16)``; the first parameter by name has its gradient
+    tainted with inf at the steps in ``AMP_TAINTED``."""
+    model = fused_loss_layer(
+        nn, gpt_base_model(gpt, framework, layers=2, bf16=False), 8192,
+        ce_kernel="chunked").cuda()
+    named = dict(model.named_parameters())
+    opt = optim.AdamW(3e-4, parameters=list(named.items()))
+    scaler = amp.GradScaler(**AMP_SCALER)
+    batch = gpt_base_batch()
+    for c in (fa.LAUNCHES, fa.ROUTES):
+        for key in c:
+            c[key] = 0
+    losses, scales = [], []
+    for step in range(len(AMP_SCALES)):
+        with amp.auto_cast(dtype="bfloat16"):
+            loss = model(batch)
+        scaled = scaler.scale(loss)
+        scaled.backward()
+        if step in AMP_TAINTED:
+            named[min(named)].grad.mul_(float("inf"))
+        scaler.minimize(opt, scaled)
+        opt.clear_grad()
+        losses.append(loss.item())
+        scales.append(scaler.get_loss_scaling())
+    skipped = len(AMP_SCALES) - int(opt.state["step"])
+    check(scales == list(AMP_SCALES), f"eager loss scales {scales} != "
+          f"{list(AMP_SCALES)}")
+    check(skipped == len(AMP_TAINTED), f"{skipped} skipped eager steps")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(all(p.dtype == torch.float32 for p in named.values()),
+          "the master weights are not float32")
+    launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTES)
+    check(launches["flash_fwd"] == 2 * len(AMP_SCALES) and
+          routes["flash_fwd_mma"] == launches["flash_fwd"],
+          f"bf16 attention under auto_cast: launches {launches}")
+    del model, opt, named
+    torch.cuda.empty_cache()
+    return {"losses": losses, "scales": scales, "skipped_steps": skipped,
+            "tainted": list(AMP_TAINTED), "flash_launches": launches}
+
+
+REMAT_POLICIES = (None, "full", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable", "nothing_saveable",
+                  "everything_saveable")
+
+
+def remat_phase(fa, fc, nn, gpt, framework):
+    """``remat_policies``: GPT-base (bf16) at batch 32 x 1024, one forward
+    and backward: embeddings, each of the 12 blocks through
+    ``fleet.utils.recompute(block, h, policy=p)``, the final norm, the
+    fused CE head. Once without ``recompute`` and once a policy: the peak
+    allocated memory and the median ms of 3 passes after a warm-up; the
+    loss and every gradient equal the plain pass's bit for bit."""
+    from paddle_tpu_torch.distributed.fleet import utils as fleet_utils
+    model = gpt_base_model(gpt, framework).cuda()
+    ids, lbl = gpt_base_batch(batch=32)
+    params = list(model.parameters())
+
+    def one_pass(policy):
+        h = model.gpt.embeddings(ids)
+        for block in model.gpt.h:
+            h = block(h) if policy == "no_recompute" else \
+                fleet_utils.recompute(block, h, policy=policy)
+        h = model.gpt.ln_f(h)
+        loss = nn.functional.fused_linear_cross_entropy(
+            h, model.lm_head.weight.T, lbl, chunk=8192, kernel="pallas")
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    rows, base = {}, None
+    for policy in ("no_recompute",) + REMAT_POLICIES:
+        zero_counts(fa, fc)
+        one_pass(policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss, grads = one_pass(policy)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        # a recompute runs each block's forward, its flash forward too,
+        # once more in the backward
+        fwd = 12 if policy == "no_recompute" else 24
+        launches = check_path(fa, fc, f"remat {policy}", 4 * fwd, 4 * 12, 4)
+        host = (loss.cpu(), [g.cpu() for g in grads])
+        del loss, grads
+        if base is None:
+            base = host
+        else:
+            same = torch.equal(host[0], base[0]) and all(
+                torch.equal(a, b) for a, b in zip(host[1], base[1]))
+            check(same, f"remat {policy}: the loss or a gradient differs "
+                  "from the pass without recompute")
+        rows[str(policy)] = {
+            "peak_gb": peak / 2 ** 30, "peak_bytes": peak,
+            "ms": float(np.median(times)), "times_ms": times,
+            "loss": float(host[0]), "bit_equal": True, "launches": launches}
+    del model, params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _reattest(step_dir, path):
+    """Rewrite the manifest's entry for ``path`` so that its CRC attests
+    the bytes now on disk (the file layer then passes)."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    mpath = os.path.join(step_dir, ck.MANIFEST_NAME)
+    with open(mpath) as f:
+        man = json.load(f)
+    man["files"][os.path.relpath(path, step_dir)] = {
+        "size": os.path.getsize(path), "crc32": ck._crc_file(path)}
+    with open(mpath, "w") as f:
+        json.dump(man, f)
+
+
+def async_checkpoint_phase(nn, gpt, engine, optim, framework, fa, fc, work):
+    """``async_checkpoint``: the ``checkpoint`` phase's run A with
+    ``CheckpointManager(max_to_keep=3, async_commit=True, deep_every=2)``:
+    saves after steps 3 (deep) and 6 (cheap), then
+    ``wait_until_finished()``. The stall, snapshot and commit times of
+    each save; the ms of each step, with or without a commit in flight.
+
+    The tamper test: a byte of step 6 inverted and its manifest rewritten
+    to attest it: ``verify(6)`` and ``verify(6, deep=True)`` pass (6 has
+    no digests), and on a copy of the deep step 3 treated so the deep
+    verify fails. A second byte of step 6 under that manifest: a fresh
+    trainer's ``restore(prefer_deep=True)`` takes step 3 with no fallback
+    (a cheap step is no candidate of the deep pass, as in the reference),
+    a plain ``restore()`` takes 3 with one; run B resumes bit for bit.
+    Then three idle steps, a save into the reused buffers and six steps
+    with its commit in flight. Last, a manager whose commits are held
+    (``commit_delay``) takes two more saves: one is superseded."""
+    import shutil
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.telemetry import tracing
+    root = os.path.join(work, "ckpt_async")
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    inputs, lbls = batch
+    mgr = ck.CheckpointManager(root, max_to_keep=3, async_commit=True,
+                               deep_every=2)
+    steps, saves = [], {}
+
+    def timed_step(tr, i, run):
+        busy = mgr.inflight() > 0
+        t0 = time.perf_counter()
+        loss = tr.train_step(inputs, lbls).item()
+        steps.append({"run": run, "step": i,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "commit_in_flight": busy or mgr.inflight() > 0,
+                      # a trainer's first step also warms its allocations
+                      "cold": not any(r["run"] == run for r in steps)})
+        return loss
+
+    def timed_save(tr, i):
+        nbuf, stall0 = len(mgr._buffers), ck.stall_seconds()
+        t0 = time.perf_counter()
+        check(mgr.save(i, tr.state), f"async save of step {i}")
+        saves[i] = {"call_ms": (time.perf_counter() - t0) * 1e3,
+                    "stall_ms": (ck.stall_seconds() - stall0) * 1e3,
+                    "new_pinned_buffer": len(mgr._buffers) > nbuf}
+
+    tracing.reset(tracing.KeepPolicy(keep_all=True))
+    tracing.enable(True)
+    try:
+        zero_counts(fa, fc)
+        losses_a = []
+        with telemetry.scope(None, profile=False) as sc:
+            for i in range(1, 7):
+                losses_a.append(timed_step(trainer, i, "A"))
+                if i in (3, 6):
+                    timed_save(trainer, i)
+            t0 = time.perf_counter()
+            mgr.wait_until_finished()
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            save_bytes = sc.registry.get("checkpoint_bytes_total").value(
+                op="save")
+        launches_a = check_path(fa, fc, "async_checkpoint run A", 72, 72, 6)
+        final_a = {n: p.detach().clone() for n, p in trainer.params.items()}
+        del trainer
+        torch.cuda.empty_cache()
+        check(mgr.all_steps() == [3, 6] and mgr.latest_valid_step() == 6,
+              f"steps {mgr.all_steps()}")
+        check(bool(mgr._manifest_arrays(3)) and not mgr._manifest_arrays(6),
+              "step 3 is not the deep save or step 6 not the cheap one")
+        check(mgr.committed_total == 2 and mgr.failed_total == 0 and
+              mgr.accounted(), "run A's snapshots are not all committed")
+
+        # the tamper test
+        d6 = os.path.join(root, "6")
+        p6 = os.path.join(d6, _flip_a_byte(d6))
+        _reattest(d6, p6)
+        tamper = {"verify_6": mgr.verify(6),
+                  "verify_6_deep": mgr.verify(6, deep=True),
+                  "verify_3_deep": mgr.verify(3, deep=True)}
+        copy_root = os.path.join(work, "ckpt_async_copy")
+        d3 = os.path.join(copy_root, "3")
+        shutil.copytree(os.path.join(root, "3"), d3)
+        _reattest(d3, os.path.join(d3, _flip_a_byte(d3)))
+        copy = ck.CheckpointManager(copy_root)
+        tamper.update(copy_verify_3=copy.verify(3),
+                      copy_verify_3_deep=copy.verify(3, deep=True))
+        copy.close()
+        shutil.rmtree(copy_root)
+        check(tamper == {"verify_6": True, "verify_6_deep": True,
+                         "verify_3_deep": True, "copy_verify_3": True,
+                         "copy_verify_3_deep": False},
+              f"tamper verdicts {tamper}")
+
+        # the fallback: a second byte of step 6 under that manifest
+        _flip_a_byte(d6, at=1 / 3)
+        check(mgr.verify(6) is False, "step 6 still verifies")
+        trainer, _, _ = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                         head="pallas")
+        f0 = mgr.restore_fallbacks_total
+        with telemetry.scope(None, profile=False) as sc:
+            t0 = time.perf_counter()
+            trainer.state = mgr.restore(template=trainer.state,
+                                        prefer_deep=True)
+            torch.cuda.synchronize()
+            restore_deep_s = time.perf_counter() - t0
+            deep_pick = (mgr.last_restored_step,
+                         mgr.restore_fallbacks_total - f0)
+            other = mgr.restore(template=trainer.state)
+            plain_pick = (mgr.last_restored_step,
+                          mgr.restore_fallbacks_total - f0 - deep_pick[1])
+            by_reason = sc.registry.get("ckpt_restore_fallbacks_total"
+                                        ).value(reason="manifest")
+        del other
+        check(deep_pick == (3, 0) and plain_pick == (3, 1) and by_reason == 1,
+              f"restore(prefer_deep) took {deep_pick}, restore() "
+              f"{plain_pick} (step, fallbacks), {by_reason} by manifest")
+        zero_counts(fa, fc)
+        losses_b = [timed_step(trainer, i, "B") for i in (4, 5, 6)]
+        check(losses_b == losses_a[3:], f"resumed losses {losses_b} != run "
+              f"A's {losses_a[3:]}")
+        check(all(torch.equal(p, final_a[n])
+                  for n, p in trainer.params.items()),
+              "resumed parameters differ from run A's")
+        del final_a
+
+        # steady state: idle steps, a save into the reused buffers, steps
+        # with its commit in flight
+        for i in (7, 8, 9):
+            timed_step(trainer, i, "B")
+        timed_save(trainer, 9)
+        for i in range(10, 16):
+            timed_step(trainer, i, "B")
+        mgr.wait_until_finished()
+        launches_b = check_path(fa, fc, "async_checkpoint run B", 144, 144,
+                                12)
+        check(mgr.failed_total == 0 and mgr.accounted() and
+              mgr.latest_valid_step() == 9, "the steady-state save")
+        commits = {}
+        for t in tracing.snapshot_kept():
+            if t["name"] != "ckpt_save":
+                continue
+            sp = {s["name"]: s for s in t["spans"]}
+            step = sp["ckpt_save"]["attrs"]["step"]
+            commits[step] = {
+                "outcome": t["outcome"],
+                "snapshot_ms": (sp["snapshot"]["t1_ns"] -
+                                sp["snapshot"]["t0_ns"]) / 1e6,
+                "commit_ms": sp["commit"]["attrs"].get("commit_ms"),
+                "deep": sp["ckpt_save"]["attrs"]["deep"]}
+        check(sorted(commits) == [3, 6, 9] and all(
+            c["outcome"] == "committed" for c in commits.values()),
+            f"kept ckpt_save traces {commits}")
+        for i, s in saves.items():
+            s.update(commits[i])
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+
+    # the double buffer at full size: the first commit held, two saves
+    mgr2 = ck.CheckpointManager(os.path.join(work, "ckpt_async2"),
+                                max_to_keep=1, async_commit=True,
+                                commit_delay=2.0)
+    mgr2.save(20, trainer.state)
+    deadline = time.monotonic() + 10.0
+    while mgr2._committing != 20 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    check(mgr2._committing == 20, "the first commit did not start")
+    held = {}
+    for i in (21, 22):
+        t0 = time.perf_counter()
+        mgr2.save(i, trainer.state)
+        held[i] = (time.perf_counter() - t0) * 1e3
+    check(mgr2.superseded_total == 1 and mgr2.inflight() == 2,
+          f"superseded {mgr2.superseded_total}, in flight {mgr2.inflight()}")
+    check(mgr2.flush(timeout=300.0), "the held pipeline did not drain")
+    check(mgr2.committed_total == 2 and mgr2.accounted() and
+          mgr2.all_steps() == [22] and len(mgr2._buffers) == 2,
+          f"committed {mgr2.committed_total}, steps {mgr2.all_steps()}")
+    mgr2.close()
+    mgr.close()
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    shutil.rmtree(os.path.join(work, "ckpt_async2"))
+
+    def mean_ms(rows):
+        return float(np.mean([r["ms"] for r in rows])) if rows else None
+
+    warm = [r for r in steps if not r["cold"]]
+    idle = [r for r in warm if not r["commit_in_flight"]]
+    busy = [r for r in warm if r["commit_in_flight"]]
+    after_save = [r for r in warm if (r["run"], r["step"]) in
+                  (("A", 4), ("B", 10))]
+    return {"params": n_params, "save_bytes_each": save_bytes / 2,
+            "saves": saves, "drain_ms": drain_ms, "steps": steps,
+            "idle_step_ms": mean_ms(idle), "inflight_step_ms": mean_ms(busy),
+            "first_step_after_save_ms": [r["ms"] for r in after_save],
+            "inflight_over_idle": mean_ms(busy) / mean_ms(idle),
+            "tamper": tamper, "restore_prefer_deep": deep_pick,
+            "restore_plain": plain_pick,
+            "restore_prefer_deep_seconds": restore_deep_s,
+            "losses_a": losses_a, "losses_b": losses_b, "bit_equal": True,
+            "held_commit_save_ms": held, "superseded": 1,
+            "launches": {"A": launches_a, "B": launches_b}}
 
 
 def main() -> int:
@@ -2411,6 +2932,14 @@ def run(work) -> int:
     emit(phase="checkpoint", card=card,
          **checkpoint_phase(nn, gpt, engine, optim, framework, work, card))
 
+    # 15d. the same run with the asynchronous pipeline and the deep tier
+    rep = async_checkpoint_phase(nn, gpt, engine, optim, framework, fa, fc,
+                                 work)
+    path_launches = {"async_checkpoint": {
+        k: rep["launches"]["A"][k] + rep["launches"]["B"][k]
+        for k in rep["launches"]["A"]}}
+    emit(phase="async_checkpoint", card=card, **rep)
+
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training
     with staged_route(fc):
@@ -2452,11 +2981,28 @@ def run(work) -> int:
           f"gradient-merge losses {acc['losses']} vs fused_b8 "
           f"{fused_b8_losses[:3]}")
 
+    # 16b. the eager optimizer API: the golden steps of the eleven
+    # optimizers, AdamW against the trainer bit for bit, Lamb, and
+    # GradScaler.minimize
+    from paddle_tpu_torch import amp
+    rep = eager_phase(fa, fc, nn, gpt, engine, optim, framework, amp)
+    path_launches["eager"] = {k: rep["adamw"]["launches"][k] +
+                              rep["lamb"]["launches"][k]
+                              for k in rep["adamw"]["launches"]}
+    emit(phase="eager", card=card, **rep)
+
+    # 16c. remat per block under each policy, batch 32
+    rows = remat_phase(fa, fc, nn, gpt, framework)
+    path_launches["remat_policies"] = {
+        k: sum(r["launches"][k] for r in rows.values())
+        for k in rows["no_recompute"]["launches"]}
+    for policy, row in rows.items():
+        emit(phase="remat_policies", card=card, policy=policy, **row)
+
     # 17. data parallelism over NCCL (one rank): the compressed exchange of
     # real GPT-base gradients, card against CPU, then bench.py's
     # fused_b8_int8dp / fused_b8_int4dp and int8 with four buckets
     import torch.distributed as dist
-    from paddle_tpu_torch import amp
     from paddle_tpu_torch.distributed import compressed as cm
     nccl, gloo, _ = dp_setup()
     try:
@@ -2496,6 +3042,8 @@ def run(work) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SRC,
             "replaces": REPLACES[name], "launches": train_launches[name],
+            "launches_by_path": {path: n[name]
+                                 for path, n in path_launches.items()},
             "max_abs_err": flash_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2511,6 +3059,8 @@ def run(work) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": CE_SRC,
             "replaces": REPLACES[name], "launches": ce_launches[name],
+            "launches_by_path": {path: n[name]
+                                 for path, n in path_launches.items()},
             "max_abs_err": ce_err[name]["abs"],
             "max_norm_err": ce_err[name]["norm"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -9,9 +9,13 @@ bfloat16; the dynamic loss scale is kept for float16 and for parity.
   they are.
 - O2 (``decorate``): the floating parameters of every layer but
   ``LayerNorm`` are cast to the amp dtype in place.
-- ``GradScaler`` keeps the reference's imperative API (``scale``,
-  ``unscale_`` on a grads dict, ``update``, ``state_dict``) and its
-  functional state, which ``ParallelTrainer(scaler=)`` carries on the
+- ``GradScaler`` keeps the reference's imperative API (``scale``;
+  ``unscale_`` on a grads dict, or on an optimizer, whose parameters'
+  ``.grad`` it unscales in place with one host read of the fused
+  all-finite flag, once a step: the ``_already_unscaled`` latch, reset by
+  ``update``; ``step(optimizer)`` and ``minimize(optimizer, loss)``, which
+  skip the optimizer's step on a non-finite gradient; ``update``;
+  ``state_dict``) and its functional state, which ``ParallelTrainer(scaler=)`` carries on the
   device: ``init_scale_state``, ``scale_loss``, ``update_scale_state``
   (the incr/decr policy as ``torch.where``, off the trainer's finite flag)
   and ``unscale_and_update``.
@@ -136,6 +140,7 @@ class GradScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        self._already_unscaled = False
 
     def is_enable(self):
         return self._enable
@@ -158,11 +163,31 @@ class GradScaler:
                     for k, g in grads.items()}
         return unscaled, ~all_finite(unscaled.values())
 
-    def unscale_(self, grads):
-        """(unscaled grads, found_inf) of a grads dict."""
-        return self._unscale_dict(grads, 1.0 / self._scale)
+    def unscale_(self, grads_or_optimizer):
+        """A grads dict: (unscaled grads, found_inf as a 0-d bool tensor).
+        An optimizer: every parameter's ``.grad`` unscaled in place, and
+        whether any is non-finite (a bool, one host read); a second call
+        before ``update`` unscales nothing and returns the same answer."""
+        if isinstance(grads_or_optimizer, dict):
+            return self._unscale_dict(grads_or_optimizer, 1.0 / self._scale)
+        if self._already_unscaled:
+            return self._found_inf
+        from ..resilience.guard import all_finite
+        grads = [p.grad for p in
+                 (grads_or_optimizer._parameter_list or {}).values()
+                 if p.grad is not None]
+        inv = 1.0 / self._scale
+        for g in grads:
+            g.mul_(inv)
+        self._found_inf = not bool(all_finite(grads))
+        self._already_unscaled = True
+        return self._found_inf
 
     def update(self, found_inf=None):
+        # the latch resets on every update, a fixed scale's too (the
+        # reference resets it only under dynamic scaling, which leaves a
+        # fixed scale's later gradients scaled)
+        self._already_unscaled = False
         if not (self._enable and self._dynamic):
             return
         found = self._found_inf if found_inf is None else bool(found_inf)
@@ -179,6 +204,18 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
         self._found_inf = False
+
+    def step(self, optimizer):
+        """Unscale the optimizer's gradients, step it unless one is
+        non-finite, then update the scale."""
+        if not self.unscale_(optimizer):
+            optimizer.step()
+        self.update()
+
+    def minimize(self, optimizer, scaled_loss):
+        """``step(optimizer)``; the backward of ``scaled_loss`` is the
+        caller's."""
+        self.step(optimizer)
 
     # -- functional state (carried by the trainer on its device) ----------
 

@@ -1,8 +1,9 @@
-"""Checkpoints: step-numbered saves with a two-phase commit, restore that
+"""Checkpoints: step-numbered saves with a two-phase commit, an
+asynchronous commit pipeline, a deep tier of content digests, restore that
 falls back past a torn step, and epoch-level auto-resume.
 
-Port of the synchronous core of ``paddle_tpu/distributed/checkpoint.py``.
-The reference writes through orbax; here a checkpoint is plain files.
+Port of ``paddle_tpu/distributed/checkpoint.py``. The reference writes
+through orbax; here a checkpoint is plain files.
 
 - **Layout.** The state is a dict. A checkpoint directory holds one
   ``torch.save`` file per top-level key, ``<key>.pt``: a flat ``{dotted
@@ -33,20 +34,51 @@ The reference writes through orbax; here a checkpoint is plain files.
   ``PADDLE_TPU_TORCH_CKPT_STAGING`` or the temporary directory), counted in
   ``ckpt_retry_bytes_abandoned_total``; ``restore()`` reads a staged step
   when no primary step restores.
+- **Asynchronous commit** (``async_commit=True``). ``save()`` copies the
+  state into a host buffer and returns; a committer thread runs the whole
+  commit (write, fsync, CRC, manifest, retention). On the card the copy
+  is enqueued on the current stream without a wait, into pinned buffers
+  that later saves reuse, so the next step's in-place writes are ordered
+  after it; the committer waits on the copy's event before it reads. One
+  snapshot is committing and one is staged: a newer snapshot supersedes
+  the staged one (``ckpt_suppressed_total{reason="superseded"}``) and the
+  step loop never waits on a commit. ``dirty_probe`` is asked at commit
+  time: True keeps that snapshot off the disk (``reason="dirty"``). Every
+  snapshot ends as committed, superseded, suppressed, failed or
+  abandoned (``accounted()``). Before writing step N the committer
+  durably writes a ``PENDING.N`` marker in the root and removes it after
+  the manifest: a step with a marker and no manifest is an aborted commit,
+  which restores skip without counting a fallback and retention removes.
+  A committer's error is raised at ``flush()`` (which ``restore()``,
+  ``wait_until_finished()`` and ``close()`` call): the injected kill
+  (``SimulatedCrash``) as itself, any other as a RuntimeWarning counted in
+  ``failed_total``.
+- **Deep tier.** ``deep_digests=True`` or ``deep_every=M`` (every M-th
+  save, the first included) records each array's content digest
+  (``resilience/integrity.py``) in the manifest, from the host snapshot
+  (on the committer thread for an asynchronous save). ``verify(step,
+  deep=True)`` reads the step back and re-hashes it, catching a
+  corruption the file CRCs were rewritten over; ``restore(deep=True)``
+  falls back past a step whose values fail (``reason="deep"``), and
+  ``restore(prefer_deep=True)`` takes the newest deep step that verifies
+  before any cheap one.
 - **Telemetry**: ``checkpoint_save_seconds``,
   ``checkpoint_restore_seconds``, ``checkpoint_bytes_total{op}``,
-  ``ckpt_step_stall_ms`` (a synchronous save stalls the step for its whole
-  wall time) and a ``checkpoint`` event per save and restore.
+  ``ckpt_step_stall_ms`` (the time the step loop blocked: a synchronous
+  save's whole wall time, an asynchronous save's snapshot), with
+  :func:`stall_seconds`, the process's total, and
+  :class:`attributing_stall`; ``ckpt_snapshot_ms``, ``ckpt_commit_ms``,
+  the ``ckpt_inflight`` gauge; a ``checkpoint`` event per save and
+  restore, ``ckpt_snapshot`` and ``ckpt_commit`` events, and a
+  ``ckpt_save`` trace whose commit span ends on the committer thread.
+- ``save_checkpoint(use_async=True)`` returns an :class:`AsyncSave` after
+  the host copy; the module keeps one such write in flight.
 - :class:`TrainEpochRange` / :func:`train_epoch_range`: epoch-level
   save and resume over a manager.
 
-Not ported yet, and raising ``NotImplementedError`` that names ROADMAP
-item 25: the asynchronous commit pipeline (``async_commit=True``, its
-PENDING markers, double buffer and ``dirty_probe``), an asynchronous
-``save_checkpoint``, and the deep tier with its content digests
-(``deep_digests``, ``deep_every``, ``deep=True``, ``prefer_deep=True``).
-``use_async`` of the manager is accepted for the reference's signature and
-changes nothing: every save here commits before it returns.
+``use_async`` of the manager is accepted for the reference's signature
+(there it selects orbax's own asynchronous writer) and changes nothing;
+``async_commit`` is the pipeline.
 """
 from __future__ import annotations
 
@@ -54,20 +86,26 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import time
 import warnings
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "CheckpointManager",
-           "TrainEpochRange", "train_epoch_range",
+from ..resilience.integrity import (array_digest, compare_digests,
+                                    tree_digests)
+
+__all__ = ["save_checkpoint", "load_checkpoint", "AsyncSave",
+           "CheckpointManager", "TrainEpochRange", "train_epoch_range",
            "write_manifest", "verify_manifest", "MANIFEST_NAME",
-           "CKPT_RETRY_BYTE_BUDGET_X", "staging_root", "STALL_BUCKETS_MS"]
+           "PENDING_PREFIX", "CKPT_RETRY_BYTE_BUDGET_X", "staging_root",
+           "stall_seconds", "attributing_stall", "STALL_BUCKETS_MS"]
 
 MANIFEST_NAME = "MANIFEST.json"
+PENDING_PREFIX = "PENDING."
 FILE_SUFFIX = ".pt"
 
 # ms-denominated buckets for the step-stall histogram
@@ -78,13 +116,6 @@ STALL_BUCKETS_MS = (
 # retries may move at most this multiple of the state size before the
 # save degrades to local staging (the first attempt always runs)
 CKPT_RETRY_BYTE_BUDGET_X = 3.0
-
-
-def _later(what: str):
-    raise NotImplementedError(
-        f"checkpoint: {what} is not ported yet; it waits in ROADMAP.md "
-        "Queue 1, item 25 (the asynchronous commit pipeline and the deep "
-        "tier)")
 
 
 def staging_root() -> str:
@@ -225,14 +256,44 @@ def _read_dir(path: str, template=None, map_location=None):
 
 # -- telemetry ------------------------------------------------------------------
 
+_stall_lock = threading.Lock()
+_stall_seconds_total = 0.0
+
+
+def stall_seconds() -> float:
+    """Seconds the step loop has blocked on checkpoint saves in this
+    process: a step-time reading diffs it across its window to leave the
+    save's stall out."""
+    with _stall_lock:
+        return _stall_seconds_total
+
+
 def _record_stall(dt: float):
+    """``dt`` seconds of the step loop blocked on a save: the
+    ``ckpt_step_stall_ms`` histogram and the process's ledger."""
+    global _stall_seconds_total
+    with _stall_lock:
+        _stall_seconds_total += dt
     from .. import telemetry
     if telemetry.enabled():
         telemetry.histogram(
             "ckpt_step_stall_ms",
-            "time the step loop blocked on a checkpoint save (a "
-            "synchronous save: the whole write and commit)",
+            "time the step loop blocked on a checkpoint save (asynchronous: "
+            "the snapshot; synchronous: the whole write and commit)",
             buckets=STALL_BUCKETS_MS).observe(dt * 1000.0)
+
+
+class attributing_stall:
+    """Context manager: the block's wall time counts as checkpoint stall
+    (for save paths outside this module)."""
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _record_stall(time.perf_counter() - self._t0)
+        return False
 
 
 def _save_retry_kwargs(nbytes: float) -> dict:
@@ -295,11 +356,13 @@ def _crc_file(path: str, chunk: int = 1 << 20) -> int:
     return c & 0xFFFFFFFF
 
 
-def write_manifest(step_dir: str) -> dict:
+def write_manifest(step_dir: str, arrays: Optional[dict] = None) -> dict:
     """Commit marker: fsync every file under ``step_dir``, then atomically
     write a CRC32/size manifest, last (tmp + fsync + rename + dir fsync):
     a kill at any point leaves no manifest (the step is invalid) or a
-    complete one."""
+    complete one. ``arrays`` (dotted path -> content digest) goes under
+    ``"arrays"``: the file CRCs attest the bytes on disk, the digests the
+    values they decode to (the deep tier)."""
     files = {}
     for root, _dirs, names in os.walk(step_dir):
         for n in sorted(names):
@@ -310,6 +373,8 @@ def write_manifest(step_dir: str) -> dict:
             files[os.path.relpath(p, step_dir)] = {
                 "size": os.path.getsize(p), "crc32": _crc_file(p)}
     manifest = {"version": 1, "files": files}
+    if arrays:
+        manifest["arrays"] = dict(arrays)
     tmp = os.path.join(step_dir, MANIFEST_NAME + ".tmp")
     with open(tmp, "w") as f:
         json.dump(manifest, f)
@@ -346,6 +411,41 @@ def verify_manifest(step_dir: str, level: str = "full") -> Optional[bool]:
     return True
 
 
+# -- intent markers of the asynchronous commit ----------------------------------
+
+def _pending_marker(root: str, step: int) -> str:
+    return os.path.join(root, PENDING_PREFIX + str(step))
+
+
+def _write_pending_marker(root: str, step: int):
+    """Record durably that ``step`` is being committed, before any byte of
+    it is written (the marker fsynced, then the root): a step found with
+    a marker and no manifest is an aborted commit, never a committed
+    step."""
+    path = _pending_marker(root, step)
+    with open(path, "w") as f:
+        f.write(str(step))
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(root)
+
+
+def _clear_pending_marker(root: str, step: int):
+    try:
+        os.remove(_pending_marker(root, step))
+    except OSError:
+        pass
+
+
+def _is_uncommitted(root: str, step: int) -> bool:
+    """An aborted asynchronous commit: a marker and no manifest (a marker
+    beside a manifest is a commit that finished before its marker went;
+    retention clears it)."""
+    return (os.path.exists(_pending_marker(root, step))
+            and not os.path.exists(
+                os.path.join(root, str(step), MANIFEST_NAME)))
+
+
 def _corrupt_one_file(step_dir: str):
     """Fault injection (``ckpt_torn``): truncate the largest data file, what
     a machine lost mid-flush leaves."""
@@ -361,12 +461,13 @@ def _corrupt_one_file(step_dir: str):
             f.truncate(max(1, size // 2))
 
 
-def _stage_save(dest: str, files, nbytes: float, err: BaseException) -> str:
+def _stage_save(dest: str, files, nbytes: float, err: BaseException,
+                arrays: Optional[dict] = None) -> str:
     """The degraded save: a plain write onto local disk, no fault hooks
     and no retry, manifested like a committed step."""
     os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
     _write_dir(dest, files)
-    write_manifest(dest)
+    write_manifest(dest, arrays)
     _count_staged(nbytes)
     warnings.warn(
         f"checkpoint save exceeded its retry byte budget ({err}); "
@@ -376,37 +477,94 @@ def _stage_save(dest: str, files, nbytes: float, err: BaseException) -> str:
 
 # -- one-shot save and load -----------------------------------------------------
 
-def save_checkpoint(path: str, state: Dict[str, Any], overwrite: bool = True,
-                    use_async: bool = False,
-                    staging_dir: Optional[str] = None) -> str:
-    """Save ``state`` (a dict of tensor trees) as a checkpoint directory.
-    Retries are byte-budgeted; past the budget the save lands in
-    ``staging_dir`` (default ``staging_root()/<basename(path)>``). Returns
-    the directory written."""
+def _save_files(path: str, files, nbytes: float,
+                staging_dir: Optional[str]) -> str:
+    """Write a snapshot as the checkpoint directory ``path``, retried and
+    byte-budgeted; past the budget into staging. Returns the directory."""
     from ..resilience import faults
     from ..resilience.retry import RetryBytesExhausted, call_with_retry
-    if use_async:
-        _later("save_checkpoint(use_async=True)")
-    path = os.path.abspath(path)
-    if not overwrite and os.path.exists(path):
-        raise FileExistsError(f"checkpoint {path} exists")
-    t0 = time.perf_counter()
-    files = _host_files(state)
-    nbytes = _nbytes(files)
 
     def _write():
         faults.maybe_raise("ckpt_io", site="save_checkpoint",
                            msg="injected ckpt_io on save")
         _write_dir(path, files)
 
-    out = path
     try:
         call_with_retry(_write, site="ckpt_save", base_delay=0.01,
                         **_save_retry_kwargs(nbytes))
     except RetryBytesExhausted as e:
         out = staging_dir or os.path.join(staging_root(),
                                           os.path.basename(path))
-        _stage_save(out, files, nbytes, e)
+        return _stage_save(out, files, nbytes, e)
+    return path
+
+
+class AsyncSave:
+    """A ``save_checkpoint(use_async=True)`` in flight: the write runs on
+    a daemon thread; :meth:`wait_until_finished` returns the directory
+    written or raises the write's error."""
+
+    def __init__(self, path: str, write: Callable[[], str]):
+        self.path = path
+        self._result: Optional[str] = None
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, args=(write,),
+                                        name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self, write):
+        try:
+            self._result = write()
+        except BaseException as e:  # noqa: BLE001 — raised at the wait
+            self._error = e
+
+    def wait_until_finished(self, timeout: Optional[float] = None) -> str:
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(f"checkpoint write of {self.path} still "
+                               f"running after {timeout} s")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+_writer_lock = threading.Lock()
+_writer: Optional[AsyncSave] = None   # the module's one in-flight write
+
+
+def save_checkpoint(path: str, state: Dict[str, Any], overwrite: bool = True,
+                    use_async: bool = False,
+                    staging_dir: Optional[str] = None):
+    """Save ``state`` (a dict of tensor trees) as a checkpoint directory.
+    Retries are byte-budgeted; past the budget the save lands in
+    ``staging_dir`` (default ``staging_root()/<basename(path)>``). Returns
+    the directory written; with ``use_async`` an :class:`AsyncSave` whose
+    write runs after the host copy. The module keeps one write in flight:
+    a save first waits for the one before it (and raises its error)."""
+    global _writer
+    path = os.path.abspath(path)
+    if not overwrite and os.path.exists(path):
+        raise FileExistsError(f"checkpoint {path} exists")
+    with _writer_lock:
+        prev, _writer = _writer, None
+    if prev is not None:
+        prev.wait_until_finished()
+    t0 = time.perf_counter()
+    files = _host_files(state)
+    nbytes = _nbytes(files)
+    if use_async:
+        _record_stall(time.perf_counter() - t0)
+
+        def _write():
+            out = _save_files(path, files, nbytes, staging_dir)
+            _record("save", time.perf_counter() - t0, nbytes)
+            return out
+
+        handle = AsyncSave(path, _write)
+        with _writer_lock:
+            _writer = handle
+        return handle
+    out = _save_files(path, files, nbytes, staging_dir)
     dt = time.perf_counter() - t0
     _record("save", dt, nbytes)
     _record_stall(dt)
@@ -433,32 +591,90 @@ def _tree_nbytes(tree) -> float:
                      if isinstance(t, torch.Tensor)))
 
 
+# -- the asynchronous pipeline's host buffers --------------------------------
+
+class _HostBuffer:
+    """A host copy of one state: ``{key: {path: tensor}}``, pinned where
+    the source is on the card, reused by every later snapshot of the same
+    structure (``sig``: paths, shapes, dtypes, devices)."""
+
+    def __init__(self, sig, flat):
+        self.sig = sig
+        self.files = {key: {p: torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=t.is_cuda)
+                            for p, t in f.items()}
+                      for key, f in flat.items()}
+
+
+def _signature(flat) -> tuple:
+    return tuple((key, p, tuple(t.shape), t.dtype, t.device.type)
+                 for key, f in flat.items() for p, t in f.items())
+
+
+def _file_digests(files) -> Dict[str, str]:
+    """Content digests of a snapshot, keyed by the manifest's dotted path
+    (``<key>.<path>``; a top-level tensor by its key)."""
+    return {(f"{key}.{p}" if p else key): array_digest(t)
+            for key, f in files.items() for p, t in f.items()}
+
+
 # -- the manager ----------------------------------------------------------------
 
 class CheckpointManager:
     """Step-numbered checkpoints under ``directory`` with retention, a save
-    interval and the two-phase commit (module docstring)."""
+    interval, the two-phase commit, the asynchronous commit pipeline and
+    the deep tier (module docstring).
+
+    ``deep_digests=True`` makes every save deep; ``deep_every=M`` every
+    M-th (saves #0, #M, #2M, ...); ``save(step, state, deep=)`` pins one
+    save's tier. ``async_commit=True``: ``save()`` returns after the host
+    snapshot and a committer thread commits. ``dirty_probe`` (settable at
+    any time) is asked at commit time: True suppresses the commit.
+    ``commit_delay`` sleeps that many seconds before each commit (a test
+    knob that holds a commit in flight)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  save_interval_steps: int = 1, use_async: bool = True,
                  staging_dir: Optional[str] = None,
                  deep_digests: bool = False, async_commit: bool = False,
-                 deep_every: int = 0, dirty_probe=None,
+                 deep_every: int = 0,
+                 dirty_probe: Optional[Callable[[], bool]] = None,
                  commit_delay: float = 0.0):
-        if async_commit or dirty_probe is not None or commit_delay:
-            _later("the asynchronous commit pipeline (async_commit, "
-                   "dirty_probe, commit_delay)")
-        if deep_digests or deep_every:
-            _later("the deep tier (deep_digests, deep_every)")
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self._staging = staging_dir or os.path.join(
             staging_root(), os.path.basename(self._dir))
         self._max_to_keep = max_to_keep
         self._save_interval = max(1, int(save_interval_steps))
+        self._deep_digests = bool(deep_digests)
+        self._deep_every = max(0, int(deep_every))
+        self._save_seq = 0              # save() calls: the tier cadence
         self._vcache: Dict[int, Optional[bool]] = {}
         self.restore_fallbacks_total = 0   # torn steps skipped over
         self.last_restored_step: Optional[int] = None
+        # -- the asynchronous pipeline --
+        self._async_commit = bool(async_commit)
+        self.dirty_probe = dirty_probe
+        self.commit_delay = float(commit_delay)
+        self._fs_lock = threading.RLock()  # disk work, step vs committer
+        self._cv = threading.Condition()
+        # the one staged snapshot: (step, files, deep, trace, buffer, events)
+        self._staged: Optional[tuple] = None
+        self._committing: Optional[int] = None
+        self._committing_buf: Optional[_HostBuffer] = None
+        self._buffers: List[_HostBuffer] = []
+        self._commit_thread: Optional[threading.Thread] = None
+        self._commit_gate = threading.Event()   # cleared: commits paused
+        self._commit_gate.set()
+        self._stopping = False
+        self._thread_error: Optional[BaseException] = None
+        # every snapshot ends as exactly one of these (or is in flight)
+        self.snapshots_total = 0
+        self.committed_total = 0
+        self.superseded_total = 0
+        self.suppressed_dirty_total = 0
+        self.failed_total = 0
+        self.abandoned_total = 0
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self._dir, str(step))
@@ -489,35 +705,88 @@ class CheckpointManager:
             self._vcache[step] = verify_manifest(self._step_dir(step))
         return self._vcache[step]
 
+    def _uncommitted(self, step: int) -> bool:
+        """An aborted asynchronous commit: never a restore candidate, never
+        a counted fallback."""
+        return _is_uncommitted(self._dir, step)
+
     def _delete(self, step: int):
         shutil.rmtree(self._step_dir(step), ignore_errors=True)
         self._vcache.pop(step, None)
 
     def _gc(self):
         """Retention after a verified commit: keep the newest
-        ``max_to_keep`` valid steps and delete the rest (torn debris
-        included); if nothing verifies, delete nothing."""
+        ``max_to_keep`` valid steps and delete the rest, torn steps and the
+        debris of aborted commits (with their markers) included; if
+        nothing verifies, delete nothing. A marker whose step never
+        reached the disk goes too."""
         if not self._max_to_keep:
             return
         steps = self.all_steps()
-        valid = [s for s in steps if self._verify(s) is not False]
+        debris = {s for s in steps if self._uncommitted(s)}
+        valid = [s for s in steps
+                 if s not in debris and self._verify(s) is not False]
         if not valid:
             return
         keep = set(valid[-self._max_to_keep:])
         for s in steps:
-            if s not in keep:
-                self._delete(s)
+            if s in keep or s == self._committing:
+                continue
+            self._delete(s)
+            _clear_pending_marker(self._dir, s)
+        for name in os.listdir(self._dir):
+            if name.startswith(PENDING_PREFIX) and \
+                    name[len(PENDING_PREFIX):].isdigit():
+                s = int(name[len(PENDING_PREFIX):])
+                if not os.path.isdir(self._step_dir(s)):
+                    _clear_pending_marker(self._dir, s)
+
+    # -- the tiers -----------------------------------------------------------
+
+    @property
+    def deep_every(self) -> int:
+        return self._deep_every
+
+    @deep_every.setter
+    def deep_every(self, value: int):
+        self._deep_every = max(0, int(value))
+
+    def _tier_deep(self, explicit: Optional[bool]) -> bool:
+        """This save's tier: ``deep`` when given, else ``deep_digests``,
+        else the ``deep_every`` cadence (save #0 is deep, so a run always
+        has a deep anchor)."""
+        if explicit is not None:
+            return bool(explicit)
+        if self._deep_digests:
+            return True
+        if self._deep_every:
+            return self._save_seq % self._deep_every == 0
+        return False
+
+    def _manifest_arrays(self, step: int) -> Optional[dict]:
+        """The step's recorded content digests (None: a cheap step, or no
+        readable manifest)."""
+        try:
+            with open(os.path.join(self._step_dir(step), MANIFEST_NAME)) as f:
+                return json.load(f).get("arrays") or None
+        except (OSError, ValueError):
+            return None
+
+    # -- saving --------------------------------------------------------------
 
     def save(self, step: int, state: Dict[str, Any],
              deep: Optional[bool] = None) -> bool:
-        """Persist ``state`` as ``step`` and commit it; False when the
-        save interval or an existing newer step skips it. A step that
-        exists already (a restart replaying it) is replaced."""
+        """Persist ``state`` as ``step``; False when the save interval or
+        an existing newer step skips it. A step that exists already (a
+        restart replaying it) is replaced. ``deep`` pins this save's tier.
+        With ``async_commit`` the call returns after the host snapshot."""
         from ..resilience import faults
         from ..resilience.retry import RetryBytesExhausted, call_with_retry
-        if deep:
-            _later("save(deep=True)")
         step = int(step)
+        tier_deep = self._tier_deep(deep)
+        self._save_seq += 1
+        if self._async_commit:
+            return self._save_async(step, state, tier_deep)
         if step in self.all_steps():
             self._delete(step)
         latest = self.latest_step()
@@ -527,6 +796,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         files = _host_files(state)
         nbytes = _nbytes(files)
+        arrays = _file_digests(files) if tier_deep else None
         sdir = self._step_dir(step)
 
         def _write():
@@ -541,20 +811,342 @@ class CheckpointManager:
             # the primary directory is too costly to keep re-writing:
             # stage locally; restore() reads staged steps only when no
             # primary step restores
-            _stage_save(self._staged_step_dir(step), files, nbytes, e)
+            _stage_save(self._staged_step_dir(step), files, nbytes, e,
+                        arrays)
         else:
             if faults.fires("ckpt_torn", step=step, site="ckpt_commit"):
                 _corrupt_one_file(sdir)
                 self._vcache.pop(step, None)
                 raise faults.SimulatedCrash(
                     f"simulated kill -9 committing checkpoint step {step}")
-            write_manifest(sdir)
+            write_manifest(sdir, arrays)
+            # a synchronous replay of an aborted commit: retire its marker
+            _clear_pending_marker(self._dir, step)
             self._vcache[step] = True
             self._gc()
         dt = time.perf_counter() - t0
         _record("save", dt, nbytes, step=step)
         _record_stall(dt)  # a synchronous save stalls the step for its wall
         return True
+
+    # -- the asynchronous pipeline -------------------------------------------
+
+    @property
+    def async_commit(self) -> bool:
+        return self._async_commit
+
+    def accounted(self) -> bool:
+        """Every snapshot ended (committed, superseded, suppressed, failed
+        or abandoned) and none is in flight."""
+        with self._cv:
+            in_flight = (self._staged is not None
+                         or self._committing is not None)
+            total = (self.committed_total + self.superseded_total
+                     + self.suppressed_dirty_total + self.failed_total
+                     + self.abandoned_total)
+            return not in_flight and total == self.snapshots_total
+
+    def inflight(self) -> int:
+        """Snapshots staged or mid-commit (0, 1 or 2)."""
+        with self._cv:
+            return int(self._staged is not None) + \
+                int(self._committing is not None)
+
+    def pause_commits(self):
+        """Hold the committer before its next commit (the deterministic
+        window between a snapshot and its commit, for tests)."""
+        self._commit_gate.clear()
+
+    def resume_commits(self):
+        self._commit_gate.set()
+        with self._cv:
+            self._cv.notify_all()
+
+    def _count_suppressed(self, reason: str):
+        from .. import telemetry
+        if reason == "dirty":
+            self.suppressed_dirty_total += 1
+        else:
+            self.superseded_total += 1
+        if telemetry.enabled():
+            telemetry.counter(
+                "ckpt_suppressed_total",
+                "asynchronous snapshots whose commit was suppressed (dirty: "
+                "the dirty probe answered True at commit time; superseded: "
+                "a newer snapshot replaced it)").inc(reason=reason)
+
+    def _set_inflight_gauge(self):
+        from .. import telemetry
+        if telemetry.enabled():
+            telemetry.gauge(
+                "ckpt_inflight",
+                "snapshots staged or mid-commit (asynchronous pipeline)"
+            ).set(self.inflight())
+
+    def _take_buffer(self, sig, step: int) -> Optional[_HostBuffer]:
+        """Under ``_cv``: a buffer of this structure that no staged or
+        committing snapshot holds. With both slots full the staged
+        snapshot is superseded here and its buffer reused. None: allocate
+        one (free buffers of another structure are dropped)."""
+        staged_buf = self._staged[4] if self._staged is not None else None
+        busy = [b for b in (staged_buf, self._committing_buf)
+                if b is not None]
+        for b in self._buffers:
+            if b.sig == sig and all(b is not x for x in busy):
+                return b
+        if staged_buf is not None and self._committing is not None and \
+                staged_buf.sig == sig:
+            self._supersede_staged(step)
+            return staged_buf
+        self._buffers = busy
+        return None
+
+    def _supersede_staged(self, by_step: int):
+        """Under ``_cv``: the staged snapshot ends as superseded."""
+        tr = self._staged[3]
+        self._staged = None
+        self._count_suppressed("superseded")
+        if tr is not None:
+            tr.close("superseded", superseded_by=by_step)
+
+    def _snapshot_host(self, state, step: int) -> tuple:
+        """The step-path half of an asynchronous save: every leaf copied
+        into a reused host buffer, from the card on the current stream
+        without a wait (``non_blocking`` into pinned memory: ordered
+        before the next step's in-place writes). Returns (buffer, events):
+        the committer waits on the events before it reads the buffer."""
+        _check_state(state)
+        flat = {key: {p: _leaf_tensor(v)
+                      for p, v in _flatten(sub, "", {}).items()}
+                for key, sub in state.items()}
+        sig = _signature(flat)
+        with self._cv:
+            buf = self._take_buffer(sig, step)
+        if buf is None:
+            buf = _HostBuffer(sig, flat)   # pinned: raises if it cannot be
+            with self._cv:
+                self._buffers.append(buf)
+        devices = set()
+        with torch.no_grad():
+            for key, f in flat.items():
+                for p, t in f.items():
+                    buf.files[key][p].copy_(t, non_blocking=t.is_cuda)
+                    if t.is_cuda:
+                        devices.add(t.device)
+        events = []
+        for dev in devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        return buf, events
+
+    def _save_async(self, step: int, state, deep: bool) -> bool:
+        """Snapshot, stage, return; a staged snapshot not yet taken by the
+        committer is superseded (the step loop never waits on a commit)."""
+        from .. import telemetry
+        from ..telemetry import tracing
+        self._raise_thread_error()
+        if step % self._save_interval:
+            return False
+        t0 = time.perf_counter()
+        tr = tracing.start_trace("ckpt_save", step=step, deep=bool(deep))
+        sp = tr.span("snapshot", step=step) if tr is not None else None
+        with self._cv:
+            self.snapshots_total += 1
+        buf, events = self._snapshot_host(state, step)
+        dt = time.perf_counter() - t0
+        if sp is not None:
+            sp.end("ok")
+        with self._cv:
+            if self._staged is not None:
+                self._supersede_staged(step)
+            self._staged = (step, buf.files, deep, tr, buf, events)
+            self._cv.notify_all()
+        self._ensure_committer()
+        self._set_inflight_gauge()
+        _record_stall(dt)
+        if telemetry.enabled():
+            telemetry.histogram(
+                "ckpt_snapshot_ms",
+                "device-to-host copy into the snapshot buffer, host time "
+                "(the only part of an asynchronous save on the step path)",
+                buckets=STALL_BUCKETS_MS).observe(dt * 1000.0)
+            telemetry.emit("ckpt_snapshot", step=step, deep=bool(deep),
+                           snapshot_ms=dt * 1000.0)
+        return True
+
+    def _ensure_committer(self):
+        if self._commit_thread is None or not self._commit_thread.is_alive():
+            self._stopping = False
+            self._commit_thread = threading.Thread(
+                target=self._commit_loop, name="ckpt-committer", daemon=True)
+            self._commit_thread.start()
+
+    def _commit_loop(self):
+        while True:
+            with self._cv:
+                while not self._stopping and (
+                        self._staged is None
+                        or not self._commit_gate.is_set()):
+                    self._cv.wait(timeout=0.05)
+                if self._staged is None or not self._commit_gate.is_set():
+                    if self._stopping:
+                        return
+                    continue
+                step, files, deep, trace, buf, events = self._staged
+                self._staged = None
+                self._committing = step
+                self._committing_buf = buf
+            try:
+                self._commit_one(step, files, deep, trace, events)
+            except BaseException as e:  # noqa: BLE001 — raised at flush()
+                with self._cv:
+                    self.failed_total += 1
+                    self._thread_error = e
+                if trace is not None:
+                    trace.close("failed", error=repr(e))
+            finally:
+                with self._cv:
+                    self._committing = None
+                    self._committing_buf = None
+                    self._cv.notify_all()
+                self._set_inflight_gauge()
+
+    def _commit_one(self, step: int, files, deep: bool, trace, events):
+        """The committer's half: the dirty probe, the PENDING marker, the
+        write (retried and byte-budgeted as a synchronous save), the
+        manifest, retention."""
+        from .. import telemetry
+        from ..resilience import faults
+        from ..resilience.retry import RetryBytesExhausted, call_with_retry
+        sp = trace.span("commit", step=step) if trace is not None else None
+
+        def _finish(outcome: str, **attrs):
+            if sp is not None:
+                sp.end(outcome, **attrs)
+            if trace is not None:
+                trace.close(outcome)
+
+        if self.commit_delay > 0:
+            time.sleep(self.commit_delay)
+        # asked at commit time: a verdict that arrived after the snapshot
+        # keeps the tainted state off the disk
+        probe = self.dirty_probe
+        if probe is not None and probe():
+            with self._cv:
+                self._count_suppressed("dirty")
+            if telemetry.enabled():
+                telemetry.emit("ckpt_commit", step=step, outcome="dirty")
+            _finish("dirty")
+            return
+        for ev in events:
+            ev.synchronize()       # the snapshot's copies have landed
+        t0 = time.perf_counter()
+        nbytes = _nbytes(files)
+        arrays = _file_digests(files) if deep else None
+        with self._fs_lock:
+            # the marker is durable before any byte of the step
+            _write_pending_marker(self._dir, step)
+            if step in self.all_steps():
+                self._delete(step)
+            latest = self.latest_step()
+            if latest is not None and latest >= step:
+                _clear_pending_marker(self._dir, step)
+                with self._cv:
+                    self._count_suppressed("superseded")
+                _finish("superseded")
+                return
+            sdir = self._step_dir(step)
+
+            def _write():
+                faults.maybe_raise(
+                    "ckpt_io", step=step, site="async_commit",
+                    msg=f"injected ckpt_io committing step {step}")
+                _write_dir(sdir, files)
+
+            try:
+                call_with_retry(_write, site="ckpt_save", base_delay=0.01,
+                                **_save_retry_kwargs(nbytes))
+            except RetryBytesExhausted as e:
+                _stage_save(self._staged_step_dir(step), files, nbytes, e,
+                            arrays)
+                _clear_pending_marker(self._dir, step)
+                with self._cv:
+                    self.committed_total += 1   # durable, degraded
+                _finish("degraded", bytes_budget=True)
+                return
+            if faults.fires("ckpt_torn", step=step, site="ckpt_commit"):
+                # the kill -9 window: a torn payload, no manifest, the
+                # marker left: the step stays invisible to restores
+                _corrupt_one_file(sdir)
+                self._vcache.pop(step, None)
+                raise faults.SimulatedCrash(
+                    f"simulated kill -9 committing checkpoint step {step}")
+            write_manifest(sdir, arrays)
+            _clear_pending_marker(self._dir, step)
+            self._vcache[step] = True
+            with self._cv:
+                self.committed_total += 1
+            self._gc()
+        dt = time.perf_counter() - t0
+        _record("save", dt, nbytes, step=step)
+        if telemetry.enabled():
+            telemetry.histogram(
+                "ckpt_commit_ms",
+                "write, fsync, CRC, manifest and retention of one committed "
+                "step on the committer thread (off the step path)",
+                buckets=STALL_BUCKETS_MS).observe(dt * 1000.0)
+            telemetry.emit("ckpt_commit", step=step, outcome="committed",
+                           deep=bool(deep), commit_ms=dt * 1000.0)
+        _finish("committed", commit_ms=dt * 1000.0)
+
+    def _raise_thread_error(self):
+        """A committer's ``SimulatedCrash`` (the injected kill -9) is raised
+        here, at the step boundary, as the synchronous pipeline raises it;
+        any other commit failure is a RuntimeWarning (it is counted in
+        ``failed_total``)."""
+        with self._cv:
+            err, self._thread_error = self._thread_error, None
+        if err is not None:
+            from ..resilience import faults
+            if isinstance(err, faults.SimulatedCrash):
+                raise err
+            warnings.warn(f"asynchronous checkpoint commit failed: {err!r}",
+                          RuntimeWarning)
+
+    def flush(self, timeout: Optional[float] = None) -> bool:
+        """Wait until no snapshot is staged or mid-commit (resuming paused
+        commits); False on timeout. Raises a committer's
+        ``SimulatedCrash``."""
+        if self._async_commit and not self._commit_gate.is_set() and \
+                self.inflight():
+            warnings.warn("flush() while commits are paused: resuming",
+                          RuntimeWarning)
+            self.resume_commits()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while self._staged is not None or self._committing is not None:
+                wait = 0.1 if deadline is None else min(
+                    0.1, deadline - time.monotonic())
+                if wait <= 0:
+                    return False
+                self._cv.wait(timeout=wait)
+        self._raise_thread_error()
+        return True
+
+    def abandon(self):
+        """Drop the staged snapshot without committing it (a process that
+        dies mid-pipeline, in process)."""
+        with self._cv:
+            if self._staged is not None:
+                tr = self._staged[3]
+                if tr is not None:
+                    tr.close("abandoned")
+                self._staged = None
+                self.abandoned_total += 1
+            self._cv.notify_all()
+
+    # -- restoring -----------------------------------------------------------
 
     def _count_fallbacks(self, n: int, reason: str = "manifest"):
         if not n:
@@ -567,62 +1159,138 @@ class CheckpointManager:
                 "restores that skipped corrupt/torn checkpoints").inc(
                     n, reason=reason)
 
-    def _restore_dir(self, path: str, template, step: int):
+    def _read(self, path: str, template):
         from ..resilience.retry import call_with_retry
-        t0 = time.perf_counter()
-        out = call_with_retry(_read_dir, path, template, None,
-                              site="ckpt_restore", tries=2, base_delay=0.01)
+        return call_with_retry(_read_dir, path, template, None,
+                               site="ckpt_restore", tries=2, base_delay=0.01)
+
+    def _restored(self, out, step: int, t0: float):
         _record("restore", time.perf_counter() - t0, _tree_nbytes(out),
                 step=step)
         self.last_restored_step = step
         return out
 
+    def _deep_verify(self, step: int, template=None):
+        """(verdict, payload): the step read back and every array re-hashed
+        against the digests recorded at save time. True: all match, and
+        the payload is the restore; False: a mismatch or an unreadable
+        payload; None: no digests recorded. The payload is None unless the
+        verdict is True."""
+        recorded = self._manifest_arrays(step)
+        if not recorded:
+            return None, None
+        try:
+            out = self._read(self._step_dir(step), template)
+        except Exception:  # noqa: BLE001 — an unreadable payload fails
+            return False, None
+        if compare_digests(recorded, tree_digests(out)):
+            return False, None
+        return True, out
+
     def verify(self, step: int, deep: bool = False) -> Optional[bool]:
-        """Re-verify a committed step's files (size and CRC32) from disk."""
-        if deep:
-            _later("verify(deep=True)")
+        """Re-verify a committed step from disk: the files (size and
+        CRC32); with ``deep`` also the values against the recorded
+        digests (the shallow verdict where none were recorded)."""
         self._vcache.pop(step, None)
-        return self._verify(step)
+        shallow = self._verify(step)
+        if shallow is False or not deep:
+            return shallow
+        dv, _ = self._deep_verify(step)
+        return shallow if dv is None else dv
 
     def restore(self, step: Optional[int] = None,
                 template: Optional[Dict[str, Any]] = None,
                 deep: bool = False, prefer_deep: bool = False):
-        """Read ``step`` (verified, no fallback), or without one the newest
-        step that verifies and reads, then the newest staged one; None when
-        nothing restores. ``template``: as :func:`load_checkpoint`."""
-        if deep or prefer_deep:
-            _later("restore(deep=True / prefer_deep=True)")
+        """Read ``step`` (verified, no fallback; with ``deep`` its values
+        must match its digests, else OSError), or without one the newest
+        step that verifies and reads, then the newest staged one; None
+        when nothing restores. ``prefer_deep``: the newest deep step whose
+        values verify wins first, the cheap steps are the fallback.
+        ``deep``: a step with digests must match them. Aborted commits are
+        skipped and not counted. The pipeline is flushed first.
+        ``template``: as :func:`load_checkpoint`."""
+        if self._async_commit:
+            self.flush()
         if step is not None:
+            if self._uncommitted(step):
+                raise OSError(f"checkpoint step {step} was never committed "
+                              "(an aborted asynchronous save)")
             self._vcache.pop(step, None)
             if self._verify(step) is False:
                 raise OSError(
                     f"checkpoint step {step} failed manifest verification")
-            return self._restore_dir(self._step_dir(step), template, step)
-        for s in reversed(self.all_steps()):
+            t0 = time.perf_counter()
+            out = self._read(self._step_dir(step), template)
+            recorded = self._manifest_arrays(step) if deep else None
+            if recorded:
+                bad = compare_digests(recorded, tree_digests(out))
+                if bad:
+                    raise OSError(f"checkpoint step {step} failed deep "
+                                  f"verification: {bad[:4]}")
+            return self._restored(out, step, t0)
+        steps_desc = [s for s in reversed(self.all_steps())
+                      if not self._uncommitted(s)]
+        deep_failed = set()
+        if prefer_deep:
+            # pass 1: the newest deep step whose values verify; cheap steps
+            # are no candidates here and cost no fallback
+            for s in steps_desc:
+                if self._manifest_arrays(s) is None:
+                    continue
+                self._vcache.pop(s, None)
+                if self._verify(s) is False:
+                    self._count_fallbacks(1, reason="manifest")
+                    deep_failed.add(s)
+                    continue
+                t0 = time.perf_counter()
+                dv, out = self._deep_verify(s, template)
+                if dv:
+                    return self._restored(out, s, t0)
+                self._count_fallbacks(1, reason="deep")
+                deep_failed.add(s)
+        for s in steps_desc:
+            if s in deep_failed:
+                continue
             self._vcache.pop(s, None)
             if self._verify(s) is False:
                 self._count_fallbacks(1, reason="manifest")
                 continue
+            t0 = time.perf_counter()
+            if deep:
+                dv, out = self._deep_verify(s, template)
+                if dv is False:
+                    # the bytes check out, the values do not
+                    self._count_fallbacks(1, reason="deep")
+                    continue
+                if dv:
+                    return self._restored(out, s, t0)
             try:
-                return self._restore_dir(self._step_dir(s), template, s)
+                out = self._read(self._step_dir(s), template)
             except Exception:  # noqa: BLE001 — any unreadable step falls back
                 self._count_fallbacks(1, reason="restore")
+                continue
+            return self._restored(out, s, t0)
         for s in reversed(self.staged_steps()):
             sdir = self._staged_step_dir(s)
             if verify_manifest(sdir) is False:
                 self._count_fallbacks(1, reason="staged")
                 continue
+            t0 = time.perf_counter()
             try:
-                return self._restore_dir(sdir, template, s)
+                out = self._read(sdir, template)
             except Exception:  # noqa: BLE001
                 self._count_fallbacks(1, reason="staged")
+                continue
+            return self._restored(out, s, t0)
         return None
 
     def latest_valid_step(self) -> Optional[int]:
-        """Newest step that passes (or predates) manifest verification: a
-        size-only pass rejects truncated or missing files before the full
-        CRC pass."""
+        """Newest step that passes (or predates) manifest verification,
+        aborted commits skipped: a size-only pass rejects truncated or
+        missing files before the full CRC pass."""
         for s in reversed(self.all_steps()):
+            if self._uncommitted(s):
+                continue
             if verify_manifest(self._step_dir(s), level="size") is False:
                 self._vcache[s] = False
                 continue
@@ -631,10 +1299,24 @@ class CheckpointManager:
         return None
 
     def wait_until_finished(self):
-        """Every save commits before it returns: nothing to wait for."""
+        """Wait for the asynchronous pipeline to drain (a synchronous save
+        has committed before it returned)."""
+        if self._async_commit:
+            self.flush()
 
     def close(self):
-        """Nothing stays open between saves."""
+        """Drain the pipeline, stop the committer and free the snapshot
+        buffers."""
+        try:
+            if self._async_commit:
+                self.flush()
+        finally:
+            with self._cv:
+                self._stopping = True
+                self._cv.notify_all()
+            if self._commit_thread is not None:
+                self._commit_thread.join(timeout=5.0)
+            self._buffers = []
 
 
 class TrainEpochRange:

@@ -637,7 +637,9 @@ class ParallelTrainer:
 
     def save_checkpoint(self, path: str, use_async: bool = False):
         """Save :attr:`state` as a checkpoint directory
-        (``distributed/checkpoint.py``)."""
+        (``distributed/checkpoint.py``); returns the directory, or with
+        ``use_async`` an ``AsyncSave`` once the host copy is taken (its
+        ``wait_until_finished()`` returns the directory)."""
         from .checkpoint import save_checkpoint as _save
         self._single_rank("save_checkpoint")
         return _save(path, self.state, use_async=use_async)

@@ -1,9 +1,29 @@
-"""Optimizers: ``Optimizer``, ``SGD``, ``Momentum``, ``Adam`` and ``AdamW``.
+"""Optimizers: ``Optimizer`` and its eleven: ``SGD``, ``Momentum``,
+``DGCMomentum``, ``Adagrad``, ``Adadelta``, ``Adam``, ``AdamW``, ``Adamax``,
+``RMSProp``, ``Lamb`` and ``Lars`` (alias ``LarsMomentum``).
 
-Port of ``paddle_tpu/optimizer/optimizer.py``'s functional core. An
-optimizer is two functions over ``{name: tensor}`` dicts that the trainer
-calls: ``init_state(params)`` and ``apply_gradients(params, grads, state,
-lr) -> (new_params, new_state)``. The math is the reference's:
+Port of ``paddle_tpu/optimizer/optimizer.py``. An optimizer is two
+functions over ``{key: tensor}`` dicts that the trainer calls:
+``init_state(params)`` and ``apply_gradients(params, grads, state, lr,
+lr_scales) -> (new_params, new_state)``; ``lr_scales`` multiplies the
+learning rate of the keys it names. The eager API is a thin wrapper over
+the same path, as in the reference:
+
+- ``parameters`` is a list of ``nn.Parameter``, or of ``(name, param)``
+  pairs as ``named_parameters()`` gives them. A parameter's key is its
+  name where one is given, else its position in the list; ``Lamb``'s
+  ``exclude_from_weight_decay_fn`` and ``Lars``'s
+  ``exclude_from_weight_decay`` match on the key.
+- ``step()`` reads each ``p.grad`` and writes each parameter in place
+  under ``no_grad``. A frozen parameter (``requires_grad`` False) or one
+  without a gradient keeps its value and its slots. The per-parameter
+  learning-rate scale is ``p.optimize_attr["learning_rate"]`` where the
+  attribute is set. The state is made on the parameters' device at the
+  first step; a parameter on another device raises.
+- ``minimize(loss)`` is ``step()``; ``clear_grad()`` (``clear_gradients``)
+  sets every ``p.grad`` to None.
+
+The math is the reference's:
 
 - grads and params are upcast to float32; the update runs in float32 and
   the result is cast back to each parameter's dtype (a bfloat16 model
@@ -17,13 +37,22 @@ lr) -> (new_params, new_state)``. The math is the reference's:
   those whose name it accepts (GPT and BERT recipes keep biases and
   LayerNorm out);
 - ``Momentum`` keeps a float32 ``velocity`` slot (``v = mu * v + g``, with
-  the Nesterov variant); ``SGD`` keeps none;
+  the Nesterov variant); ``SGD`` keeps none; the other seven keep float32
+  slots;
+- ``DGCMomentum`` sends the top of the accumulated residual by magnitude:
+  the threshold is the value at the sparsity's quantile, which
+  ``torch.kthvalue`` gives without a sort (one host read of ``k`` a
+  tensor); its rampup schedule is read with integer floor division on the
+  step, on the device;
+- ``Lamb`` and ``Lars`` scale each tensor's step by a trust ratio of
+  norms (the per-key hook ``_update_with_key``);
 - the step count is a 0-d int32 tensor on the parameters' device, so bias
   correction reads no host value.
 
 ``state_dict()``/``set_state_dict()`` carry the optimizer state (``step``
-and ``slots``, which ``ParallelTrainer`` keeps on its optimizer as
-``optimizer.state``) and an ``LRScheduler``'s state, as the reference's.
+and ``slots``: ``ParallelTrainer`` keeps its own on the optimizer as
+``optimizer.state``, and ``step()`` keeps the eager state there too) and an
+``LRScheduler``'s state, as the reference's.
 
 ``torch.optim.AdamW`` is not used: on bfloat16 parameters its math runs in
 bfloat16. The learning rate is a float or an ``LRScheduler``
@@ -33,6 +62,7 @@ a scheduler. ``weight_decay`` is a float or an ``L1Decay``/``L2Decay``
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
@@ -40,8 +70,9 @@ import torch
 from .clip import clip_grads
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
-           "slot_dtype_of"]
+__all__ = ["Optimizer", "SGD", "Momentum", "DGCMomentum", "Adagrad",
+           "Adadelta", "Adam", "AdamW", "Adamax", "RMSProp", "Lamb", "Lars",
+           "LarsMomentum", "slot_dtype_of"]
 
 # the slot dtypes a name may give (the reference reads it with jnp.dtype)
 _SLOT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -64,18 +95,33 @@ def slot_dtype_of(value) -> torch.dtype:
     return _SLOT_DTYPES[name]
 
 
+def _keyed(parameters) -> "OrderedDict[object, torch.nn.Parameter]":
+    """``{key: parameter}``: the name of a ``(name, param)`` pair, else the
+    position in the list."""
+    out = OrderedDict()
+    for i, item in enumerate(parameters):
+        key, p = item if isinstance(item, tuple) else (i, item)
+        if not isinstance(p, torch.Tensor):
+            raise TypeError(f"parameters[{i}]: expected a tensor or a "
+                            f"(name, tensor) pair, got {type(item)}")
+        if key in out:
+            raise ValueError(f"parameter key {key!r} given twice")
+        out[key] = p
+    return out
+
+
 class Optimizer:
     _decoupled_wd = False   # True for AdamW-style decoupled decay
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, multi_precision=False):
-        # parameters: accepted as the reference takes it; the trainer hands
-        # apply_gradients the parameters by name (no eager step() here)
         self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
             else float(learning_rate)
+        self._parameter_list = (_keyed(parameters) if parameters is not None
+                                else None)
         self.regularization = weight_decay
         self._grad_clip = grad_clip
-        # {"step", "slots"} of the trainer this optimizer drives
+        # {"step", "slots"}: the trainer's, or the eager step()'s
         self.state = None
 
     def get_lr(self) -> float:
@@ -110,6 +156,10 @@ class Optimizer:
         """Per-parameter float32 update -> (new_p, new_slots)."""
         raise NotImplementedError
 
+    def _update_with_key(self, key, p, g, slots, lr, step):
+        """Per-key hook (Lamb and Lars exclude keys from their decay)."""
+        return self.update(p, g, slots, lr, step)
+
     def init_state(self, params: Dict[str, torch.Tensor]):
         dev = next(iter(params.values())).device if params else "cpu"
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
@@ -117,9 +167,11 @@ class Optimizer:
 
     def apply_gradients(self, params: Dict[str, torch.Tensor],
                         grads: Dict[str, Optional[torch.Tensor]], state,
-                        lr: Optional[float] = None):
+                        lr: Optional[float] = None,
+                        lr_scales: Optional[Dict[str, float]] = None):
         """(params, grads, state) -> (new_params, new_state); reads and
-        writes no tensor in place."""
+        writes no tensor in place. ``lr_scales[key]`` multiplies that key's
+        learning rate."""
         lr = self.get_lr() if lr is None else float(lr)
         grads = clip_grads(grads, self._grad_clip)
         wd, decoupled = self._wd_coeff()
@@ -139,12 +191,54 @@ class Optimizer:
                     g = g + reg(p32, g)      # L1Decay: coeff * sign(p)
                 else:
                     g = g + wd * p32
-            np_, ns = self.update(p32, g, state["slots"][k], lr, step)
+            p_lr = lr * (lr_scales.get(k, 1.0) if lr_scales else 1.0)
+            np_, ns = self._update_with_key(k, p32, g, state["slots"][k],
+                                            p_lr, step)
             if wd and decoupled and self._decays(k):
-                np_ = np_ - lr * wd * p32
+                np_ = np_ - p_lr * wd * p32
             new_params[k] = np_.to(p.dtype)
             new_slots[k] = ns
         return new_params, {"step": step, "slots": new_slots}
+
+    # -- the eager API ---------------------------------------------------------
+
+    @torch.no_grad()
+    def step(self):
+        """One update of every parameter from its ``.grad``, in place."""
+        plist = self._parameter_list
+        if plist is None:
+            raise ValueError("optimizer created without parameters")
+        params = OrderedDict((k, p.detach()) for k, p in plist.items())
+        if self.state is None:
+            self.state = self.init_state(params)
+        dev = self.state["step"].device
+        for k, p in plist.items():
+            if p.device != dev:
+                raise RuntimeError(
+                    f"parameter {k!r} is on {p.device}, the optimizer state "
+                    f"on {dev}")
+        grads = OrderedDict((k, p.grad if p.requires_grad else None)
+                            for k, p in plist.items())
+        lr_scales = {k: float(getattr(p, "optimize_attr", {}).get(
+            "learning_rate", 1.0)) for k, p in plist.items()}
+        new_params, self.state = self.apply_gradients(
+            params, grads, self.state, lr_scales=lr_scales)
+        for k, p in plist.items():
+            if grads[k] is not None:
+                p.copy_(new_params[k])
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``step()`` (the backward is the caller's, as in the reference's
+        dygraph mode)."""
+        self.step()
+        return None, None
+
+    def clear_grad(self):
+        for p in (self._parameter_list or {}).values():
+            p.grad = None
+
+    clear_gradients = clear_grad
 
     def state_dict(self) -> dict:
         """``{"state": {"step", "slots"}}`` (new dicts over the same
@@ -197,6 +291,106 @@ class Momentum(Optimizer):
         return p, {"velocity": v}
 
 
+def _zeros(value):
+    return torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+
+
+class DGCMomentum(Optimizer):
+    """Deep Gradient Compression momentum: momentum correction and top-k
+    sparsification with local accumulation; unsent mass stays in the
+    residual ``v`` until its coordinates enter the top k. The sparsity
+    follows the rampup schedule from ``rampup_begin_step``. As in the
+    reference, the selection applies to the already-averaged gradient."""
+
+    def __init__(self, learning_rate, momentum=0.9, parameters=None,
+                 rampup_begin_step=0, rampup_step=1, sparsity=(0.999,),
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, **kw):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._rampup_begin = int(rampup_begin_step)
+        self._rampup_step = max(int(rampup_step), 1)
+        self._sparsity = tuple(sparsity)
+
+    def init_slots(self, value):
+        return {"u": _zeros(value), "v": _zeros(value)}
+
+    def _sparsity_at(self, step):
+        """The schedule's entry at ``step`` (a 0-d int32 tensor), 0 up to
+        ``rampup_begin_step``; integer floor division as the reference."""
+        n = len(self._sparsity)
+        idx = torch.clamp((step - self._rampup_begin) * n
+                          // self._rampup_step, 0, n - 1)
+        sched = torch.tensor(self._sparsity, dtype=torch.float32).to(
+            step.device)
+        return torch.where(step <= self._rampup_begin,
+                           torch.zeros_like(sched[0]), sched[idx.long()])
+
+    def update(self, p, g, slots, lr, step):
+        u = self._momentum * slots["u"] + g        # momentum correction
+        v = slots["v"] + u                          # local accumulation
+        sp = self._sparsity_at(step)
+        n = v.numel()
+        if n > 1:
+            # the threshold is sort(|v|)[k], the (k + 1)-th smallest
+            k = torch.clamp((sp * n).to(torch.int32), 0, n - 1)
+            thr = torch.kthvalue(v.abs().reshape(-1), int(k) + 1).values
+            mask = (v.abs() >= thr) | (sp <= 0.0)
+        else:
+            mask = torch.ones_like(v, dtype=torch.bool)
+        sent = torch.where(mask, v, 0.0)
+        v_rem = torch.where(mask, 0.0, v)
+        upd = sent
+        if self._use_nesterov:
+            upd = sent + self._momentum * torch.where(mask, u, 0.0)
+        return p - lr * upd, {"u": u, "v": v_rem}
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def init_slots(self, value):
+        return {"moment": torch.full(value.shape, self._init_acc,
+                                     dtype=torch.float32,
+                                     device=value.device)}
+
+    def update(self, p, g, slots, lr, step):
+        m = slots["moment"] + g.square()
+        return p - lr * g / (m.sqrt() + self._epsilon), {"moment": m}
+
+
+class Adadelta(Optimizer):
+    """The running averages of squared gradients and squared updates."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon, self._rho = epsilon, rho
+
+    def init_slots(self, value):
+        return {"avg_squared_grad": _zeros(value),
+                "avg_squared_update": _zeros(value)}
+
+    def update(self, p, g, slots, lr, step):
+        rho, eps = self._rho, self._epsilon
+        asg = rho * slots["avg_squared_grad"] + (1 - rho) * g.square()
+        upd = g * (slots["avg_squared_update"] + eps).sqrt() / \
+            (asg + eps).sqrt()
+        asu = rho * slots["avg_squared_update"] + (1 - rho) * upd.square()
+        return p - lr * upd, {"avg_squared_grad": asg,
+                              "avg_squared_update": asu}
+
+
 class Adam(Optimizer):
     """slot_dtype: storage dtype of the m/v moments (math is float32)."""
 
@@ -244,3 +438,121 @@ class AdamW(Adam):
     def _decays(self, name) -> bool:
         fn = self._apply_decay_param_fun
         return fn is None or bool(fn(name))
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def init_slots(self, value):
+        return {"m": _zeros(value), "u": _zeros(value)}
+
+    def update(self, p, g, slots, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["m"] + (1 - b1) * g
+        u = torch.maximum(b2 * slots["u"], g.abs())
+        t = step.float()
+        p = p - (lr / (1 - torch.pow(b1, t))) * m / (u + self._epsilon)
+        return p, {"m": m, "u": u}
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def init_slots(self, value):
+        s = {"mean_square": _zeros(value), "momentum": _zeros(value)}
+        if self._centered:
+            s["mean_grad"] = _zeros(value)
+        return s
+
+    def update(self, p, g, slots, lr, step):
+        ms = self._rho * slots["mean_square"] + (1 - self._rho) * g.square()
+        out = {"mean_square": ms}
+        if self._centered:
+            mg = self._rho * slots["mean_grad"] + (1 - self._rho) * g
+            denom = (ms - mg.square() + self._epsilon).sqrt()
+            out["mean_grad"] = mg
+        else:
+            denom = (ms + self._epsilon).sqrt()
+        mom = self._momentum * slots["momentum"] + lr * g / denom
+        out["momentum"] = mom
+        return p - mom, out
+
+
+def _norm(x):
+    return x.square().sum().sqrt()
+
+
+class Lamb(Optimizer):
+    """Layer-wise adaptive moments: Adam's step plus decay, scaled by the
+    trust ratio ||p|| / ||r||; keys ``exclude_from_weight_decay_fn``
+    accepts take no decay."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def init_slots(self, value):
+        return {"m": _zeros(value), "v": _zeros(value)}
+
+    def _update_with_key(self, key, p, g, slots, lr, step):
+        wd = self._wd
+        if self._exclude_fn is not None and self._exclude_fn(key):
+            wd = 0.0
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["m"] + (1 - b1) * g
+        v = b2 * slots["v"] + (1 - b2) * g.square()
+        t = step.float()
+        mhat = m / (1 - torch.pow(b1, t))
+        vhat = v / (1 - torch.pow(b2, t))
+        r = mhat / (vhat.sqrt() + self._epsilon) + wd * p
+        p_norm, r_norm = _norm(p), _norm(r)
+        trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                            1.0)
+        return p - lr * trust * r, {"m": m, "v": v}
+
+
+class Lars(Momentum):
+    """LARS momentum: a local learning rate from the ratio of the weight's
+    and the gradient's norms; keys holding one of
+    ``exclude_from_weight_decay``'s strings take no decay."""
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0, name=None):
+        super().__init__(learning_rate, momentum, parameters, False, None,
+                         grad_clip, name)
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._exclude_list = list(exclude_from_weight_decay or [])
+        self._eps = epsilon
+
+    def _update_with_key(self, key, p, g, slots, lr, step):
+        wd = self._lars_wd
+        if any(sub in str(key) for sub in self._exclude_list):
+            wd = 0.0
+        p_norm, g_norm = _norm(p), _norm(g)
+        local_lr = torch.where(
+            (p_norm > 0) & (g_norm > 0),
+            lr * self._lars_coeff * p_norm /
+            (g_norm + wd * p_norm + self._eps), lr)
+        v = self._momentum * slots["velocity"] + local_lr * (g + wd * p)
+        return p - v, {"velocity": v}
+
+
+LarsMomentum = Lars

@@ -1,2 +1,4 @@
-"""paddle_tpu_torch.resilience — fault injection (``faults``) and the
-byte-budgeted retry with backoff (``retry``)."""
+"""paddle_tpu_torch.resilience — fault injection (``faults``), the
+byte-budgeted retry with backoff (``retry``), the in-step finite check
+(``guard``) and the content digests of the checkpoint's deep tier
+(``integrity``)."""

@@ -9,6 +9,11 @@ package's, on the CPU.
   bfloat16 on both sides (values rtol 1e-2: one bfloat16 rounding of a
   float32-accumulated product); black-listed, it stays float32 and equals
   the reference's to rtol 1e-6.
+- ``GradScaler.minimize(optimizer, loss)`` over an eager optimizer: the
+  gradients unscaled in place once a step (the ``_already_unscaled``
+  latch), the step skipped on a non-finite gradient, and the scale after
+  each step equal the reference's and ``AMP_SCALES``, with the
+  parameters equal to the reference's at rtol 1e-6.
 - ``decorate`` at O2 casts the same parameters as the reference's (all but
   the norms').
 - ``ParallelTrainer(scaler=)`` on a depth-1 narrow GPT under
@@ -254,3 +259,51 @@ def _rel(got, want, names):
 def _rel_change(got, got0, want, want0, names):
     return _rel({k: got[k] - got0[k] for k in names},
                 {k: want[k] - want0[k] for k in names}, names)
+
+
+def test_grad_scaler_minimize_matches_the_reference():
+    from paddle_tpu import optimizer as ref_opt
+    from paddle_tpu.nn.layer import Parameter as RefParameter
+    from paddle_tpu_torch import optimizer as port_opt
+    rs = np.random.RandomState(0)
+    start = {"w": rs.randn(6, 4).astype(np.float32),
+             "b": rs.randn(4).astype(np.float32)}
+    r_params = [RefParameter(jnp.asarray(v), name=k) for k, v in start.items()]
+    p_params = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                for k, v in start.items()}
+    ref_s = ref_amp.GradScaler(**chip_smoke.AMP_SCALER)
+    port_s = amp.GradScaler(**chip_smoke.AMP_SCALER)
+    ref_o = ref_opt.SGD(0.1, parameters=r_params)
+    port_o = port_opt.SGD(0.1, parameters=list(p_params.items()))
+    scales, skipped = [], 0
+    for step in range(len(chip_smoke.AMP_SCALES)):
+        grads = {k: rs.randn(*v.shape).astype(np.float32)
+                 for k, v in start.items()}
+        scale = port_s.get_loss_scaling()
+        assert scale == ref_s.get_loss_scaling()
+        for rp in r_params:
+            g = grads[rp.name] * scale
+            if step in chip_smoke.AMP_TAINTED and rp.name == "b":
+                g = g * np.float32("inf")
+            rp.grad = jnp.asarray(g)
+            p_params[rp.name].grad = torch.from_numpy(np.array(g))
+        before = {k: p.detach().clone() for k, p in p_params.items()}
+        # unscale_ before minimize: the gradients are unscaled once
+        found = port_s.unscale_(port_o)
+        assert port_s.unscale_(port_o) is found
+        ref_s.unscale_(ref_o)
+        ref_s.minimize(ref_o, None)
+        port_s.minimize(port_o, None)
+        skipped += found
+        scales.append(port_s.get_loss_scaling())
+        assert scales[-1] == ref_s.get_loss_scaling()
+        for rp in r_params:
+            got = p_params[rp.name].detach()
+            if found:
+                assert torch.equal(got, before[rp.name])
+            np.testing.assert_allclose(got.numpy(), np.asarray(rp.value),
+                                       rtol=1e-6, atol=1e-7)
+        port_o.clear_grad()
+        ref_o.clear_grad()
+    assert scales == list(chip_smoke.AMP_SCALES)
+    assert skipped == len(chip_smoke.AMP_TAINTED)

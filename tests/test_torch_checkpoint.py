@@ -22,8 +22,8 @@ JAX package's, on the CPU.
   trainer restored from the step continues bit for bit like the run that
   never stopped; its losses stay within ``test_torch_gpt_train.py``'s
   tolerance (rtol 1e-4) of the reference trainer on the same path.
-- The asynchronous pipeline and the deep tier raise, naming ROADMAP item
-  25.
+- The options and calls of the asynchronous pipeline and the deep tier
+  work (their full tests: ``tests/test_torch_async_checkpoint.py``).
 """
 import os
 import warnings
@@ -440,24 +440,46 @@ def test_gpt_trainer_resumes_bit_for_bit_from_the_reference_state(tmp_path):
     assert int(tr_b.opt_state["step"]) == int(port_tr.opt_state["step"]) == 6
 
 
-# -- what waits for ROADMAP item 25 ---------------------------------------------------
+# -- the options the manager once refused -----------------------------------------
 
 @pytest.mark.parametrize("kw", [dict(async_commit=True),
                                 dict(deep_every=2), dict(deep_digests=True),
                                 dict(dirty_probe=lambda: False)])
 def test_async_and_deep_raise_naming_item_25(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="item 25"):
-        ck.CheckpointManager(str(tmp_path / "m"), **kw)
+    """Each of these options builds a working manager (they raised before
+    the asynchronous pipeline and the deep tier were ported): two saves
+    commit, restore reads the newest, and the deep options record digests
+    on the first save."""
+    m = ck.CheckpointManager(str(tmp_path / "m"), **kw)
+    try:
+        for s in (1, 2):
+            assert m.save(s, _port_state(s))
+            m.wait_until_finished()
+        out = m.restore(template=_port_state(0))
+        assert m.last_restored_step == 2
+        assert torch.equal(out["params"]["w"], _port_state(2)["params"]["w"])
+        assert bool(m._manifest_arrays(1)) == ("deep_every" in kw or
+                                               "deep_digests" in kw)
+        assert m.async_commit == ("async_commit" in kw)
+    finally:
+        m.close()
 
 
 def test_deep_calls_and_async_save_raise_naming_item_25(tmp_path):
+    """The calls that raised before the deep tier and the asynchronous
+    save were ported now work: a deep save, deep and prefer-deep
+    restores, a deep verify, and an asynchronous one-shot save."""
     m = ck.CheckpointManager(str(tmp_path / "m"))
     m.save(0, _port_state(0))
-    for call in (lambda: m.save(1, _port_state(1), deep=True),
-                 lambda: m.restore(deep=True),
-                 lambda: m.restore(prefer_deep=True),
-                 lambda: m.verify(0, deep=True),
-                 lambda: ck.save_checkpoint(str(tmp_path / "a"),
-                                            _port_state(0), use_async=True)):
-        with pytest.raises(NotImplementedError, match="item 25"):
-            call()
+    assert m.save(1, _port_state(1), deep=True)
+    assert not m._manifest_arrays(0) and m._manifest_arrays(1)
+    assert m.verify(0, deep=True) is True and m.verify(1, deep=True) is True
+    m.restore(deep=True)
+    assert m.last_restored_step == 1
+    m.restore(prefer_deep=True)
+    assert m.last_restored_step == 1 and m.restore_fallbacks_total == 0
+    handle = ck.save_checkpoint(str(tmp_path / "a"), _port_state(0),
+                                use_async=True)
+    assert handle.wait_until_finished(timeout=20.0) == str(tmp_path / "a")
+    out = ck.load_checkpoint(str(tmp_path / "a"), template=_port_state(0))
+    assert torch.equal(out["params"]["w"], _port_state(0)["params"]["w"])

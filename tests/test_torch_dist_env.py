@@ -147,8 +147,11 @@ def test_recompute_and_checkpoint_policy():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert fleet_utils.checkpoint_policy(None) is None
     assert fleet_utils.checkpoint_policy("full") is None
-    with pytest.raises(NotImplementedError):
-        fleet_utils.checkpoint_policy("dots_saveable")
+    assert callable(fleet_utils.checkpoint_policy("dots_saveable"))
+    out = fleet_utils.recompute(fn, x, policy="dots_saveable")
+    g_pol = torch.autograd.grad(out.sum(), [x, lin.weight])
+    for a, b in zip(g_pol, g):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError):
         fleet_utils.checkpoint_policy("bogus")
     grads = {"w": torch.ones(3)}
