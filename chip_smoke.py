@@ -57,7 +57,15 @@ per source, all started together), then:
   bench.py's ``fused_b8_int8dp`` and ``fused_b8_int4dp`` and int8 with
   four buckets (every bucket issued inside the backward), each against
   ``fused_b8``'s losses and time (``train_dp``); loss scaling under ``auto_cast(bfloat16)`` with one
-  tainted step, against the reference's scale sequence (``amp``).
+  tainted step, against the reference's scale sequence (``amp``);
+- resilience, after ``async_checkpoint``: the main path under
+  ``run_resilient`` with the replica integrity check every 2 steps and
+  the asynchronous pipeline with its deep tier: an uninterrupted run, and
+  one with a torn commit (an in-process restart), a NaN-skipped step and a
+  SIGTERM drain resumed on a fresh trainer, bit for bit the same; the
+  engine's fingerprints on the card against the CPU's; ``replay_step``
+  saying ``ok`` for a clean step and ``sdc`` for a flipped one; the hang
+  watchdog firing once (``resilient``).
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -2565,6 +2573,314 @@ def async_checkpoint_phase(nn, gpt, engine, optim, framework, fa, fc, work):
             "launches": {"A": launches_a, "B": launches_b}}
 
 
+# ---------------------------------------------------------------------------
+# this slice: the resilient training runtime
+# ---------------------------------------------------------------------------
+
+def resilient_batches(n=4, batch=8, seq=1024):
+    """``n`` batches of random ids and labels on the card, the loader of
+    the resilient runs (a fixed order, so the cursor can fast-forward)."""
+    out = []
+    for i in range(n):
+        rs = np.random.RandomState(100 + i)
+        ids = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                               .astype(np.int32)).cuda()
+        lbl = torch.from_numpy(rs.randint(0, 50304, (batch, seq))
+                               .astype(np.int32)).cuda()
+        out.append(((ids, lbl), 0.0))
+    return out
+
+
+class StepLog:
+    """Wraps a trainer's ``train_step``: the loss, the wall ms (synced on
+    the card) and whether the step ran the integrity check, per step."""
+
+    def __init__(self, trainer, rows):
+        self.rows = rows
+        inner = trainer.train_step
+
+        def step(*a, **kw):
+            t0 = time.perf_counter()
+            loss = inner(*a, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ce = trainer.integrity_check_every
+            rows.append({"loss": loss.item(), "ms": (t1 - t0) * 1e3,
+                         "t0": t0, "t1": t1,
+                         "check": bool(ce) and trainer._steps_run % ce == 0})
+            return loss
+
+        trainer.train_step = step
+
+
+def _state_of(trainer):
+    """Parameters and AdamW slots, cloned on the card."""
+    return ({n: p.detach().clone() for n, p in trainer.params.items()},
+            {n: {s: t.clone() for s, t in v.items()}
+             for n, v in trainer.opt_state["slots"].items()})
+
+
+def resilient_phase(nn, gpt, engine, optim, framework, fa, fc, work):
+    """``resilient``: ``run_resilient`` over the main path
+    (``fused_b8_pallas_ce``, full GPT-base, bf16, AdamW) with
+    ``integrity_check_every=2`` and ``CheckpointManager(async_commit=True,
+    deep_every=2)``, saving every 2 steps, ``nan_grad`` at step 4, over a
+    loader of 4 batches.
+
+    - Run A: 10 steps, uninterrupted.
+    - Run B: the same plus ``ckpt_torn`` at 2 (a ``SimulatedCrash``, an
+      in-process restart from step 0) and ``sigterm`` at 7 (exit 143 after
+      the final checkpoint); a fresh trainer and manager then resume to
+      step 10. B's losses after the resume and every parameter and AdamW
+      slot at the end equal A's bit for bit. Counters: one skipped step,
+      one restart, and no restore fallback (an aborted asynchronous commit
+      is debris, not a fallback, in the reference as here).
+    - The engine's fingerprints of A's final state on the card equal the
+      CPU fingerprints of the same tensors copied to the host.
+    - Replay: run A's state is saved as step 9 into a manager that keeps
+      every save deep, ``run_resilient`` takes step 10, and
+      ``replay_step(10)`` twice says ``ok``; then a run with ``param_flip``
+      at step 11 (one rank: no replica sees it) commits it, and
+      ``replay_step(11)`` says ``sdc``. The factory hands back the phase's
+      trainer, whose whole state each replay restores.
+    - Hang: ``host_hang`` at one step with ``hang_timeout=2.0`` and no
+      ``hang_exit``: the watchdog fires once, the flight dump exists and
+      the heartbeat stops.
+
+    Times: the ms of check and off-cadence steps, taken in turns on run
+    A's trainer after its run with no save near them (run A's own check
+    steps each follow a save, whose copy off the card lands on the next
+    step; its means, first step left out, are printed beside), the
+    fingerprint pass alone, the drain (the end of step 6 to the return of run B's first
+    call: the signal is raised at the next step boundary), the crash back
+    to training (the torn commit's raise to the start of the next step)
+    and the seconds of each replay."""
+    import shutil
+    import signal
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.resilience import (faults, integrity, replay_step,
+                                             run_resilient, runner)
+    from paddle_tpu_torch.telemetry import flight
+    root = os.path.join(work, "resilient")
+    loader = resilient_batches()
+    flight_dir = os.path.join(root, "flight")
+    flight.reset()
+    flight.configure(flight_dir)
+    sig_before = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                   signal.SIGINT)}
+
+    def trainer_for(rows):
+        tr, _, n = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                    head="pallas", integrity_check_every=2)
+        StepLog(tr, rows)
+        return tr, n
+
+    def manager(name, **kw):
+        return ck.CheckpointManager(os.path.join(root, name), max_to_keep=3,
+                                    async_commit=True, **kw)
+
+    zero_counts(fa, fc)
+    # run B's second trainer also takes the replay and hang steps, so
+    # steps_b grows past run B
+    steps_a, steps_b = [], []
+    # run A
+    with telemetry.scope(None, profile=False) as sc:
+        trainer, n_params = trainer_for(steps_a)
+        mgr = manager("a", deep_every=2)
+        with faults.inject("nan_grad", at_step=4):
+            res_a = run_resilient(trainer, loader, 10, manager=mgr,
+                                  save_every=2)
+        mgr.close()
+        checks_a = sc.registry.get("integrity_check_steps_total").value()
+    check((res_a.exit_code, res_a.steps_done, res_a.skipped_steps,
+           res_a.restarts) == (0, 10, 1, 0), f"run A: {res_a}")
+    check(checks_a == 5, f"run A: {checks_a} check steps, not 5")
+    final_a = _state_of(trainer)
+    # the engine's fingerprints of the final state (step 10 was a check
+    # step) against the CPU's of the same tensors
+    fps_card = trainer.last_fingerprints.tolist()
+    live = [v for _, tree in trainer._integrity_trees()
+            for _, v in integrity._leaves_with_path(tree)]
+    t0 = time.perf_counter()
+    fps_cpu = [int(integrity.fingerprint_array(v.cpu())) for v in live]
+    fp_cpu_s = time.perf_counter() - t0
+    check(fps_card == fps_cpu, "card fingerprints differ from the CPU's: " +
+          str([trainer._integrity_entries[i][0] for i, (a, b) in
+               enumerate(zip(fps_card, fps_cpu)) if a != b][:5]))
+    fp_card_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._integrity_check()
+        torch.cuda.synchronize()
+        fp_card_ms.append((time.perf_counter() - t0) * 1e3)
+    # run A's check steps each follow a save, whose copy off the card
+    # lands on the next step: check and plain steps in turns, no save
+    n_turns = len(steps_a)
+    for every in (1, 0, 0, 1, 1, 0):
+        trainer.integrity_check_every = every
+        trainer.train_step(*loader[0])
+    turns = steps_a[n_turns:]
+    del trainer, live
+    torch.cuda.empty_cache()
+
+    # run B: a torn commit, a restart, a drain, a fresh resume
+    crash_at = []
+    with telemetry.scope(None, profile=False) as sc:
+        trainer, _ = trainer_for(steps_b)
+        mgr = manager("b", deep_every=2)
+        inner_flush = mgr.flush
+
+        def flush(*a, **kw):
+            try:
+                return inner_flush(*a, **kw)
+            except faults.SimulatedCrash:
+                crash_at.append(time.perf_counter())
+                raise
+
+        mgr.flush = flush
+        with faults.inject("nan_grad", at_step=4), \
+                faults.inject("ckpt_torn", at_step=2) as torn, \
+                faults.inject("sigterm", at_step=7) as term:
+            res_b1 = run_resilient(trainer, loader, 10, manager=mgr,
+                                   save_every=2)
+            t_return = time.perf_counter()
+            mgr.close()
+            del trainer
+            torch.cuda.empty_cache()
+            n_first = len(steps_b)
+            trainer, _ = trainer_for(steps_b)
+            mgr = manager("b", deep_every=2)
+            res_b2 = run_resilient(trainer, loader, 10, manager=mgr,
+                                   save_every=2)
+            fallbacks = mgr.restore_fallbacks_total
+            mgr.close()
+        restarts = sc.registry.get("resilience_restarts_total").value()
+    check(torn.fired == 1 and term.fired == 1, "run B's faults did not fire")
+    check((res_b1.exit_code, res_b1.status, res_b1.restarts,
+           res_b1.skipped_steps, res_b1.steps_done) ==
+          (143, "sigterm", 1, 1, 7), f"run B, first call: {res_b1}")
+    check((res_b2.exit_code, res_b2.steps_done, res_b2.skipped_steps) ==
+          (0, 10, 1), f"run B, resumed: {res_b2}")
+    check(restarts == 1 and fallbacks == 0 and
+          res_b1.restore_fallbacks == res_b2.restore_fallbacks == 0,
+          f"run B: {restarts} restarts, {fallbacks} fallbacks")
+    losses_a = [r["loss"] for r in steps_a[:n_turns]]
+    losses_b = [r["loss"] for r in steps_b]
+    # steps 0-2, then 1-6 after the restart, then 7-9 after the resume
+    check(losses_b[:3] == losses_a[:3] and
+          losses_b[3:n_first] == losses_a[1:7],
+          f"run B's losses {losses_b[:n_first]} != run A's")
+    check(losses_b[n_first:] == losses_a[7:],
+          f"resumed losses {losses_b[n_first:]} != run A's {losses_a[7:]}")
+    params_b, slots_b = _state_of(trainer)
+    check(all(torch.equal(params_b[n], final_a[0][n]) for n in params_b),
+          "run B's parameters differ from run A's")
+    check(all(torch.equal(slots_b[n][s], final_a[1][n][s])
+              for n in slots_b for s in slots_b[n]),
+          "run B's AdamW slots differ from run A's")
+    del final_a, params_b, slots_b
+    drain_s = t_return - steps_b[n_first - 1]["t1"]
+    crash_to_training_s = steps_b[3]["t0"] - crash_at[0]
+
+    # replay: A's end state as step 9, then steps 10 and (flipped) 11
+    rec = ck.CheckpointManager(os.path.join(root, "rec"), max_to_keep=4,
+                               async_commit=True, deep_digests=True)
+    runner._save(rec, trainer, 9, 10 // len(loader), 10 % len(loader))
+    rec.wait_until_finished()
+    res_r = run_resilient(trainer, loader, 11, manager=rec, save_every=1)
+    check((res_r.exit_code, res_r.steps_done) == (0, 11),
+          f"the recording run: {res_r}")
+    replays = {}
+    t0 = time.perf_counter()
+    rep_ok = replay_step(rec, 10, lambda: trainer, loader)
+    replays["ok_s"] = (time.perf_counter() - t0) / 2
+    with faults.inject("param_flip", at_step=11, seed=11) as flip:
+        res_f = run_resilient(trainer, loader, 12, manager=rec,
+                              save_every=1)
+    check(flip.fired == 1 and res_f.exit_code == 0, f"the flip run: {res_f}")
+    t0 = time.perf_counter()
+    rep_sdc = replay_step(rec, 11, lambda: trainer, loader)
+    replays["sdc_s"] = (time.perf_counter() - t0) / 2
+    rec.close()
+    check(rep_ok["verdict"] == "ok", f"replay of step 10: {rep_ok}")
+    check(rep_sdc["verdict"] == "sdc" and rep_sdc["mismatched_keys"],
+          f"replay of the flipped step 11: {rep_sdc}")
+
+    # the hang watchdog around one wedged step
+    class Beats:
+        """A membership that never changes; its heartbeats are timed."""
+
+        def __init__(self):
+            self.times = []
+
+        def heartbeat(self):
+            self.times.append(time.time())
+
+        def watch(self, proc_alive=lambda: True):
+            from paddle_tpu_torch.distributed.fleet.elastic import \
+                ElasticStatus
+            return ElasticStatus.HOLD
+
+    beats = Beats()
+    with telemetry.scope(None, profile=False) as sc:
+        with faults.inject("host_hang", at_step=1) as hang:
+            t0 = time.perf_counter()
+            res_h = run_resilient(trainer, loader, 3, elastic=beats,
+                                  hang_timeout=2.0)
+            hang_s = time.perf_counter() - t0
+        fired = sc.registry.get("hang_watchdog_fired_total").value()
+    check(hang.fired == 1 and res_h.exit_code == 0 and res_h.hangs == 1 and
+          fired == 1, f"the hang run: {res_h}, fired {fired}")
+    dumps = flight.find_dumps(flight_dir, reason="hang_watchdog")
+    check(len(dumps) == 1, f"hang flight dumps {dumps}")
+    with open(dumps[0]) as f:
+        fired_at = json.load(f)["wall_time"]
+    after = [t for t in beats.times if t > fired_at]
+    check(beats.times and not after, f"{len(after)} heartbeats after the "
+          f"watchdog fired ({len(beats.times)} in all)")
+
+    n_steps = len(steps_a) + len(steps_b)
+    launches = check_path(fa, fc, "resilient", 12 * n_steps, 12 * n_steps,
+                          n_steps)
+    del trainer
+    torch.cuda.empty_cache()
+    flight.configure(None)
+    check({s: signal.getsignal(s) for s in sig_before} == sig_before,
+          "run_resilient left a signal handler behind")
+    shutil.rmtree(root)
+
+    def mean_ms(rows, checked):
+        return float(np.mean([r["ms"] for r in rows
+                              if r["check"] == checked]))
+
+    warm = steps_a[1:n_turns]
+    return {"params": n_params, "losses_a": losses_a,
+            "losses_b": losses_b, "bit_equal": True,
+            "check_step_ms": mean_ms(turns, True),
+            "off_cadence_step_ms": mean_ms(turns, False),
+            "check_minus_off_ms": mean_ms(turns, True) -
+            mean_ms(turns, False),
+            "run_a_check_step_ms": mean_ms(warm, True),
+            "run_a_off_cadence_step_ms": mean_ms(warm, False),
+            "step_ms_a": [r["ms"] for r in steps_a[:n_turns]],
+            "step_ms_turns": [(r["check"], r["ms"]) for r in turns],
+            "fingerprint_leaves": len(fps_card),
+            "fingerprint_card_ms": fp_card_ms,
+            "fingerprint_cpu_s": fp_cpu_s, "fingerprints_card_eq_cpu": True,
+            "integrity_check_steps_total": checks_a,
+            "drain_s": drain_s, "crash_to_training_s": crash_to_training_s,
+            "restarts": restarts, "skipped_steps": res_b2.skipped_steps,
+            "restore_fallbacks": fallbacks,
+            "replay": {"ok": rep_ok["verdict"], "sdc": rep_sdc["verdict"],
+                       "sdc_keys": rep_sdc["mismatched_keys"][:4],
+                       "seconds_per_replay": replays},
+            "hang": {"fired": fired, "seconds": hang_s,
+                     "heartbeats": len(beats.times)},
+            "train_steps": n_steps, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -2939,6 +3255,13 @@ def run(work) -> int:
         k: rep["launches"]["A"][k] + rep["launches"]["B"][k]
         for k in rep["launches"]["A"]}}
     emit(phase="async_checkpoint", card=card, **rep)
+
+    # 15e. the resilient runtime on the main path: run_resilient with the
+    # integrity check, a torn commit, a drain and a resume bit for bit,
+    # fingerprints card against CPU, replay, the hang watchdog
+    rep = resilient_phase(nn, gpt, engine, optim, framework, fa, fc, work)
+    path_launches["resilient"] = rep["launches"]
+    emit(phase="resilient", card=card, **rep)
 
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training

@@ -52,7 +52,9 @@ through orbax; here a checkpoint is plain files.
   A committer's error is raised at ``flush()`` (which ``restore()``,
   ``wait_until_finished()`` and ``close()`` call): the injected kill
   (``SimulatedCrash``) as itself, any other as a RuntimeWarning counted in
-  ``failed_total``.
+  ``failed_total``. ``PADDLE_TPU_TORCH_TEST_COMMIT_CRASH=<step>`` (a chaos
+  test hook) makes the committer ``SIGKILL`` its own process after step
+  ``<step>``'s payload is written and before its manifest.
 - **Deep tier.** ``deep_digests=True`` or ``deep_every=M`` (every M-th
   save, the first included) records each array's content digest
   (``resilience/integrity.py``) in the manifest, from the host snapshot
@@ -1082,6 +1084,12 @@ class CheckpointManager:
                 self._vcache.pop(step, None)
                 raise faults.SimulatedCrash(
                     f"simulated kill -9 committing checkpoint step {step}")
+            if os.environ.get("PADDLE_TPU_TORCH_TEST_COMMIT_CRASH") == \
+                    str(step):
+                # the chaos hook: a REAL kill -9 after the payload write and
+                # before the manifest, the torn-directory window
+                import signal as _signal
+                os.kill(os.getpid(), _signal.SIGKILL)
             write_manifest(sdir, arrays)
             _clear_pending_marker(self._dir, step)
             self._vcache[step] = True

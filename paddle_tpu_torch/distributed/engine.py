@@ -89,8 +89,33 @@ value when the optimizer has one.
 
 ``device=None`` means the card; without one the trainer raises unless
 ``device="cpu"`` is passed. ZeRO (``zero_stage``), pipeline
-micro-batches, the integrity check and any mesh axis but ``data`` wait in
-``ROADMAP.md`` (Queue 1) and raise ``NotImplementedError``.
+micro-batches and any mesh axis but ``data`` wait in ``ROADMAP.md``
+(Queue 1) and raise ``NotImplementedError``.
+
+**Replica integrity check** (``integrity_check_every=N``). Every N-th
+``train_step`` (a host-side cadence, ``_steps_run % N``, as the
+reference's) fingerprints the updated ``params``, ``opt`` and
+``comm_err`` (``resilience/integrity.py``'s ``fingerprint_array``, the
+reference's entry order: each part's leaves in sorted-key order) and
+compares the replicated leaves across the data ranks. The reference
+emits two scalar collectives a leaf (``pmin``/``pmax``); the port stacks
+the fingerprints and issues ONE ``all_reduce(MIN)`` and ONE
+``all_reduce(MAX)`` over the data group. A rank's own leaves (its
+``comm_err`` rows, when the data axis is live) get the combined digest,
+an ``all_reduce(SUM)`` taken modulo 2**32 as ``lax.psum`` wraps, and stay
+out of the equality decision. Off-cadence steps compute and issue
+nothing. A check step reads the divergence mask on the host (one sync)
+and records ``last_fingerprints`` (the stacked ``int64`` fingerprints,
+``_integrity_entries`` names them), ``last_divergence`` (the diverged
+leaves, read and cleared by :meth:`ParallelTrainer.consume_divergence`),
+``integrity_check_steps_total`` and ``replica_divergence_total{leaf}``.
+
+:meth:`ParallelTrainer.remesh` moves the trainer onto a new mesh (an
+elastic scale-up or scale-down): the optimizer state, residuals, NaN
+guard and loss scale start fresh; the parameters are the model's own
+tensors and keep their values (the reference re-reads them from the
+model too). Carrying trained state across is
+``resilience.elastic.reshard_trainer``'s work.
 
 **State and checkpoints.** :attr:`ParallelTrainer.state` is the
 reference's ``trainer.state`` over the live tensors (parameters, buffers,
@@ -128,6 +153,8 @@ from .. import telemetry as _telemetry
 from .._device import resolve_device
 from ..framework.random import get_generator
 from ..resilience.guard import all_finite
+from ..resilience.integrity import _keystr, _leaves_with_path, \
+    fingerprint_array
 from .compressed import (QUANTIZED_POLICIES, div_const,
                          normalize_axis_policies, residual_norm,
                          start_tree_mean, tree_wire_bytes)
@@ -316,8 +343,6 @@ class ParallelTrainer:
                    "sharding and compressed_psum_scatter in the engine")
         if micro_batches > 1:
             _waits(f"micro_batches={micro_batches}", "pipeline parallelism")
-        if integrity_check_every:
-            _waits("integrity_check_every", "the replica integrity check")
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got "
                              f"{accumulate_steps}")
@@ -369,6 +394,112 @@ class ParallelTrainer:
         self.amp = (self.scaler.init_scale_state(self.device)
                     if self.scaler is not None else None)
         self._init_exchange()
+        # the replica integrity check: a host-side cadence, no work between
+        self.integrity_check_every = max(0, int(getattr(
+            model, "integrity_check_every", integrity_check_every)))
+        self._steps_run = 0
+        self.last_divergence: list = []
+        self.last_fingerprints: Optional[torch.Tensor] = None
+        self._init_integrity()
+
+    # -- the integrity check ------------------------------------------------
+    def _integrity_trees(self):
+        """The parts a check step fingerprints, in the reference's order."""
+        return (("params", OrderedDict(self.model.named_parameters())),
+                ("opt", self.opt_state), ("comm_err", self.comm_err))
+
+    def _init_integrity(self):
+        """Entry names and kinds of the check, the reference's order: each
+        part's leaves in sorted-key order. A leaf is per-rank (combined
+        digest, no vote) when it is a comm_err row and the data axis is
+        live; every other leaf is replicated and compared."""
+        self.integrity_axes = tuple(ax for ax in DATA_AXES
+                                    if self.mesh.shape.get(ax, 1) > 1)
+        entries = []
+        for part, tree in self._integrity_trees():
+            per_rank = part == "comm_err" and bool(self.integrity_axes)
+            for path, _ in _leaves_with_path(tree):
+                entries.append((part + _keystr(path), per_rank))
+        self._integrity_entries = entries
+        self._integrity_cmp_idx = [i for i, (_, r) in enumerate(entries)
+                                   if not r]
+        self._integrity_rank_idx = [i for i, (_, r) in enumerate(entries)
+                                    if r]
+
+    def _integrity_check(self):
+        """Fingerprint the state, compare across the data ranks, record."""
+        leaves = [v for _, tree in self._integrity_trees()
+                  for _, v in _leaves_with_path(tree)]
+        fps = (torch.stack([fingerprint_array(v) for v in leaves]) if leaves
+               else torch.zeros(0, dtype=torch.int64, device=self.device))
+        cmp_idx, rank_idx = self._integrity_cmp_idx, self._integrity_rank_idx
+        group = (self.mesh.group_of(self.integrity_axes)
+                 if self.integrity_axes else None)
+        if group is not None and rank_idx:
+            idx = torch.tensor(rank_idx, device=fps.device)
+            comb = fps[idx]
+            dist.all_reduce(comb, op=dist.ReduceOp.SUM, group=group)
+            fps[idx] = comb & 0xFFFFFFFF
+        if group is not None and cmp_idx:
+            idx = torch.tensor(cmp_idx, device=fps.device)
+            lo, hi = fps[idx], fps[idx]
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+            div = lo != hi
+        else:
+            div = torch.zeros(len(cmp_idx), dtype=torch.bool)
+        self._record_integrity(fps, div)
+
+    def _record_integrity(self, fps, div):
+        """The host side of a check step: read the divergence mask (one
+        sync) and remember which compared leaves differed."""
+        self.last_fingerprints = fps
+        mask = div.tolist()
+        diverged = [self._integrity_entries[i][0]
+                    for i, m in zip(self._integrity_cmp_idx, mask) if m]
+        self.last_divergence = diverged
+        if _telemetry.enabled():
+            _telemetry.counter(
+                "integrity_check_steps_total",
+                "train steps that ran the fingerprint check program").inc()
+            if diverged:
+                c = _telemetry.counter(
+                    "replica_divergence_total",
+                    "integrity checks where a leaf's fingerprint differed "
+                    "across data-parallel ranks")
+                for n in diverged:
+                    c.inc(leaf=n)
+        return diverged
+
+    def consume_divergence(self) -> list:
+        """Diverged leaf names of the latest check step, cleared on read
+        (``run_resilient`` polls it after every step)."""
+        out, self.last_divergence = self.last_divergence, []
+        return out
+
+    def remesh(self, mesh):
+        """Move onto ``mesh`` (module docstring): its process group must be
+        of this trainer's device's backend. The optimizer state, residuals,
+        NaN guard and loss scale start fresh; the parameters keep their
+        values."""
+        from .mesh import set_mesh
+        backend = mesh.backend()
+        if backend is not None and backend != backend_for(self.device):
+            raise RuntimeError(
+                f"ParallelTrainer.remesh: the mesh's process group is "
+                f"{backend} but the trainer runs on {self.device}")
+        self.mesh = mesh
+        set_mesh(mesh)
+        self.n_data = mesh.shape["data"]
+        self.data_rank = mesh.rank_in("data")
+        self.opt_state = self.optimizer.init_state(
+            {n: p.detach() for n, p in self.params.items()})
+        self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.amp = (self.scaler.init_scale_state(self.device)
+                    if self.scaler is not None else None)
+        self._init_exchange()
+        self._init_integrity()
+        return self
 
     # -- the exchange plan --------------------------------------------------
     def _init_exchange(self):
@@ -458,6 +589,8 @@ class ParallelTrainer:
         on the device (no host sync unless telemetry is on)."""
         lr = self.optimizer.get_lr() if lr is None else lr
         k = self.accumulate_steps
+        self._steps_run += 1
+        ce = self.integrity_check_every
         tel = _telemetry.enabled()
         t0 = time.perf_counter() if tel else 0.0
         # the host range of the profiler's trace, only while it is on
@@ -509,6 +642,8 @@ class ParallelTrainer:
             for n, p in self.params.items():
                 p.copy_(new_params[n])
             self.opt_state = new_opt
+        if ce and self._steps_run % ce == 0:
+            self._integrity_check()
         loss = loss.detach()
         if (tel or ev is not None) and self.device.type == "cuda":
             # the documented sync point: the step's wall time and its host

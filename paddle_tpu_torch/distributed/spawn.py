@@ -8,7 +8,7 @@ Port of ``paddle_tpu/distributed/spawn.py`` over ``torch.multiprocessing``
 ``MASTER_ADDR``/``MASTER_PORT`` (a free port of this host), then calls
 ``func(*args)``; ``env.init_parallel_env()`` inside ``func`` starts the
 process group from them. ``func`` must be importable (a module-level
-function). The elastic supervisor (``launch.py``) waits in ROADMAP.md.
+function). ``launch.py`` starts ranks of a script, with restarts.
 """
 from __future__ import annotations
 

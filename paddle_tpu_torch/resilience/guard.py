@@ -1,9 +1,10 @@
 """Fused all-finite reduction for the trainer's in-step NaN guard.
 
-Port of ``paddle_tpu/resilience/guard.py``'s ``all_finite``: one
+Port of ``paddle_tpu/resilience/guard.py``: ``all_finite`` takes one
 ``isfinite().all()`` partial per floating tensor, stacked and reduced once
 on the device. The result is a 0-d bool tensor on that device; nothing
-here waits for it, so the guard costs no host sync.
+here waits for it, so the guard costs no host sync. ``all_finite_value``
+is the host form over a nested dict (one sync for the bool).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["all_finite"]
+__all__ = ["all_finite", "all_finite_value"]
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -24,3 +25,20 @@ def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     if len(parts) == 1:
         return parts[0]
     return torch.stack(parts).all()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def all_finite_value(tree) -> bool:
+    """Host form: every floating tensor of a nested dict/list is finite
+    (one device sync)."""
+    return bool(all_finite(list(_leaves(tree))))

@@ -15,8 +15,8 @@ Two transports:
   (other ranks get None). A single process merges locally.
 - ``gather_via_coordinator(coordinator, hosts_fn)`` — the file-KV path:
   every participant contributes through ``coordinator.allgather`` (any
-  object with that method; the elastic runtime's coordinator arrives with
-  ROADMAP item 8) and every participant receives the merge; the rank-0
+  object with that method, such as ``resilience.elastic.FileCoordinator``)
+  and every participant receives the merge; the rank-0
   host (first in sorted order) is the conventional exporter.
 """
 from __future__ import annotations

@@ -15,13 +15,15 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 __all__ = ["FlightRecorder", "get_recorder", "configure", "record", "dump",
-           "reset"]
+           "reset", "install_signal_handler", "uninstall_signal_handler",
+           "find_dumps", "merge_dumps"]
 
 
 def _registry():
@@ -126,3 +128,81 @@ def record(span_rec: dict):
 def dump(reason: str, step: Optional[int] = None,
          extra: Optional[dict] = None) -> Optional[str]:
     return _recorder.dump(reason, step=step, extra=extra)
+
+
+def install_signal_handler(signum=None):
+    """Dump on SIGUSR2 (an operator's "what are you doing right now").
+    Only possible on the main thread; elsewhere a no-op returning None.
+    Returns ``(signum, previous handler)`` for
+    :func:`uninstall_signal_handler`."""
+    signum = signum if signum is not None else signal.SIGUSR2
+    if threading.current_thread() is not threading.main_thread():
+        return None
+    prev = signal.getsignal(signum)
+
+    def _handler(sig, frame):
+        _recorder.dump("sigusr2")
+        if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+            prev(sig, frame)
+
+    try:
+        signal.signal(signum, _handler)
+    except (ValueError, OSError):
+        return None
+    return signum, prev
+
+
+def uninstall_signal_handler(token):
+    """Put back the handler :func:`install_signal_handler` replaced."""
+    if token is None or \
+            threading.current_thread() is not threading.main_thread():
+        return
+    signum, prev = token
+    try:
+        signal.signal(signum, signal.SIG_DFL if prev is None else prev)
+    except (ValueError, OSError, TypeError):
+        pass
+
+
+def find_dumps(root: str, reason: Optional[str] = None) -> List[str]:
+    """Every flight dump under ``root`` (recursive), optionally of one
+    reason."""
+    out = []
+    prefix = f"flight_{reason}_" if reason else "flight_"
+    for dirpath, _dirs, files in os.walk(root):
+        for fn in files:
+            if fn.startswith(prefix) and fn.endswith(".json"):
+                out.append(os.path.join(dirpath, fn))
+    return sorted(out)
+
+
+def merge_dumps(paths: List[str], out_path: Optional[str] = None) -> dict:
+    """Merge per-host dumps on one host: metric series through
+    ``telemetry.aggregate.merge_process_dicts`` (each series gains a
+    ``process_index=N`` label), spans concatenated with their
+    ``process_index``."""
+    from . import aggregate
+    snapshots: Dict[int, dict] = {}
+    spans: List[dict] = []
+    dumps_meta = []
+    for p in paths:
+        with open(p) as f:
+            d = json.load(f)
+        idx = int(d.get("process_index", len(snapshots)))
+        while idx in snapshots:   # two dumps of one host: keep both spans,
+            idx += 1000           # displace the duplicate metrics snapshot
+        snapshots[idx] = d.get("metrics", {})
+        for sp in d.get("spans", []):
+            sp = dict(sp)
+            sp["process_index"] = d.get("process_index", idx)
+            spans.append(sp)
+        dumps_meta.append({"path": p, "reason": d.get("reason"),
+                           "step": d.get("step"),
+                           "process_index": d.get("process_index", idx)})
+    merged = {"dumps": dumps_meta,
+              "metrics": aggregate.merge_process_dicts(snapshots),
+              "spans": spans}
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(merged, f)
+    return merged

@@ -307,3 +307,40 @@ def test_grad_scaler_minimize_matches_the_reference():
         ref_o.clear_grad()
     assert scales == list(chip_smoke.AMP_SCALES)
     assert skipped == len(chip_smoke.AMP_TAINTED)
+
+
+def test_latch_resets_under_a_fixed_scale_where_the_reference_keeps_it():
+    """The one deliberate difference of the port's ``GradScaler``: under a
+    fixed scale (``use_dynamic_loss_scaling=False``) its
+    ``_already_unscaled`` latch resets on every ``update()``, so the next
+    step's gradients are unscaled again; the reference resets it only
+    under dynamic scaling and leaves them scaled."""
+    from paddle_tpu import optimizer as ref_opt
+    from paddle_tpu.nn.layer import Parameter as RefParameter
+    from paddle_tpu_torch import optimizer as port_opt
+    rs = np.random.RandomState(1)
+    w0 = rs.randn(3, 2).astype(np.float32)
+    grads = [rs.randn(3, 2).astype(np.float32) for _ in range(2)]
+    kw = dict(init_loss_scaling=8.0, use_dynamic_loss_scaling=False)
+    rp = RefParameter(jnp.asarray(w0), name="w")
+    pp = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    ref_s, port_s = ref_amp.GradScaler(**kw), amp.GradScaler(**kw)
+    ref_o = ref_opt.SGD(0.1, parameters=[rp])
+    port_o = port_opt.SGD(0.1, parameters=[("w", pp)])
+    got_port, got_ref = [], []
+    for g in grads:
+        rp.grad = jnp.asarray(g * 8.0)
+        pp.grad = torch.from_numpy(g * 8.0)
+        ref_s.unscale_(ref_o)
+        port_s.unscale_(port_o)
+        got_ref.append(np.asarray(rp.grad))
+        got_port.append(pp.grad.numpy().copy())
+        ref_s.minimize(ref_o, None)
+        port_s.minimize(port_o, None)
+        ref_o.clear_grad()
+        port_o.clear_grad()
+    # step 1 agrees; at step 2 only the port unscales
+    assert np.array_equal(got_port[0], grads[0])
+    assert np.array_equal(got_ref[0], grads[0])
+    assert np.array_equal(got_port[1], grads[1])
+    assert np.array_equal(got_ref[1], grads[1] * 8.0)

@@ -274,12 +274,24 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu():
                                     dict(mesh_axis="sep")])
 def test_trainer_options_that_wait_raise(kwargs):
     """What still waits in ROADMAP.md raises there: mesh axes other than
-    data, ZeRO, pipeline micro-batches and the integrity check (data
-    parallelism, the grad_sync policies and the loss scaler are ported:
-    ``test_trainer_options_ported_since_build``)."""
+    data, ZeRO and pipeline micro-batches (data parallelism, the grad_sync
+    policies and the loss scaler are ported:
+    ``test_trainer_options_ported_since_build``). The integrity check is
+    ported too; its case now runs the option: five steps, the fifth a
+    check step, the only one."""
     from paddle_tpu_torch.distributed.mesh import build_mesh
     _, port = _pair()
     kwargs = dict(kwargs)
+    if "integrity_check_every" in kwargs:
+        tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                             lambda out, _l: out, device="cpu", **kwargs)
+        for i in range(5):
+            assert tr.last_fingerprints is None
+            loss = tr.train_step(_batch(), 0.0)
+        assert np.isfinite(float(loss))
+        assert tr.last_fingerprints.shape == (len(tr._integrity_entries),)
+        assert tr.consume_divergence() == []
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "mesh_axis" in kwargs:
             kwargs["mesh"] = build_mesh({kwargs.pop("mesh_axis"): 2})
