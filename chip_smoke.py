@@ -65,7 +65,20 @@ per source, all started together), then:
   SIGTERM drain resumed on a fresh trainer, bit for bit the same; the
   engine's fingerprints on the card against the CPU's; ``replay_step``
   saying ``ok`` for a clean step and ``sdc`` for a flipped one; the hang
-  watchdog firing once (``resilient``).
+  watchdog firing once (``resilient``);
+- the serving tier, after ``resilient`` (``serving_tier``): a depth-2
+  GPT-base-width model saved by ``jit.save`` and served by a ``Predictor``
+  against the JAX package's Predictor (``predictor_golden.json``); full
+  GPT-base as float32 and bfloat16 artifacts, Predictors over them raw
+  and under int8/int4 weights (the flash forward inside the exported
+  program on its scalar and its mma route), each against the eager module
+  or the float32 Predictor, timed at rows 1, 2 and 4, with export, save
+  and load seconds; ``InferenceServer.from_config`` primed from an
+  ``ExecutorCache`` with no recompile; a ``ServingFleet`` of int8
+  Predictors that promotes a good checkpoint step, rolls back a NaN one,
+  scales up on a burst and down when idle, and drains on SIGTERM; a fleet
+  of ``DecodeServer``s against the dense oracle; the admission seeded
+  from ``calibration.fit(serving_samples=...)``.
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -152,6 +165,25 @@ DP_LOSS_BAND = {"int8": 1e-3, "int4": 3.5e-2}
 # eager: the port's optimizers on the card against the JAX reference's
 # (optimizer_golden.json), the CPU tests' bar (tests/test_torch_optimizer.py)
 OPT_TOL = (1e-5, 1e-7)      # rtol, atol
+# serving_tier: the card's float32 Predictor against the JAX package's (the
+# golden file; float32 on the CPU there, float32 with TF32 off here: sums
+# in other orders), abs on the logits and their logsumexp; a served answer
+# against a direct Predictor.run of the same rows (a padded bucket runs
+# other GEMM shapes), abs
+PREDICTOR_GOLDEN_TOL = 1e-4
+SERVER_TOL = 1e-4
+# a replica's per-call deadline: the first server's first batch at each
+# bucket is the program's first call at that shape on its worker thread;
+# servers built later are primed from the executor cache before traffic
+SERVING_CALL_TIMEOUT_S = 60.0
+SERVING_ROWS = (1, 2, 4)
+# the fleet scales up on queue depth (a burst), not on a modeled wait
+# that one GPT-base batch reaches; the canary's latency slack covers a
+# GPT-base call (FleetConfig's defaults are sized for the CPU)
+FLEET_SCALE_UP_WAIT_S = 1.0
+FLEET_CANARY_SLACK_S = 0.25
+# live traffic during the hot swaps: one 1-row request every 20 ms
+FLEET_PUMP_INTERVAL_S = 0.02
 # the fused-CE kernels by name (no name holds another)
 CE_KERNELS = ("ce_fwd_tiled_kernel", "ce_fwd_merge_kernel", "ce_fwd_kernel",
               "ce_dh_kernel", "ce_dw_kernel", "ce_bwd_tiled_kernel")
@@ -530,7 +562,7 @@ def profile_serving(params, prompts, max_new, dm, kvc, serving):
 def flash_parity_case(fa, rs, s, d, causal, lens, dtype, rate=0.0, b=2, h=4,
                       split_qkv=False):
     """Kernel vs plain on the card: forward (out, lse) and, through the
-    autograd Function, backward (dq, dk, dv). With ``split_qkv`` q, k and v
+    registered op's autograd, backward (dq, dk, dv). With ``split_qkv`` q, k and v
     are what GPTAttention hands the kernels: strided views of one
     (B, S, H, 3*D) tensor, split per head. On the mma route the scalar
     kernels run on the same inputs beside it (the backward on the mma
@@ -2331,8 +2363,10 @@ def remat_phase(fa, fc, nn, gpt, framework):
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
         # a recompute runs each block's forward, its flash forward too,
-        # once more in the backward
-        fwd = 12 if policy == "no_recompute" else 24
+        # once more in the backward; the flash forward is a registered op,
+        # which a policy sees: "everything_saveable" keeps its output
+        fwd = 12 if policy in ("no_recompute", "everything_saveable") \
+            else 24
         launches = check_path(fa, fc, f"remat {policy}", 4 * fwd, 4 * 12, 4)
         host = (loss.cpu(), [g.cpu() for g in grads])
         del loss, grads
@@ -2881,6 +2915,615 @@ def resilient_phase(nn, gpt, engine, optim, framework, fa, fc, work):
             "train_steps": n_steps, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# serving_tier: jit.save/load, the Predictor, the executor cache, the fleet
+# ---------------------------------------------------------------------------
+
+def last_logits_layer(nn, model):
+    """The served GPT (``tests/torch_predictor_golden.py``'s layer): the
+    trunk, then the tied head on each row's last position."""
+    class LastLogits(nn.Layer):
+        def __init__(self, inner):
+            super().__init__()
+            self.model = inner
+
+        def forward(self, ids):
+            h = self.model.gpt(ids)
+            return self.model.lm_head(h[:, -1, :])
+
+    return LastLogits(model)
+
+
+def serving_ids(rows, seed, seq=1024, vocab=50304):
+    return np.random.RandomState(seed).randint(
+        0, vocab, (rows, seq)).astype(np.int32)
+
+
+def golden_summary(logits, stride):
+    """``tests/torch_predictor_golden.py``'s ``summarize``."""
+    logits = np.asarray(logits, np.float32)
+    l64 = logits.astype(np.float64)
+    m = l64.max(axis=1, keepdims=True)
+    return {"argmax": [int(i) for i in logits.argmax(axis=1)],
+            "logsumexp": m[:, 0] + np.log(np.exp(l64 - m).sum(axis=1)),
+            "strided": logits[:, ::stride]}
+
+
+def predictor_ms(pred, x, reps=10, warmup=3):
+    """Median ms of ``pred.run([x])`` (host ids in, host logits out) by
+    CUDA events, after warm-up."""
+    for _ in range(warmup):
+        pred.run([x])
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        pred.run([x])
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def _route_delta(fa, before):
+    return {k: fa.ROUTES[k] - before[k] for k in fa.ROUTES
+            if k.startswith("flash_fwd") and fa.ROUTES[k] - before[k]}
+
+
+def predictor_golden_check(fa, nn, gpt, jit, inference, root):
+    """A depth-2 GPT-base-width model from the golden file's recipe,
+    saved by the port and served by a Predictor on the card, against the
+    JAX package's Predictor (``predictor_golden.json``)."""
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "predictor_golden.json")) as f:
+        gold = json.load(f)
+    cfg = gold["config"]
+    model = last_logits_layer(nn, gpt.GPTForPretraining(
+        tensor_parallel=False, **cfg))
+    names_shapes = [(n, tuple(s)) for n, s in gold["names_shapes"]]
+    check([n for n, _ in names_shapes] == list(model.named_state()),
+          "predictor golden: parameter names differ from the port's")
+    model.set_state_dict_from_numpy(golden_weights(
+        names_shapes, gold["recipe"]["weights"]["seed"]))
+    model.cuda()
+    prefix = os.path.join(root, "golden", "model")
+    jit.save(model, prefix,
+             input_spec=[jit.InputSpec([None, gold["seq"]], "int32")])
+    del model
+    ids = np.random.RandomState(gold["recipe"]["ids"]["seed"]).randint(
+        0, cfg["vocab_size"], (gold["rows"], gold["seq"])).astype(np.int32)
+    before = dict(fa.ROUTES)
+    out = inference.create_predictor(inference.Config(prefix)).run([ids])[0]
+    routes = _route_delta(fa, before)
+    got = golden_summary(out, gold["stride"])
+    lse_err = float(np.abs(got["logsumexp"] - gold["logsumexp"]).max())
+    logit_err = float(np.abs(got["strided"] - np.asarray(
+        gold["strided"], np.float32)).max())
+    check(got["argmax"] == gold["argmax"],
+          f"predictor golden: argmax {got['argmax']} != {gold['argmax']}")
+    check(lse_err <= PREDICTOR_GOLDEN_TOL and
+          logit_err <= PREDICTOR_GOLDEN_TOL,
+          f"predictor golden: lse err {lse_err}, logit err {logit_err} > "
+          f"{PREDICTOR_GOLDEN_TOL}")
+    check(routes == {"flash_fwd_scalar": cfg["num_layers"]},
+          f"predictor golden: flash forward routes {routes}")
+    inference.clear_layer_cache()
+    return {"argmax": got["argmax"], "lse_max_abs_err": lse_err,
+            "logits_max_abs_err": logit_err, "tol": PREDICTOR_GOLDEN_TOL,
+            "flash_routes": routes}
+
+
+def serving_generations(fa, nn, gpt, framework, jit, inference, quant,
+                        root):
+    """Full GPT-base (12 layers, float32 weights from seed 0) saved as a
+    float32 and a bfloat16 artifact; Predictors over the float32 one raw,
+    int8 and int4, and over the bfloat16 one raw and int8. Each raw
+    Predictor against the eager module on the card; the quantized ones
+    against the float32 Predictor; quantization on the card against the
+    CPU's, bits; a batch at rows 1, 2 and 4 timed for each, and profiled
+    (float32 and bfloat16, rows 1 and 4). Returns
+    (report, float32 prefix, serving samples for the calibration fit)."""
+    spec = [jit.InputSpec([None, 1024], "int32")]
+    model = last_logits_layer(nn, gpt_base_model(gpt, framework,
+                                                 bf16=False)).cuda()
+    x4 = serving_ids(4, seed=11)
+    x8 = serving_ids(8, seed=12)
+    rep = {"export_s": {}, "load_s": {}, "vs_eager": {}, "ms": {},
+           "flash_routes": {}}
+    prefixes = {}
+    preds = {}
+    for gen in ("f32", "bf16"):
+        if gen == "bf16":
+            model.bfloat16()
+        prefix = prefixes[gen] = os.path.join(root, gen, "model")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=spec)
+        rep["export_s"][gen] = time.perf_counter() - t0
+        with torch.no_grad():
+            eager = model(torch.from_numpy(x4).cuda()).float().cpu().numpy()
+        inference.clear_layer_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds[gen] = inference.create_predictor(inference.Config(prefix))
+        torch.cuda.synchronize()
+        rep["load_s"][gen] = time.perf_counter() - t0
+        got = preds[gen].run([x4])[0]
+        rep["vs_eager"][gen] = {
+            "bit_identical": bool(np.array_equal(got, eager)),
+            "max_abs_diff": float(np.abs(got - eager).max())}
+        check(np.isfinite(got).all() and got.shape == (4, 50304),
+              f"{gen} Predictor output {got.shape}")
+    del model
+    torch.cuda.empty_cache()
+    ref8 = preds["f32"].run([x8])[0]
+    rep["quant"] = {}
+    for gen, base, policy in (("int8", "f32", "int8"),
+                              ("int4", "f32", "int4"),
+                              ("bf16_int8", "bf16", "int8")):
+        cfg = inference.Config(prefixes[base])
+        cfg.enable_weight_quantize(policy)
+        t0 = time.perf_counter()
+        preds[gen] = inference.create_predictor(cfg)
+        torch.cuda.synchronize()
+        rep["load_s"][gen] = time.perf_counter() - t0
+        stats = dict(preds[gen]._layer.quant_stats)
+        if base == "f32":
+            got = preds[gen].run([x8])[0]
+            stats["max_abs_err_vs_f32"] = float(np.abs(got - ref8).max())
+            stats["argmax_agree"] = float(np.mean(
+                got.argmax(axis=1) == ref8.argmax(axis=1)))
+        rep["quant"][gen] = stats
+    q8, q4 = rep["quant"]["int8"], rep["quant"]["int4"]
+    check(3.9 <= q8["compression_x"] <= 4.0 and
+          7.0 <= q4["compression_x"] <= 7.2,
+          f"compression_x int8 {q8['compression_x']}, int4 "
+          f"{q4['compression_x']}")
+    check(rep["quant"]["bf16_int8"]["n_quantized"] == 0 and
+          rep["quant"]["bf16_int8"]["compression_x"] == 1.0,
+          f"bf16 under int8: {rep['quant']['bf16_int8']}")
+    # the block quantizers on the card against the CPU's, bit for bit
+    w = preds["f32"]._layer._params[
+        "model.gpt.embeddings.word_embeddings.weight"]
+    same = {}
+    for policy in ("int8", "int4"):
+        card_q = quant.quantize_array(w, policy)
+        cpu_q = quant.quantize_array(w.cpu(), policy)
+        same[policy] = bool(torch.equal(card_q.q.cpu(), cpu_q.q) and
+                            torch.equal(card_q.scale.cpu(), cpu_q.scale))
+        check(same[policy], f"{policy} quantization: card != CPU")
+    rep["card_quant_equals_cpu"] = same
+    samples = []
+    for gen in ("f32", "bf16", "int8", "int4"):
+        before = dict(fa.ROUTES)
+        rep["ms"][gen] = {}
+        for rows in SERVING_ROWS:
+            t = predictor_ms(preds[gen], serving_ids(rows, seed=30 + rows))
+            rep["ms"][gen][rows] = t
+            if gen == "f32":
+                samples.append({"rows": rows, "seconds": t / 1e3})
+        rep["flash_routes"][gen] = _route_delta(fa, before)
+    # where a batch's time goes: the card's busy share of a Predictor call
+    rep["profile"] = {
+        f"{gen}_rows{rows}": profile_calls(
+            lambda g=gen, r=rows: preds[g].run([serving_ids(r, seed=30 + r)]),
+            calls=3)
+        for gen in ("f32", "bf16") for rows in (1, 4)}
+    check(set(rep["flash_routes"]["bf16"]) == {"flash_fwd_mma"} and
+          all(set(rep["flash_routes"][g]) == {"flash_fwd_scalar"}
+              for g in ("f32", "int8", "int4")),
+          f"served flash routes by generation: {rep['flash_routes']}")
+    del preds
+    inference.clear_layer_cache()
+    torch.cuda.empty_cache()
+    return rep, prefixes["f32"], samples
+
+
+def serving_from_config(serving, inference, ec, prefix, root):
+    """``InferenceServer.from_config(replicas=2)``: a first server records
+    its shapes in an ``ExecutorCache``; a second, primed from the manifest,
+    serves rows 1 to 4 with no recompile; every answer against a direct
+    ``Predictor.run`` of the same rows."""
+    cache = ec.ExecutorCache(path=os.path.join(root, "executor_cache.json"))
+    key = ec.artifact_key(prefix)
+    cfg = inference.Config(prefix)
+    scfg = serving.ServingConfig(max_batch=4,
+                                 call_timeout_s=SERVING_CALL_TIMEOUT_S)
+    direct = inference.create_predictor(cfg)
+    xs = {n: serving_ids(n, seed=20 + n) for n in (1, 2, 3, 4)}
+    want = {n: direct.run([x])[0] for n, x in xs.items()}
+    with serving.InferenceServer.from_config(cfg, replicas=2,
+                                             serving=scfg) as s1:
+        ec.attach(s1, key, cache)
+        for n, x in xs.items():
+            s1.submit([x], deadline_s=60.0).result(timeout=120)
+        first = s1.stats()
+        check(s1.accounted(), "from_config: first server's accounting")
+    s2 = serving.InferenceServer.from_config(cfg, replicas=2, serving=scfg)
+    t0 = time.perf_counter()
+    primed = ec.prime(s2, key, cache)
+    prime_s = time.perf_counter() - t0
+    with s2:
+        got = {n: s2.submit([x], deadline_s=60.0).result(timeout=120)[0]
+               for n, x in xs.items()}
+        st = s2.stats()
+        check(s2.accounted(), "from_config: primed server's accounting")
+    errs = {n: float(np.abs(got[n] - want[n]).max()) for n in xs}
+    check(first["recompiles"] == len(cache.shapes(key)) == primed == 3,
+          f"from_config: recompiles {first['recompiles']}, recorded "
+          f"{cache.shapes(key)}, primed {primed}")
+    check(st["recompiles"] == 0, f"primed server recompiled: {st}")
+    check(max(errs.values()) <= SERVER_TOL,
+          f"served answers vs Predictor.run: {errs}")
+    del direct
+    inference.clear_layer_cache()
+    return {"first_recompiles": first["recompiles"], "primed": primed,
+            "prime_s": prime_s, "primed_recompiles": st["recompiles"],
+            "max_abs_diff_vs_predictor": errs,
+            "bit_identical": {n: bool(np.array_equal(got[n], want[n]))
+                              for n in xs},
+            "tol": SERVER_TOL, "call_timeout_s": SERVING_CALL_TIMEOUT_S}
+
+
+def serving_fleet_run(nn, gpt, engine, optim, framework, serving,
+                      inference, ec, fleet_mod, prefix, root):
+    """``ServingFleet`` over ``predictor_generation(int8)`` of full
+    GPT-base, ``watch_fn`` a ``CheckpointManager``'s ``latest_valid_step``,
+    members advertised under a ``FileCoordinator`` root. Three
+    ``fused_b8_pallas_ce`` steps commit step 3: published (the step's
+    weights, as float32, into the artifact's ``.pdiparams`` in place, as
+    the reference's chaos scenario publishes), canaried, promoted. Step 4
+    holds an inf weight, which the int8 generation serves as NaN: rolled
+    back and remembered; the incumbent serves on from
+    its pinned layer. Live traffic runs through both swaps, and a request
+    the fleet rejects fails the phase. A burst scales up, idling scales
+    down, a SIGTERM drains every member once."""
+    import pickle
+    import shutil
+    import signal
+    import threading
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.resilience.elastic import FileCoordinator
+
+    fleet_dir = os.path.join(root, "fleet")
+    os.makedirs(fleet_dir)
+    fprefix = os.path.join(fleet_dir, "model")
+    for suffix in (".pt2", ".pdiparams"):
+        shutil.copy(prefix + suffix, fprefix + suffix)
+    qspec = ("int8", None)
+    cache = ec.ExecutorCache(path=os.path.join(fleet_dir, "ec.json"))
+    for bucket in (1, 2, 4):    # every bucket 1-row traffic can make
+        cache.record(ec.artifact_key(fprefix, qspec), (((1024,), "<i4"),),
+                     bucket)
+    scfg = serving.ServingConfig(max_batch=4, max_queue=256,
+                                 call_timeout_s=SERVING_CALL_TIMEOUT_S)
+
+    def make_gen(gen_id):
+        return fleet_mod.predictor_generation(
+            gen_id, fprefix, quant=qspec, serving=scfg,
+            executor_cache=cache)
+
+    mgr = CheckpointManager(os.path.join(fleet_dir, "ckpt"), max_to_keep=3,
+                            use_async=False)
+
+    def publish(step):
+        params = mgr.restore(step)["params"]
+        with open(fprefix + ".pdiparams", "rb") as fh:
+            blob = pickle.load(fh)
+        blob["params"] = {
+            k: torch.as_tensor(params["inner." + k.split(".", 1)[1]])
+            .float().cpu().numpy() for k in blob["params"]}
+        tmp = fprefix + ".pdiparams.tmp"
+        with open(tmp, "wb") as fh:
+            pickle.dump(blob, fh, protocol=4)
+        os.replace(tmp, fprefix + ".pdiparams")
+        return make_gen(step)
+
+    coord = FileCoordinator(os.path.join(fleet_dir, "coord"), "serving")
+    fcfg = fleet_mod.FleetConfig(
+        min_members=2, max_members=3, cooldown_s=0.0,
+        scale_up_wait_s=FLEET_SCALE_UP_WAIT_S, scale_up_queue_depth=8,
+        scale_down_idle_s=1.0, canary_shadow_fraction=1.0,
+        canary_min_shadow=6, canary_timeout_s=60.0,
+        canary_latency_factor=3.0,
+        canary_latency_slack_s=FLEET_CANARY_SLACK_S, drain_timeout_s=60.0)
+    fleet = fleet_mod.ServingFleet(make_gen(0), config=fcfg,
+                                   membership_root=coord.root,
+                                   fleet_id="gpt_base",
+                                   watch_fn=mgr.latest_valid_step,
+                                   publish_fn=publish)
+    rep = {}
+    prev_sigterm = signal.getsignal(signal.SIGTERM)
+    stop = threading.Event()
+    pump = None
+    try:
+        fleet.start()
+        check(len(fleet.live_members()) == 2, "fleet: member files")
+        probe = serving_ids(1, seed=50)
+        for r in [fleet.submit([serving_ids(1, seed=60 + i)],
+                               deadline_s=60.0) for i in range(8)]:
+            check(np.isfinite(r.result(timeout=120)[0]).all(),
+                  "fleet: warm-up output not finite")
+        out0 = fleet.submit([probe], deadline_s=60.0).result(timeout=120)[0]
+
+        pumped = {"submitted": 0, "rejected": []}
+
+        def pump_loop():
+            i = 0
+            while not stop.is_set():
+                try:
+                    fleet.submit([serving_ids(1, seed=1000 + i)],
+                                 deadline_s=60.0)
+                    pumped["submitted"] += 1
+                except RuntimeError as e:   # no active member: an outage
+                    pumped["rejected"].append(str(e))
+                i += 1
+                time.sleep(FLEET_PUMP_INTERVAL_S)
+
+        pump = threading.Thread(target=pump_loop, daemon=True)
+        pump.start()
+        # a good step: three main-path steps, committed, published, promoted
+        trainer, batch, _ = gpt_base_trainer(nn, gpt, engine, optim,
+                                             framework, head="pallas")
+        inputs, lbls = batch
+        losses = [float(trainer.train_step(inputs, lbls)) for _ in range(3)]
+        mgr.save(3, trainer.state)
+        t_commit = time.perf_counter()
+        fleet.poll_once()
+        rep["commit_to_promotion_s"] = time.perf_counter() - t_commit
+        st = fleet.stats()
+        rep["good_canary"] = dict(fleet.last_canary_checks or {})
+        check(st["promoted"] == 1 and st["generation"] == 3 and
+              set(st["member_generations"]) == {3},
+              f"fleet: the good step was not promoted: {st}")
+        out3 = fleet.submit([probe], deadline_s=60.0).result(timeout=120)[0]
+        check(not np.array_equal(out3, out0), "fleet: promotion changed "
+              "nothing")
+        # a poisoned step: one weight overflowed to inf. Its int8 block's
+        # scale is inf, so the block dequantizes to NaN (0 * inf) and the
+        # step serves NaN. A NaN weight would not show: the quantizer, as
+        # the reference's, gives a NaN block scale 1 and casts the NaN to 0
+        with torch.no_grad():
+            trainer.model.inner.gpt.h[0].mlp.fc_in.weight.view(-1)[7] = \
+                float("inf")
+        mgr.save(4, trainer.state)
+        t_commit = time.perf_counter()
+        fleet.poll_once()
+        rep["commit_to_rollback_s"] = time.perf_counter() - t_commit
+        st = fleet.stats()
+        rep["bad_canary"] = dict(fleet.last_canary_checks or {})
+        check(st["rolled_back"] == 1 and st["generation"] == 3 and
+              rep["bad_canary"].get("sanity") is False,
+              f"fleet: the inf step was not rolled back: {st}, "
+              f"{rep['bad_canary']}")
+        fleet.poll_once()       # remembered: not published again
+        check(fleet.stats()["rolled_back"] == 1, "fleet: retried step 4")
+        again = fleet.submit([probe], deadline_s=60.0).result(timeout=120)[0]
+        rep["incumbent_after_rollback_max_abs_diff"] = float(
+            np.abs(again - out3).max())
+        # the same generation; the probe may share a batch with live
+        # traffic (other GEMM shapes), so not bit for bit
+        check(rep["incumbent_after_rollback_max_abs_diff"] <= SERVER_TOL,
+              "fleet: the incumbent's answer changed after the rollback")
+        del trainer, batch, inputs, lbls
+        stop.set()
+        pump.join(timeout=30)
+        rep["pump_submitted"] = pumped["submitted"]
+        rep["pump_rejected"] = len(pumped["rejected"])
+        check(not pumped["rejected"] and pumped["submitted"] > 0,
+              f"fleet: {pumped['submitted']} live requests during the "
+              f"swaps, {len(pumped['rejected'])} rejected: "
+              f"{pumped['rejected'][:3]}")
+        torch.cuda.empty_cache()
+        # a burst scales up; idling scales down
+        burst = [fleet.submit([serving_ids(1, seed=2000 + i)],
+                              deadline_s=120.0) for i in range(32)]
+        fleet.poll_once()
+        rep["members_after_burst"] = fleet.stats()["members"]
+        for r in burst:
+            r.result(timeout=300)
+        t = time.monotonic() + 100.0
+        fleet.poll_once(now=t)
+        fleet.poll_once(now=t + fcfg.scale_down_idle_s + 1.0)
+        st = fleet.stats()
+        rep["members_after_idle"] = st["members"]
+        check(rep["members_after_burst"] == 3 and st["scale_ups"] == 1 and
+              st["members"] == 2 and st["scale_downs"] == 1,
+              f"fleet: burst {rep['members_after_burst']} members, then "
+              f"{st}")
+        # SIGTERM: one drain of every member
+        drains = {}
+        with fleet._lock:
+            members = list(fleet._members)
+        for mem in members:
+            real = mem.server.shutdown
+
+            def counting(drain=True, timeout=30.0, _real=real,
+                         _name=mem.name):
+                _real(drain=drain, timeout=timeout)
+                drains.setdefault(_name, []).append(time.perf_counter())
+
+            mem.server.shutdown = counting
+        tail = [fleet.submit([serving_ids(1, seed=3000 + i)],
+                             deadline_s=60.0) for i in range(8)]
+        fleet.install_sigterm_drain()
+        t_kill = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+        deadline = time.monotonic() + 120.0
+        while len(drains) < len(members) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        rep["drain_s"] = max(v[0] for v in drains.values()) - t_kill \
+            if drains else None
+        fleet.shutdown(drain=True)      # a second call: a no-op
+        check({k: len(v) for k, v in drains.items()} ==
+              {m.name: 1 for m in members} and fleet._shutdowns == 1,
+              f"fleet: drains {drains}")
+        check(all(r.done() for r in tail), "fleet: a request outlived the "
+              "drain")
+        check(fleet.live_members() == [], "fleet: member files left")
+    finally:
+        stop.set()
+        if pump is not None:
+            pump.join(timeout=30)
+        fleet.shutdown(drain=True)
+        signal.signal(signal.SIGTERM, prev_sigterm)
+        mgr.close()
+    st = fleet.stats()
+    check(fleet.accounted(), "fleet: accounting does not close")
+    check(st["recompiles"] == 0 and st["failed"] == 0,
+          f"fleet: {st['recompiles']} recompiles, {st['failed']} failed")
+    rep.update({"losses": losses, "promoted": st["promoted"],
+                "rolled_back": st["rolled_back"],
+                "scale_ups": st["scale_ups"],
+                "scale_downs": st["scale_downs"],
+                "servers_ever": st["servers_ever"],
+                "submitted": st["submitted"], "completed": st["completed"],
+                "shed": st["shed"], "recompiles": st["recompiles"],
+                "accounted": True})
+    inference.clear_layer_cache()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def decode_fleet_run(pa, dm, kvc, serving, fleet_mod, params, prompts,
+                     oracle, max_new):
+    """A fleet of two ``DecodeServer``s at GPT-base widths (the decode
+    golden's model, each member with its own paged cache) through
+    ``submit_generate``: every token against the dense oracle."""
+    def make_server():
+        cache = kvc.PagedKVCache(num_pages=1024, page_size=16, num_heads=12,
+                                 head_dim=64)
+        return serving.DecodeServer(
+            dm.make_step_fn(params, cache), cache, replicas=1,
+            config=serving.ServingConfig(max_batch=256,
+                                         call_timeout_s=60.0),
+            prefill_chunk=32, max_pages_per_seq=64, max_batch_rows=8)
+
+    fleet = fleet_mod.ServingFleet(
+        fleet_mod.ModelGeneration(0, make_server),
+        config=fleet_mod.FleetConfig(min_members=2, max_members=2))
+    n = 8
+    before = dict(pa.LAUNCHES)
+    t0 = time.perf_counter()
+    with fleet:
+        reqs = [fleet.submit_generate(pr, max_new) for pr in prompts[:n]]
+        outs = [[int(t) for t in r.result(timeout=600)[0]] for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = [m.server.stats()["completed"] for m in fleet._members]
+    launches = {k: pa.LAUNCHES[k] - before[k] for k in pa.LAUNCHES}
+    for i, toks in enumerate(outs):
+        check(toks == oracle[i], f"decode fleet: prompt {i} != oracle")
+    check(fleet.accounted(), "decode fleet: accounting does not close")
+    check(launches["decode"] > 0 and launches["verify"] > 0,
+          f"decode fleet: paged launches {launches}")
+    return {"generations": n, "max_new": max_new, "tokens_equal": True,
+            "served_by_member": served, "launches": launches,
+            "wall_s": wall}
+
+
+def serving_calibration(serving, inference, calibration, prefix, samples,
+                        root):
+    """``calibration.fit(serving_samples=...)`` on the Predictor batches
+    the card served; a new server starts ``"calibrated"``, turns
+    ``"ewma"`` after its first batch and records the
+    ``serving_queue_wait`` pair."""
+    old = os.environ.get("PADDLE_TPU_TORCH_CALIBRATION_DB")
+    os.environ["PADDLE_TPU_TORCH_CALIBRATION_DB"] = os.path.join(
+        root, "calibration_db.json")
+    calibration.clear_cache()
+    calibration.reset()
+    try:
+        fit = calibration.fit(serving_samples=samples)
+        srv = serving.InferenceServer.from_config(
+            inference.Config(prefix), replicas=1,
+            serving=serving.ServingConfig(
+                max_batch=4, call_timeout_s=SERVING_CALL_TIMEOUT_S))
+        src0 = srv.stats()["modeled_wait_source"]
+        wait0 = srv.modeled_wait(1)
+        with srv:
+            req = srv.submit([serving_ids(1, seed=40)], deadline_s=60.0)
+            req.result(timeout=120)
+            src1 = srv.stats()["modeled_wait_source"]
+        pair = calibration.pair("serving_queue_wait")
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_TORCH_CALIBRATION_DB", None)
+        else:
+            os.environ["PADDLE_TPU_TORCH_CALIBRATION_DB"] = old
+        calibration.clear_cache()
+    check(src0 == "calibrated" and src1 == "ewma",
+          f"modeled_wait_source {src0} then {src1}")
+    check(pair is not None and req.t_predicted_wait,
+          f"no serving_queue_wait pair: {pair}")
+    inference.clear_layer_cache()
+    return {"fitted": fit["entry"]["serving"], "first_source": src0,
+            "modeled_wait_s_cold": wait0, "after_first_batch": src1,
+            "serving_queue_wait": pair}
+
+
+def serving_tier_phase(fa, fc, pa, nn, gpt, engine, optim, framework, dm,
+                       kvc, serving, params, prompts, oracle, max_new,
+                       work):
+    """``serving_tier``: the serving path of GPT-base on the card (module
+    functions above, in order): the Predictor golden; three generations of
+    full GPT-base (float32, bfloat16, float32 under int8 and int4); the
+    executor cache under ``InferenceServer.from_config``; the int8 fleet
+    rolled from checkpoints; a decode fleet; the calibrated admission.
+    Every launch count of the flash, CE and paged kernels set to 0 before,
+    read after."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.inference import executor_cache as ec
+    from paddle_tpu_torch.inference import fleet as fleet_mod
+    from paddle_tpu_torch.inference import quant
+    from paddle_tpu_torch.telemetry import calibration
+
+    import gc
+    root = os.path.join(work, "serving_tier")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    zero_counts(fa, fc)
+    for counts in (pa.LAUNCHES, pa.ROUTES):
+        for k in counts:
+            counts[k] = 0
+    rep = {"golden": predictor_golden_check(fa, nn, gpt, jit, inference,
+                                            root)}
+    gens, prefix, samples = serving_generations(fa, nn, gpt, framework, jit,
+                                                inference, quant, root)
+    rep["generations"] = gens
+    rep["from_config"] = serving_from_config(serving, inference, ec, prefix,
+                                             root)
+    rep["fleet"] = serving_fleet_run(nn, gpt, engine, optim, framework,
+                                     serving, inference, ec, fleet_mod,
+                                     prefix, root)
+    rep["decode_fleet"] = decode_fleet_run(pa, dm, kvc, serving, fleet_mod,
+                                           params, prompts, oracle, max_new)
+    rep["calibration"] = serving_calibration(serving, inference,
+                                             calibration, prefix, samples,
+                                             root)
+    launches = {**fa.LAUNCHES, **fc.LAUNCHES, **pa.LAUNCHES}
+    routes = {**fa.ROUTES, **pa.ROUTES}
+    check(fa.ROUTES["flash_fwd_scalar"] > 0 and fa.ROUTES["flash_fwd_mma"] > 0
+          and pa.LAUNCHES["decode"] > 0 and pa.LAUNCHES["verify"] > 0,
+          f"serving_tier launches {launches}, routes {routes}")
+    # what the phase leaves on the card: each worker thread that ran a GEMM
+    # took a cuBLAS handle whose workspace PyTorch keeps after the thread
+    # ends; with those freed, nothing of the phase may stay
+    gc.collect()
+    held = torch.cuda.memory_allocated() - mem0
+    torch._C._cuda_clearCublasWorkspaces()
+    held_cleared = torch.cuda.memory_allocated() - mem0
+    check(held_cleared <= 16 * 2 ** 20,
+          f"serving_tier left {held_cleared} bytes allocated on the card")
+    rep.update(launches=launches, routes=routes,
+               bytes_held_after={"with_cublas_workspaces": held,
+                                 "workspaces_freed": held_cleared},
+               seconds=time.perf_counter() - t0)
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -3263,6 +3906,17 @@ def run(work) -> int:
     path_launches["resilient"] = rep["launches"]
     emit(phase="resilient", card=card, **rep)
 
+    # 15f. the serving tier: jit.save/load, the Predictor golden, three
+    # generations of full GPT-base with int8/int4 weights, the executor
+    # cache, the int8 fleet rolled from checkpoints, a decode fleet, the
+    # calibrated admission
+    rep = serving_tier_phase(fa, fc, pa, nn, gpt, engine, optim, framework,
+                             dm, kvc, serving, params, prompts, oracle,
+                             max_new, work)
+    path_launches["serving_tier"] = rep["launches"]
+    emit(phase="serving_tier", card=card, **rep)
+    torch.cuda.empty_cache()
+
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training
     with staged_route(fc):
@@ -3352,7 +4006,10 @@ def run(work) -> int:
         kernels.append({
             "name": f"paged_attention_{key}", "route": "cuda",
             "paged_route": "split", "source": SRC, "replaces": REPLACES[key],
-            "launches": main_launches[key], "max_abs_err": max_err[key],
+            "launches": main_launches[key],
+            "launches_by_path": {"serving_tier":
+                                 path_launches["serving_tier"][key]},
+            "max_abs_err": max_err[key],
             "ms": t["ms"], "simple_ms": t["simple_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -28,8 +28,15 @@ the port's split counts measured on the card (``ops.tuner``), the run's
 telemetry artifacts (``telemetry.scope``, ``export``, ``aggregate``,
 ``calibration``), host and device profiling (``profiler``), checkpoints
 (``distributed.checkpoint``, ``framework_io``, the optimizer's and the
-trainer's state) and the retry policy (``resilience.retry``).
+trainer's state) and the retry policy (``resilience.retry``); the
+resilient training runtime (``resilience``); and the serving tier:
+export and load (``jit``: ``torch.export`` programs), the predictor API
+with int8/int4 weight quantization (``inference``, ``inference.quant``),
+the executor cache and the self-healing serving fleet
+(``inference.executor_cache``, ``inference.fleet``).
 """
+__version__ = "0.1.0"
+
 __all__ = ["amp", "distributed", "framework", "framework_io", "inference",
-           "nn", "ops", "optimizer", "profiler", "regularizer", "resilience",
-           "telemetry", "text"]
+           "jit", "nn", "ops", "optimizer", "profiler", "regularizer",
+           "resilience", "telemetry", "text"]

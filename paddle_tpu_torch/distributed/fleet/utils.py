@@ -21,10 +21,13 @@ Port of ``paddle_tpu/distributed/fleet/utils.py``.
   ``"everything_saveable"`` keeps every op's output. ``recompute`` also
   takes a policy function of that API (``policy_fn(ctx, op, *args,
   **kwargs) -> CheckpointPolicy``), as the reference takes a jax policy.
-  The port's CUDA kernels (flash attention, fused CE) run inside
-  ``autograd.Function``s through ctypes: the policy sees the tensors
-  they allocate, not the kernels, so under every policy their launches
-  run again in the recompute.
+  The flash forward is a registered op
+  (``paddle_tpu_torch::flash_attention_fwd``), which a policy sees: it is
+  recomputed like any op the policy does not keep, and
+  ``"everything_saveable"`` keeps its output. The fused CE kernels run
+  inside an ``autograd.Function`` through ctypes: the policy sees the
+  tensors they allocate, not the kernels, so under every policy their
+  launches run again in the recompute.
 - ``fused_allreduce_gradients(grads, ...)``: the bucketed mean of a grads
   tree over the data axes through ``compressed.compressed_tree_mean``,
   eager on each rank; the identity where no mesh holds the axes.

@@ -8,11 +8,17 @@ replica, health-driven failover. What changed:
 - Executors may return device tensors. :class:`InferenceServer` copies
   outputs to the host; :class:`DecodeServer` copies only the next tokens
   and hands the chunk K/V, still on the card, to ``cache.append``.
-- The service-rate EWMA starts unseeded (the JAX package can seed it from
-  a calibration DB fitted on its own hardware) and learns from the first
-  batch.
-- ``InferenceServer.from_config``/``predictor_executor`` (the Predictor
-  path) are not ported yet.
+- The service-rate EWMA starts from the calibration DB's serving rates
+  when one was fitted on this device (``calibration.fit(serving_samples=
+  ...)``, ``modeled_wait_source`` ``"calibrated"``), else unseeded, and
+  learns from the first batch (``"ewma"``). A request admitted with a
+  modeled wait records the pair (modeled, measured wait) under
+  ``serving_queue_wait`` in the calibration registry at its first
+  dispatch.
+- ``InferenceServer.from_config(config, replicas)`` serves a ``jit.save``
+  artifact through a ``PredictorPool``; ``predictor_executor`` adapts one
+  ``Predictor``. ``shape_observer`` and ``warm_start`` are the executor
+  cache's hooks (``inference/executor_cache.py``).
 
 - **Admission control + deadlines**: ``submit`` places a request in a
   bounded queue; it is shed when the queue is full (``queue_full``) or
@@ -33,10 +39,20 @@ replica, health-driven failover. What changed:
   ``replica_stall`` faults (``resilience.faults``) make both paths
   testable.
 - **Graceful drain**: ``shutdown(drain=True)`` (or the SIGTERM handler)
-  stops admitting while accepted work runs to completion.
+  stops admitting while accepted work runs to completion: it returns once
+  every accepted request is terminal. The reference waits for an empty
+  queue and no batch in flight, which holds for a moment while a batch
+  passes from the queue to a replica, or a result from its replica to its
+  request, so its drain can return before the last answers are delivered.
 
 Accounting invariant: every submitted request terminates in exactly one
 of ``completed`` / ``shed`` / ``expired`` / ``failed``.
+
+Predictor serving::
+
+    server = InferenceServer.from_config(config, replicas=2)
+    with server:
+        out = server.submit([x], deadline_s=0.2).result(timeout=1.0)
 
 Decode serving::
 
@@ -68,7 +84,8 @@ from ..telemetry import tracing as _tracing
 __all__ = [
     "InferenceServer", "ServingConfig", "Request",
     "RequestShed", "DeadlineExpired", "ServingError",
-    "SHED_CAUSES", "DecodeServer", "GenerationRequest",
+    "SHED_CAUSES", "predictor_executor", "DecodeServer",
+    "GenerationRequest",
 ]
 
 # terminal request states (the accounting universe)
@@ -132,6 +149,10 @@ class Request:
         self.outputs: Optional[List[np.ndarray]] = None
         self.error: Optional[BaseException] = None
         self.t_dispatch: Optional[float] = None  # first dispatch only
+        # admission's modeled wait (x admission_safety) at submit time;
+        # paired with the measured wait at first dispatch by
+        # telemetry.calibration ("serving_queue_wait")
+        self.t_predicted_wait: Optional[float] = None
         self.t_done: Optional[float] = None
         # invoked exactly once, after the request reaches ANY terminal
         # state (resource owners — e.g. the KV cache — hook cleanup here
@@ -367,14 +388,28 @@ class InferenceServer:
         self._inflight: set = set()
         self._inflight_rows = 0
         self._seen_shapes: set = set()
+        # executor-cache hook: called with (sig, bucket) whenever a
+        # first-seen shape is served, so a persistent cache can record it
+        # and prime future replicas (see executor_cache.py)
+        self.shape_observer: Optional[Callable[[tuple, int], None]] = None
         self._seq = 0
         self._rr = 0
         self._ewma_rows_per_s: Optional[float] = None
         self._ewma_batch_s: Optional[float] = None
-        # the service-rate EWMA starts unseeded and learns from the first
-        # batch; _rate_source ({ewma|default}) is surfaced by stats() as
-        # modeled_wait_source
+        # EWMA cold start: seed the service rate from the calibration DB
+        # when one was fitted, so the first admissions price wait with a
+        # measured rate instead of modeling zero wait until the first
+        # batch completes. _rate_source ({ewma|calibrated|default}) is
+        # surfaced by stats() as modeled_wait_source.
         self._rate_source = "default"
+        try:
+            from ..telemetry import calibration as _calibration
+            seeded = _calibration.serving_rates()
+        except Exception:  # pragma: no cover - admission must not crash
+            seeded = None
+        if seeded is not None:
+            self._ewma_rows_per_s, self._ewma_batch_s = seeded
+            self._rate_source = "calibrated"
         self._draining = False
         self._stopped = False
         self._started = False
@@ -405,6 +440,19 @@ class InferenceServer:
     def __exit__(self, *exc):
         self.shutdown(drain=not any(exc))
 
+    def warm_start(self, shape_pairs) -> int:
+        """Pre-seed the seen-shape set with ``(sig, bucket)`` pairs whose
+        executors were already run (primed from the executor cache), so
+        serving them does not count as a recompile. Returns the number of
+        newly seeded pairs."""
+        added = 0
+        for sig, bucket in shape_pairs:
+            pair = (sig, int(bucket))
+            if pair not in self._seen_shapes:
+                self._seen_shapes.add(pair)
+                added += 1
+        return added
+
     def shutdown(self, drain: bool = True, timeout: float = 30.0):
         """Stop the server. With ``drain`` accepted work finishes first
         while new admissions are shed with cause ``draining``."""
@@ -416,11 +464,13 @@ class InferenceServer:
             from ..telemetry import flight as _flight
             _flight.dump("drain")
         if drain:
+            # done when every accepted request is terminal: a batch on its
+            # way from the queue to a replica, or a result on its way from
+            # a replica to its request, is in neither the queue nor the
+            # in-flight set (the reference's test, which returns early)
             deadline = time.monotonic() + timeout
             while time.monotonic() < deadline:
-                with self._cv:
-                    idle = not self._deque and not self._inflight
-                if idle:
+                if self.accounted():
                     break
                 time.sleep(0.005)
         self._stopped = True
@@ -487,6 +537,7 @@ class InferenceServer:
                     wait + req.arrival > req.deadline:
                 cause = "deadline_infeasible"
             else:
+                req.t_predicted_wait = wait
                 self._deque.append(req)
                 self._gauge("serving_queue_depth", len(self._deque))
                 self._cv.notify_all()
@@ -500,8 +551,10 @@ class InferenceServer:
         latency. The EWMA is a PER-REPLICA rate (one batch over its own
         execute time), so the drain rate scales with the healthy replica
         count: admission tightens by itself while a replica sits in
-        probation. Cold start (no completed batch yet) models zero wait:
-        admission cannot reject what it cannot estimate.
+        probation. Cold start (no completed batch yet) uses the
+        calibration DB's rate when one was fitted (``modeled_wait_source``
+        ``"calibrated"``), else models zero wait: admission cannot reject
+        what it cannot estimate.
         """
         if self._ewma_rows_per_s is None or self._ewma_rows_per_s <= 0:
             return 0.0
@@ -592,6 +645,12 @@ class InferenceServer:
         if (sig, bucket) not in self._seen_shapes:
             self._seen_shapes.add((sig, bucket))
             self._count("serving_recompiles_total")
+            obs = self.shape_observer
+            if obs is not None:
+                try:
+                    obs(sig, bucket)
+                except Exception:  # noqa: BLE001
+                    pass  # cache bookkeeping must never fail a batch
         replica = self._pick_replica(live)
         if replica is None:
             return  # everyone expired while no replica was healthy
@@ -605,6 +664,13 @@ class InferenceServer:
                 r.t_dispatch = time.monotonic()
                 self._observe("serving_queue_wait_seconds",
                               r.t_dispatch - r.arrival)
+                if r.t_predicted_wait:
+                    # admission's modeled wait against the wait that
+                    # happened (recorded whatever the telemetry gate)
+                    from ..telemetry import calibration as _calibration
+                    _calibration.record("serving_queue_wait",
+                                        r.t_predicted_wait,
+                                        r.t_dispatch - r.arrival)
             sp = r._span_wait
             if sp is not None and not sp._ended:
                 sp.end("ok")
@@ -737,6 +803,7 @@ class InferenceServer:
         a = self.cfg.rate_ewma
         rate = job.rows / max(dt, 1e-9)
         with self._cv:
+            # a calibrated seed decays into the live EWMA from batch 1
             self._ewma_rows_per_s = rate if self._ewma_rows_per_s is None \
                 else a * rate + (1 - a) * self._ewma_rows_per_s
             self._ewma_batch_s = dt if self._ewma_batch_s is None \
@@ -913,7 +980,8 @@ class InferenceServer:
             "inflight_batches": inflight,
             "replicas_healthy": sum(1 for r in self.replicas if r.healthy),
             # where the admission wait model's service rate came from:
-            # "ewma" once a batch completed, "default" cold (models 0 wait)
+            # "ewma" once a batch completed, "calibrated" while running
+            # on the calibration DB's seed, "default" cold (models 0 wait)
             "modeled_wait_source": self._rate_source,
         }
 
@@ -923,6 +991,30 @@ class InferenceServer:
         s = self.stats()
         return s["submitted"] == (s["completed"] + s["shed"]
                                   + s["expired"] + s["failed"])
+
+    # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_config(cls, config, replicas: int = 1,
+                    serving: Optional[ServingConfig] = None
+                    ) -> "InferenceServer":
+        """A server over ``replicas`` Predictors of an inference
+        ``Config`` (the pool shares one loaded layer through the
+        per-prefix load cache)."""
+        from . import PredictorPool
+        pool = PredictorPool(config, replicas)
+        fns = [predictor_executor(pool.retrieve(i))
+               for i in range(replicas)]
+        return cls(fns, config=serving)
+
+
+def predictor_executor(pred) -> Callable:
+    """Adapt a ``Predictor`` to the server's executor signature."""
+
+    def fn(arrays: List[np.ndarray]) -> List[np.ndarray]:
+        return pred.run(list(arrays))
+
+    return fn
 
 
 def _to_host(o) -> np.ndarray:
@@ -1066,6 +1158,7 @@ class DecodeServer(InferenceServer):
                         > req.deadline:
                     cause = "deadline_infeasible"
                 else:
+                    req.t_predicted_wait = wait * self.cfg.admission_safety
                     req.seq = self.cache.create(req.prompt[:-1])
                     req.on_terminal = self._release_request
                     self._assign_chunk(req)
@@ -1177,6 +1270,7 @@ class DecodeServer(InferenceServer):
         a = self.cfg.rate_ewma
         rate = job.rows / max(dt, 1e-9)
         with self._cv:
+            # a calibrated seed decays into the live EWMA from batch 1
             self._ewma_rows_per_s = rate if self._ewma_rows_per_s is None \
                 else a * rate + (1 - a) * self._ewma_rows_per_s
             self._ewma_batch_s = dt if self._ewma_batch_s is None \

@@ -1,5 +1,5 @@
 """Flash attention: the three Hopper kernels, their plain PyTorch versions,
-and the ``torch.autograd.Function`` that reaches them.
+and the registered op (with its backward) that reaches them.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py``. Public API:
 ``flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
@@ -32,6 +32,18 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
   :func:`flash_supported` (:func:`flash_gate` on device type, dtype and
   shape) admits only what the kernels take, so a caller can send the rest
   to its plain path.
+- **The registered op.** The forward is also the custom op
+  ``paddle_tpu_torch::flash_attention_fwd`` (:data:`FLASH_FWD_OP`), so that
+  ``torch.export`` carries it into an exported program: its fake
+  implementation gives out and lse shapes from q alone (a symbolic batch
+  stays symbolic), and its body is :func:`flash_attention_fwd`, which
+  launches (and counts) at call time, never at trace time.
+  :func:`flash_attention` reaches the kernel through the op alone: its
+  registered autograd runs the backward kernels on the saved (q, k, v,
+  out, lse), so one call serves training, inference and export.
+  Under :func:`exporting` the gate takes CPU tensors as the card's, so a
+  program exported on the CPU holds the same op as one exported on the
+  card; the op's CPU body is the plain version.
 - **Dropout keying.** The mask is keyed on the reference's blocks for the
   call: ``block_q``/``block_k`` resolved from the tuning DB rows
   (``ops/tuner.py``) and clamped as the reference clamps them on the
@@ -40,6 +52,7 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -56,7 +69,8 @@ __all__ = ["NEG_INF", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "LANES",
            "bwd_route",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_plain_fwd", "flash_attention_plain_bwd",
-           "dropout_mask", "keying_blocks", "load_kernel"]
+           "dropout_mask", "keying_blocks", "load_kernel", "FLASH_FWD_OP",
+           "exporting"]
 
 # the reference's swept defaults (a miss in the tuning DB resolves to them)
 DEFAULT_BLOCK_Q = 256
@@ -91,11 +105,30 @@ def flash_gate(device_type: str, dtype, shape, min_seq: int = 128) -> bool:
             b * h <= MAX_BATCH_HEADS)
 
 
+_export_state = threading.local()
+
+
+@contextlib.contextmanager
+def exporting():
+    """While a program is exported: :func:`flash_supported` reads a CPU
+    tensor as the card's, so the exported graph holds the registered op on
+    either device (its CPU body is the plain version)."""
+    prev = getattr(_export_state, "on", False)
+    _export_state.on = True
+    try:
+        yield
+    finally:
+        _export_state.on = prev
+
+
 def flash_supported(q: torch.Tensor, k: torch.Tensor, min_seq: int = 128
                     ) -> bool:
     """The kernels' gate, shared by every caller: :func:`flash_gate` on
     q. What it rejects goes to the caller's plain path."""
-    return flash_gate(q.device.type, q.dtype, tuple(q.shape), min_seq)
+    dev = q.device.type
+    if dev == "cpu" and getattr(_export_state, "on", False):
+        dev = "cuda"
+    return flash_gate(dev, q.dtype, tuple(q.shape), min_seq)
 
 
 def fwd_route(dtype, d: int, aligned: bool) -> str:
@@ -550,24 +583,62 @@ def _launch_bwd(entry, key, outs, route, q, k, v, do, lse, delta, lens=None,
     _count(key, route)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """out = flash(q, k, v); the backward runs the dq and dk/dv kernels on
-    the saved (q, k, v, out, lse)."""
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? lens, Tensor? seed, "
+           "float sm_scale, bool causal, float dropout_rate, int block_q, "
+           "int block_k) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, lens, seed, sm_scale, causal, dropout_rate,
+                  block_q, block_k):
+    """The registered forward: :func:`flash_attention_fwd` (the kernel on
+    a CUDA tensor, the plain version on a CPU one). ``seed`` is None
+    without dropout. Outputs are contiguous, as the fake ones are (the
+    kernel's already are; the plain version's out is a permuted view)."""
+    out, lse = flash_attention_fwd(q, k, v, lens,
+                                   0 if seed is None else seed, sm_scale,
+                                   causal, dropout_rate, (block_q, block_k))
+    return out.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, lens, seed, sm_scale, causal, dropout_rate,
-                blocks):
-        out, lse = flash_attention_fwd(q, k, v, lens, seed, sm_scale, causal,
-                                       dropout_rate, blocks)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.extra = (lens, seed, sm_scale, causal, dropout_rate, blocks)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.extra)
-        return dq, dk, dv, None, None, None, None, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, lens, seed, sm_scale, causal, dropout_rate, block_q,
+      block_k):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+#: ``torch.ops.paddle_tpu_torch.flash_attention_fwd``
+FLASH_FWD_OP = torch.ops.paddle_tpu_torch.flash_attention_fwd
+
+
+def _op_seed(seed, dropout_rate):
+    """The op's seed argument: None without dropout, else a tensor (an
+    int seed becomes a host int64 tensor; a device seed stays as it is)."""
+    if dropout_rate <= 0.0:
+        return None
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return torch.tensor(int(seed), dtype=torch.int64)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, lens, seed, sm_scale, causal, dropout_rate, bq, bk = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.extra = (lens, 0 if seed is None else seed, sm_scale, causal,
+                 dropout_rate, (bq, bk))
+
+
+def _flash_backward(ctx, dout, dlse):
+    """The dq and dk/dv kernels on the saved (q, k, v, out, lse); lse has
+    no gradient (no caller differentiates it)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.extra)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
@@ -594,5 +665,6 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, kv_lens=None,
         torch.as_tensor(kv_lens).to(device=q.device,
                                     dtype=torch.int32).reshape(b).clamp(max=sk)
     seed = 0 if dropout_seed is None else dropout_seed
-    return _FlashAttention.apply(q, k, v, lens, seed, _scale(d, sm_scale),
-                                 bool(causal), float(dropout_rate), blocks)
+    return FLASH_FWD_OP(q, k, v, lens, _op_seed(seed, dropout_rate),
+                        _scale(d, sm_scale), bool(causal),
+                        float(dropout_rate), *blocks)[0]

@@ -5,8 +5,10 @@ two counter families (summed across label series) over a rolling window
 and fires when it crosses a threshold, bumping ``slo_alerts_total{rule}``
 and running its alert actions; with none registered the default action
 dumps the flight recorder (reason ``slo_<rule>``). A fired rule stays
-latched until its burn falls below half the threshold. Action exceptions
-are swallowed: monitoring must never take down the monitored.
+latched until its burn falls below half the threshold; ``on_clear``
+actions run once at that unlatch (a fleet's SLO-driven scale-up pairs
+``on_alert(fleet.scale_up_action())`` with them). Action exceptions are
+swallowed: monitoring must never take down the monitored.
 
 Serving pokes ``maybe_poll`` on every shed; it is a no-op until a monitor
 is installed (``install_shed_rule``).
@@ -48,11 +50,13 @@ class SloRule:
         self.window_s = window_s
         self.min_denominator = min_denominator
         self._alert_actions: List[Callable] = []
+        self._clear_actions: List[Callable] = []
         if on_alert is not None:
             self._alert_actions.append(on_alert)
         self._samples = deque()   # (t, num_total, den_total)
         self.latched = False
         self.alerts = 0
+        self.clears = 0
         self.last_burn = 0.0
 
     def on_alert(self, fn: Callable) -> Callable:
@@ -61,8 +65,16 @@ class SloRule:
         self._alert_actions.append(fn)
         return fn
 
+    def on_clear(self, fn: Callable) -> Callable:
+        """Register ``fn(rule, burn)`` to run when a latched rule
+        unlatches (burn fell below threshold/2). Works as a decorator."""
+        self._clear_actions.append(fn)
+        return fn
+
     def sample(self, now: float, reg) -> Optional[float]:
-        """Record a sample; return the burn rate when the rule fires."""
+        """Record a sample; return the burn rate when the rule fires. An
+        unlatch bumps ``clears``; ``SloMonitor.poll`` runs the
+        ``on_clear`` actions on that edge."""
         num = _counter_total(reg, self.numerator)
         den = _counter_total(reg, self.denominator)
         self._samples.append((now, num, den))
@@ -77,6 +89,7 @@ class SloRule:
         if self.latched:
             if burn < self.threshold / 2.0:
                 self.latched = False
+                self.clears += 1
             return None
         if burn > self.threshold:
             self.latched = True
@@ -95,19 +108,30 @@ class SloMonitor:
         self._last_poll = 0.0
 
     def poll(self, now: Optional[float] = None):
-        """Sample every rule; run the actions of rules that fired."""
+        """Sample every rule; run the actions of rules that fired, and the
+        clear actions of rules that unlatched."""
         now = time.monotonic() if now is None else now
         reg = self._registry if self._registry is not None else _registry()
         fired = []
+        cleared = []
         with self._lock:
             self._last_poll = now
             for rule in self.rules:
+                was_latched = rule.latched
                 burn = rule.sample(now, reg)
                 if burn is not None:
                     fired.append((rule, burn))
+                elif was_latched and not rule.latched:
+                    cleared.append((rule, rule.last_burn))
         for rule, burn in fired:
             reg.counter("slo_alerts_total").inc(rule=rule.name)
             for cb in rule._alert_actions or [default_alert]:
+                try:
+                    cb(rule, burn)
+                except Exception:  # noqa: BLE001 - see module docstring
+                    pass
+        for rule, burn in cleared:
+            for cb in rule._clear_actions:
                 try:
                     cb(rule, burn)
                 except Exception:  # noqa: BLE001 - see module docstring
@@ -128,6 +152,10 @@ def default_alert(rule: SloRule, burn: float):
     flight.dump(f"slo_{rule.name}",
                 extra={"burn_rate": burn, "threshold": rule.threshold,
                        "window_s": rule.window_s})
+
+
+#: The reference's name for :func:`default_alert`.
+_default_alert = default_alert
 
 
 _monitor: Optional[SloMonitor] = None

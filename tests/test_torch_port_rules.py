@@ -98,6 +98,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     assert trainer.get_param("weight").device.type == "cpu"
 
 
+def test_the_predictor_defaults_to_the_card_and_raises_without_one(
+        tmp_path):
+    _no_card()
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.nn import Linear
+    prefix = str(tmp_path / "m")
+    jit.save(Linear(4, 2), prefix, input_spec=[jit.InputSpec([None, 4])])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.create_predictor(inference.Config(prefix))
+    cfg = inference.Config(prefix)
+    cfg.disable_gpu()
+    try:
+        pred = inference.create_predictor(cfg)
+        assert pred._layer.device.type == "cpu"
+    finally:
+        inference.clear_layer_cache()
+
+
 def _run_smoke(cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, str(cwd / "chip_smoke.py")],
