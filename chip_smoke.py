@@ -78,7 +78,18 @@ per source, all started together), then:
   Predictors that promotes a good checkpoint step, rolls back a NaN one,
   scales up on a burst and down when idle, and drains on SIGTERM; a fleet
   of ``DecodeServer``s against the dense oracle; the admission seeded
-  from ``calibration.fit(serving_samples=...)``.
+  from ``calibration.fit(serving_samples=...)``;
+- ZeRO, after ``serving_tier`` (``zero``): the main path built through
+  the fleet API (``fleet.init`` with every degree 1 and
+  ``strategy.sharding``, ``distributed_model``, ``distributed_optimizer``,
+  ``sharding.group_sharded_parallel`` at ``os``/``os_g``/``p_g_os``,
+  ``sharding.build_trainer``) on an NCCL mesh of one rank, stages 0-3,
+  2 warm-up and 3 timed steps each: losses and final parameters of
+  stages 1-3 bit for bit stage 0's, step times and peak memory per stage,
+  the six training kernels' launches counted; step 3 of stage 3 saved
+  through ``CheckpointManager`` (a state of one rank: the one-rank
+  format, as the format follows the state) and resumed on a fresh
+  fleet-built trainer bit for bit.
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -3524,6 +3535,148 @@ def serving_tier_phase(fa, fc, pa, nn, gpt, engine, optim, framework, dm,
     return rep
 
 
+# ---------------------------------------------------------------------------
+# this slice: ZeRO through the fleet API, and the checkpoint of a world
+# ---------------------------------------------------------------------------
+
+ZERO_LEVELS = {1: "os", 2: "os_g", 3: "p_g_os"}
+
+
+def zero_trainer(nn, gpt, optim, framework, fleet, sharding, stage):
+    """The main path built as a fleet user builds it: ``fleet.init`` with
+    every degree 1 and ``strategy.sharding``, ``distributed_model`` and
+    ``distributed_optimizer``, then (stage > 0) ``group_sharded_parallel``
+    at the stage's level and ``sharding.build_trainer``. Full GPT-base,
+    bf16, the fused CE kernels, AdamW(3e-4)."""
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": max(stage, 1)}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = gpt_base_model(gpt, framework)
+    dm = fleet.distributed_model(fused_loss_layer(nn, model, 8192,
+                                                  ce_kernel="pallas"))
+    opt = fleet.distributed_optimizer(optim.AdamW(3e-4))
+    if stage:
+        dm, opt, _ = sharding.group_sharded_parallel(dm, opt,
+                                                     ZERO_LEVELS[stage])
+    return sharding.build_trainer(dm, opt, lambda out, _l: out)
+
+
+def _timed_step(trainer, inputs, lbls):
+    """One step, synced before and after -> (loss, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_step(inputs, lbls).item()
+    return loss, (time.perf_counter() - t0) * 1e3
+
+
+def zero_phase(fa, fc, nn, gpt, optim, framework, work):
+    """``zero``: ``fused_b8_pallas_ce`` through the fleet API at ZeRO
+    stages 0-3 on an NCCL mesh of one rank (``dp_setup``), 2 warm-up and 3
+    timed steps each. At one rank every stage is stage 0, as the
+    reference gates each at n_shard > 1: the losses and final parameters
+    of stages 1-3 must equal stage 0's bit for bit, and the six kernels
+    launch 36/36/36 and 3/3/3 times in the timed steps, on the mma and
+    tiled routes. Stage 3 saves step 3 through ``CheckpointManager``
+    (the trainer's state over one rank is no world: the one-rank format);
+    a fresh fleet-built trainer restores it and its steps 4-5 must equal
+    the uninterrupted run's bit for bit. Peak allocated memory per
+    stage."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed import fleet, sharding
+    dp_setup()
+    root = os.path.join(work, "zero_ckpt")
+    stages, launches = {}, {k: 0 for k in REPLACES if k not in
+                            ("decode", "verify")}
+    final0 = None
+    try:
+        for stage in (0, 1, 2, 3):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = zero_trainer(nn, gpt, optim, framework, fleet,
+                                   sharding, stage)
+            batch = (gpt_base_batch(), 0.0)
+            losses, ms = [], []
+            for _ in range(2):
+                losses.append(trainer.train_step(*batch).item())
+            zero_counts(fa, fc)
+            save = {}
+            for i in range(3, 6):
+                loss, t = _timed_step(trainer, *batch)
+                losses.append(loss)
+                ms.append(t)
+                if stage == 3 and i == 3:
+                    mgr = ck.CheckpointManager(root)
+                    t0 = time.perf_counter()
+                    check(mgr.save(3, {"trainer": trainer.state}),
+                          "the stage-3 save of step 3")
+                    save["seconds"] = time.perf_counter() - t0
+                    save["files"] = sorted(os.listdir(
+                        os.path.join(root, "3")))
+            got = check_path(fa, fc, f"zero stage {stage}", 36, 36, 3)
+            for k, n in got.items():
+                launches[k] += n
+            check(trainer.skipped_steps() == 0, "the NaN guard skipped")
+            check((trainer.zero_stage, trainer.n_shard, trainer.zero2_dims,
+                   trainer.zero3_dims) == (stage, 1, {}, {}),
+                  f"stage {stage}: a ZeRO split at one rank")
+            final = {n: p.detach().cpu().clone()
+                     for n, p in trainer.params.items()}
+            stages[stage] = {
+                "losses": losses, "ms_per_step": ms,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2 ** 30,
+                "optimizer": type(trainer.optimizer).__name__,
+                "model": type(trainer.model).__name__}
+            if stage == 0:
+                base, final0 = losses, final
+            else:
+                check(losses == base, f"stage {stage} losses {losses} != "
+                      f"stage 0's {base}")
+                check(all(torch.equal(v, final0[n])
+                          for n, v in final.items()),
+                      f"stage {stage} parameters differ from stage 0's")
+            del trainer
+        # resume stage 3 from the checkpoint on a fresh trainer
+        check(not ck.is_sharded_dir(os.path.join(root, "3")) and
+              save["files"] == ["MANIFEST.json", "trainer.pt"],
+              f"the step directory holds {save['files']}")
+        torch.cuda.empty_cache()
+        trainer = zero_trainer(nn, gpt, optim, framework, fleet, sharding,
+                               3)
+        mgr = ck.CheckpointManager(root)
+        t0 = time.perf_counter()
+        trainer.state = mgr.restore(template={"trainer": trainer.state}
+                                    )["trainer"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(mgr.last_restored_step == 3 and mgr.verify(3) is True,
+              f"restored step {mgr.last_restored_step}")
+        zero_counts(fa, fc)
+        resumed = [trainer.train_step(*batch).item() for _ in range(2)]
+        got = check_path(fa, fc, "zero resume", 24, 24, 2)
+        for k, n in got.items():
+            launches[k] += n
+        check(resumed == base[3:], f"resumed losses {resumed} != "
+              f"{base[3:]}")
+        check(all(torch.equal(p.detach().cpu(), final0[n])
+                  for n, p in trainer.params.items()),
+              "resumed parameters differ from the uninterrupted run's")
+        del trainer, final0
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"stages": stages, "bit_equal_to_stage_0": True,
+            "checkpoint": {"format": "one-rank", "step": 3,
+                           "save_seconds": save["seconds"],
+                           "restore_seconds": restore_s,
+                           "files": save["files"],
+                           "resumed_losses": resumed,
+                           "resume_bit_equal": True},
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -3916,6 +4069,13 @@ def run(work) -> int:
     path_launches["serving_tier"] = rep["launches"]
     emit(phase="serving_tier", card=card, **rep)
     torch.cuda.empty_cache()
+
+    # 15g. ZeRO stages 0-3 through the fleet API on an NCCL mesh of one
+    # rank, bit for bit stage 0's; the trainer's checkpoint saved at step
+    # 3 and resumed bit for bit
+    rep = zero_phase(fa, fc, nn, gpt, optim, framework, work)
+    path_launches["zero"] = rep["launches"]
+    emit(phase="zero", card=card, **rep)
 
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training

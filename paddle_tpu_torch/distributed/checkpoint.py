@@ -73,6 +73,36 @@ through orbax; here a checkpoint is plain files.
   the ``ckpt_inflight`` gauge; a ``checkpoint`` event per save and
   restore, ``ckpt_snapshot`` and ``ckpt_commit`` events, and a
   ``ckpt_save`` trace whose commit span ends on the committer thread.
+- **The one directory of a world**, the port's form of the reference's
+  orbax checkpoint of logical arrays (``checkpoint.py:389-450``). The
+  format follows the state: a :class:`ShardedState` (``trainer.state``)
+  whose mesh spans 2+ ranks, saved by every rank of it into the same
+  directory, is written as one directory of the world; its ``layout``
+  gives each split leaf's :class:`Piece` of its logical array (a ZeRO
+  slice, a residual row), and every other leaf is replicated. Each rank
+  writes the pieces it owns with their ranges into
+  ``shards-<r>-of-<n>.pt`` (a replicated leaf by rank 0 only, a slice by
+  the first data rank holding it, a residual row by its owner), rank 0
+  writes ``LAYOUT.json`` (each leaf's logical shape and dtype), and after
+  a barrier rank 0 checks that every rank's file is there, renames the
+  step into place and writes the manifest (the deep tier's digests are
+  the pieces', keyed ``<key>/<path>@<rank>``). Ranks that each name their
+  own directory write their own state in the one-rank format instead,
+  unless it holds ZeRO slices (only a world's directory places them):
+  that raises, as does a directory some ranks share and others do not. A read, given
+  a template, assembles each of the template's own pieces from the
+  stored pieces that overlap it (the shard files are memory-mapped, so a
+  rank reads those ranges only), so a restore onto another ``data`` x
+  ``sharding`` layout (one process included) takes each rank's slice, as
+  orbax reshards to its template; without a template it assembles the
+  logical arrays. The manager keeps its manifests, CRCs, torn-step
+  fallback, retention (rank 0), deep tier and asynchronous commit (each
+  rank's committer writes its file into a directory named from rank 0;
+  rank 0's waits for every rank's file, then seals; a staged snapshot is
+  never superseded, and ``flush`` ends in a barrier). An armed
+  ``ckpt_torn`` tears the step on rank 0 and raises ``SimulatedCrash`` on
+  every rank. Past the retry budget a world's save raises: its pieces
+  cannot stage on one host.
 - ``save_checkpoint(use_async=True)`` returns an :class:`AsyncSave` after
   the host copy; the module keeps one such write in flight.
 - :class:`TrainEpochRange` / :func:`train_epoch_range`: epoch-level
@@ -92,7 +122,7 @@ import threading
 import time
 import warnings
 import zlib
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,7 +130,8 @@ import torch
 from ..resilience.integrity import (array_digest, compare_digests,
                                     tree_digests)
 
-__all__ = ["save_checkpoint", "load_checkpoint", "AsyncSave",
+__all__ = ["save_checkpoint", "load_checkpoint", "AsyncSave", "Piece",
+           "ShardedState", "is_sharded_dir", "LAYOUT_NAME",
            "CheckpointManager", "TrainEpochRange", "train_epoch_range",
            "write_manifest", "verify_manifest", "MANIFEST_NAME",
            "PENDING_PREFIX", "CKPT_RETRY_BYTE_BUDGET_X", "staging_root",
@@ -235,6 +266,8 @@ def _rebuild(template, flat: Dict[str, torch.Tensor], key: str):
 
 def _read_dir(path: str, template=None, map_location=None):
     path = os.path.abspath(path)
+    if is_sharded_dir(path):
+        return _read_world(path, template, map_location)
     if map_location is None and template is not None:
         map_location = _first_device(template)
     keys = sorted(n[:-len(FILE_SUFFIX)] for n in os.listdir(path)
@@ -254,6 +287,414 @@ def _read_dir(path: str, template=None, map_location=None):
             out[key] = flat[""] if list(flat) == [""] else flat
     return type(template)((k, out[k]) for k in template) \
         if template is not None else out
+
+
+# -- the one directory of a world -------------------------------------------------
+
+class Piece(NamedTuple):
+    """Where one rank's leaf sits in its logical array (the reference's
+    global ``jax.Array``): ``shape`` is the logical shape; the leaf is
+    chunk ``index`` of ``count`` along ``dim`` (with ``row``, row
+    ``index`` of a ``(count, *leaf.shape)`` array); ``write`` says whether
+    this rank writes it (one writer per set of equal copies)."""
+    shape: Tuple[int, ...]
+    dim: int
+    index: int
+    count: int
+    row: bool
+    write: bool
+
+
+class ShardedState(dict):
+    """A state dict that knows its placement: ``layout`` maps a leaf's
+    dotted path to its :class:`Piece` (a path it does not list is the
+    whole array, replicated on every rank and written by rank 0), and
+    ``world`` is the mesh the state lives on (its ``rank``, ``size`` and
+    whole-mesh group)."""
+    layout: Dict[str, Piece] = {}
+    world = None
+
+    def subset(self, keys) -> "ShardedState":
+        """The top-level ``keys`` of this state, with their pieces."""
+        out = ShardedState((k, self[k]) for k in keys)
+        out.layout = {p: pc for p, pc in self.layout.items()
+                      if p.split(".", 1)[0] in out}
+        out.world = self.world
+        return out
+
+
+LAYOUT_NAME = "LAYOUT.json"
+# how long rank 0's committer waits for the other ranks' shard files
+WORLD_PARTS_TIMEOUT_S = 600.0
+
+
+def _shard_file(rank: int, size: int) -> str:
+    return f"shards-{rank:05d}-of-{size:05d}{FILE_SUFFIX}"
+
+
+def is_sharded_dir(path: str) -> bool:
+    """Whether ``path`` holds a world's checkpoint (a ``LAYOUT.json``)."""
+    return os.path.exists(os.path.join(path, LAYOUT_NAME))
+
+
+class _World:
+    """Rank, size and the collectives of the mesh a state lives on."""
+
+    def __init__(self, mesh):
+        self.rank = int(getattr(mesh, "rank", 0)) if mesh is not None else 0
+        self.size = int(getattr(mesh, "size", 1)) if mesh is not None else 1
+        self.group = None
+        self.src = 0
+        if self.size > 1:
+            import torch.distributed as dist
+            from .mesh import AXES_ORDER
+            self.group = mesh.group_of(AXES_ORDER)
+            self.src = dist.get_global_rank(self.group, 0) \
+                if self.group is not dist.group.WORLD else 0
+
+    def barrier(self):
+        if self.size > 1:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
+
+    def from_rank0(self, obj):
+        """Rank 0's ``obj`` on every rank."""
+        if self.size == 1:
+            return obj
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+    def gather(self, obj) -> list:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        if self.size == 1:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+
+def _find_world(tree):
+    """The mesh of the first :class:`ShardedState` in ``tree`` (None)."""
+    if isinstance(tree, ShardedState) and tree.world is not None:
+        return tree.world
+    if isinstance(tree, dict):
+        for v in tree.values():
+            w = _find_world(v)
+            if w is not None:
+                return w
+    return None
+
+
+def _world_of(state, path: str) -> Optional[_World]:
+    """The world that writes ``path`` as its one directory: the mesh of
+    the first :class:`ShardedState` in ``state`` when it spans 2+ ranks and
+    every rank of it names the same ``path`` (a collective of the mesh).
+    None: the one-rank format (no such mesh, or each rank names its own
+    directory and writes its own state there: replicated leaves and its
+    own residual rows). On every rank, raises for a directory that some
+    ranks share and others do not, and for a directory each when the
+    state holds ZeRO slices, which only a world's directory places."""
+    mesh = _find_world(state)
+    if mesh is None or int(getattr(mesh, "size", 1)) < 2:
+        return None
+    world = _World(mesh)
+    paths = world.gather(os.path.abspath(path))
+    if len(set(paths)) == 1:
+        return world
+    if len(set(paths)) < len(paths):
+        raise ValueError("checkpoint: the ranks of a mesh save into one "
+                         "directory, or each into its own; got "
+                         f"{sorted(set(paths))[:4]} over {len(paths)} ranks")
+    sliced = sorted(p for p, pc in _layout_of(state, "", {}).items()
+                    if pc.dim >= 0 and not pc.row)
+    if sliced:
+        raise ValueError("checkpoint: a state with ZeRO slices (e.g. "
+                         f"{sliced[:2]}) is saved by every rank into one "
+                         "directory, the world's; got a directory a rank")
+    return None
+
+
+def _layout_of(tree, prefix: str, out: Dict[str, Piece]):
+    """Every :class:`ShardedState`'s pieces in ``tree``, by full dotted
+    path."""
+    if isinstance(tree, dict):
+        if isinstance(tree, ShardedState):
+            for p, pc in tree.layout.items():
+                out[f"{prefix}.{p}" if prefix else p] = pc
+        for k, v in tree.items():
+            _layout_of(v, f"{prefix}.{k}" if prefix else str(k), out)
+    return out
+
+
+def _entries(state) -> Dict[str, Tuple[str, Any, Optional[Piece]]]:
+    """``{"<key>/<path>": (dotted path, leaf, piece or None)}`` over the
+    top-level keys of ``state``."""
+    _check_state(state)
+    layout = _layout_of(state, "", {})
+    out = {}
+    for key, sub in state.items():
+        for p, v in _flatten(sub, "", {}).items():
+            dotted = f"{key}.{p}" if p else key
+            out[f"{key}/{p}"] = (dotted, v, layout.get(dotted))
+    return out
+
+
+def _piece_range(pc: Piece) -> Tuple[int, int, int]:
+    """(dim, start, stop) of a piece in its logical array; dim -1: all."""
+    if pc is None or pc.dim < 0:
+        return (-1, 0, 0)
+    step = pc.shape[pc.dim] // pc.count
+    return (pc.dim, pc.index * step, (pc.index + 1) * step)
+
+
+class _WorldPart(dict):
+    """A rank's staged part of a world's asynchronous save."""
+
+
+def _world_snapshot(state, world: _World):
+    """This rank's part of a world checkpoint: the pieces it writes (host
+    copies, after one device synchronise), their ranges, and every leaf's
+    logical shape and dtype."""
+    entries = _entries(state)
+    leaves, pieces, index = {}, {}, {}
+    for ekey, (_, v, pc) in entries.items():
+        t = _leaf_tensor(v)
+        shape = tuple(pc.shape) if pc is not None else tuple(t.shape)
+        leaves[ekey] = {"shape": list(shape),
+                        "dtype": str(t.dtype).replace("torch.", "")}
+        write = pc.write if pc is not None else world.rank == 0
+        if write:
+            pieces[ekey] = t.unsqueeze(0) if (pc is not None and pc.row) \
+                else t
+            index[ekey] = list(_piece_range(pc))
+    if torch.cuda.is_available() and any(
+            t.is_cuda for t in pieces.values()):
+        torch.cuda.synchronize()
+    pieces = {k: t.to("cpu", copy=True) for k, t in pieces.items()}
+    return {"pieces": pieces, "index": index, "leaves": leaves,
+            "keys": list(state)}
+
+
+def _write_world_part(tmp: str, world: _World, part: dict,
+                      digests: Optional[dict] = None):
+    """Write this rank's shard file (and rank 0 the layout) into ``tmp``;
+    each file lands whole (written beside, then renamed)."""
+    name = _shard_file(world.rank, world.size)
+    torch.save({"pieces": part["pieces"], "index": part["index"]},
+               os.path.join(tmp, name + ".part"))
+    os.replace(os.path.join(tmp, name + ".part"), os.path.join(tmp, name))
+    if digests is not None:
+        _write_json(os.path.join(tmp, f"digests-{world.rank:05d}.json"),
+                    digests)
+    if world.rank == 0:
+        _write_json(os.path.join(tmp, LAYOUT_NAME),
+                    {"format": "sharded", "version": 1,
+                     "world": world.size, "keys": part["keys"],
+                     "leaves": part["leaves"]})
+
+
+def _write_json(path: str, obj):
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(path + ".part", path)
+
+
+def _part_digests(part: dict, rank: int) -> Dict[str, str]:
+    return {f"{k}@{rank}": array_digest(t) for k, t in part["pieces"].items()}
+
+
+def _missing_parts(tmp: str, size: int) -> List[str]:
+    """The ranks' shard files not (yet) in ``tmp``."""
+    return [n for n in (_shard_file(r, size) for r in range(size))
+            if not os.path.exists(os.path.join(tmp, n))]
+
+
+def _wait_parts(tmp: str, size: int, timeout: float):
+    """Rank 0: wait until every rank's shard file is in ``tmp``."""
+    deadline = time.monotonic() + timeout
+    while _missing_parts(tmp, size):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint {tmp}: shard files "
+                               f"{_missing_parts(tmp, size)} not written "
+                               f"after {timeout} s")
+        time.sleep(0.01)
+
+
+def _seal_world(tmp: str, dest: str) -> Optional[dict]:
+    """Rank 0: rename the finished ``tmp`` to ``dest`` (an older ``dest``
+    removed first) and return the merged piece digests (None: none
+    recorded)."""
+    arrays = {}
+    for n in sorted(os.listdir(tmp)):
+        if n.startswith("digests-"):
+            with open(os.path.join(tmp, n)) as f:
+                arrays.update(json.load(f))
+            os.remove(os.path.join(tmp, n))
+        elif n.endswith(".part"):
+            os.remove(os.path.join(tmp, n))
+    if os.path.isdir(dest):
+        shutil.rmtree(dest)
+    os.replace(tmp, dest)
+    _fsync_dir(os.path.dirname(dest))
+    return arrays or None
+
+
+def _box(shape, dim: int, a: int, b: int):
+    """[(start, stop)] per dim: the part of an array of ``shape`` that a
+    range ``[a, b)`` along ``dim`` covers (``dim`` -1: all of it)."""
+    return [(a, b) if i == dim else (0, int(n)) for i, n in enumerate(shape)]
+
+
+def _world_index(path: str):
+    """(layout, {ekey: [(box, tensor, rank)]}) of a world's directory. The
+    shard files are memory-mapped: a piece's bytes are read when a range
+    of it is copied."""
+    with open(os.path.join(path, LAYOUT_NAME)) as f:
+        layout = json.load(f)
+    size = int(layout["world"])
+    index: Dict[str, list] = {}
+    for r in range(size):
+        blob = torch.load(os.path.join(path, _shard_file(r, size)),
+                          weights_only=True, map_location="cpu", mmap=True)
+        for ekey, t in blob["pieces"].items():
+            d, a, b = (int(x) for x in blob["index"][ekey])
+            shape = layout["leaves"][ekey]["shape"]
+            index.setdefault(ekey, []).append((_box(shape, d, a, b), t, r))
+    return layout, index
+
+
+def _copy_overlap(dst, dst_box, src, src_box) -> int:
+    """Copy where two boxes of one logical array meet; the count copied."""
+    for i, ((da, db), (sa, sb)) in enumerate(zip(dst_box, src_box)):
+        lo, hi = max(da, sa), min(db, sb)
+        if hi <= lo:
+            return 0
+        dst = dst.narrow(i, lo - da, hi - lo)
+        src = src.narrow(i, lo - sa, hi - lo)
+    dst.copy_(src)
+    return dst.numel()
+
+
+def _assemble(ekey: str, meta: dict, pieces, box) -> torch.Tensor:
+    """The part ``box`` of leaf ``ekey``'s logical array, from the stored
+    pieces that overlap it; a part some element of which no piece covers
+    raises."""
+    out = torch.empty(tuple(b - a for a, b in box),
+                      dtype=getattr(torch, meta["dtype"]))
+    covered = sum(_copy_overlap(out, box, t, pbox)
+                  for pbox, t, _ in pieces)
+    if covered < out.numel():
+        raise ValueError(f"checkpoint: no piece covers part of {ekey}")
+    return out
+
+
+def _read_world(path: str, template=None, map_location=None):
+    """A world's directory: with ``template``, its structure with each leaf
+    assembled where the template's layout places it (any ``data`` x
+    ``sharding`` layout), from the pieces that overlap it; without, the
+    logical arrays as ``{key: {dotted path: tensor}}``."""
+    path = os.path.abspath(path)
+    layout, index = _world_index(path)
+    leaves = layout["leaves"]
+    if template is None:
+        out = {}
+        for ekey, meta in leaves.items():
+            key, p = ekey.split("/", 1)
+            out.setdefault(key, {})[p] = _assemble(
+                ekey, meta, index.get(ekey, ()), _box(meta["shape"], -1, 0, 0))
+        return {k: (v[""] if list(v) == [""] else v) for k, v in out.items()}
+    if map_location is None:
+        map_location = _first_device(template)
+    entries = _entries(template)
+    if set(entries) != set(leaves):
+        missing = sorted(set(entries) - set(leaves))
+        extra = sorted(set(leaves) - set(entries))
+        raise ValueError(f"checkpoint {path}: paths differ from the "
+                         f"template: missing {missing[:4]}, extra {extra[:4]}")
+    local = {}
+    for ekey, (dotted, v, pc) in entries.items():
+        meta = leaves[ekey]
+        want = tuple(pc.shape) if pc is not None else \
+            tuple(_leaf_tensor(v).shape)
+        if tuple(meta["shape"]) != want:
+            raise ValueError(f"checkpoint {dotted}: logical shape "
+                             f"{tuple(meta['shape'])}, template {want}")
+        t = _assemble(ekey, meta, index.get(ekey, ()),
+                      _box(want, *_piece_range(pc)))
+        if pc is not None and pc.row:
+            t = t[0]
+        local[dotted] = t.to(map_location) if map_location is not None \
+            else t
+
+    def build(tree, prefix):
+        if isinstance(tree, dict):
+            return dict((k, build(v, f"{prefix}.{k}" if prefix else str(k)))
+                        for k, v in tree.items())
+        return local[prefix]
+    return {k: build(template[k], k) for k in template}
+
+
+def _world_digests(path: str) -> Dict[str, str]:
+    """Each piece's content digest, as a deep save records them."""
+    _, index = _world_index(path)
+    return {f"{ekey}@{r}": array_digest(t)
+            for ekey, pieces in index.items() for _, t, r in pieces}
+
+
+def _write_world(tmp: str, state, world: _World, deep: bool,
+                 step: Optional[int], site: str) -> float:
+    """Every rank: rank 0 clears ``tmp``, each rank writes its pieces (and
+    with ``deep`` their digests) into it, retried and byte-budgeted;
+    barriers before and after. Returns this rank's bytes."""
+    from ..resilience import faults
+    from ..resilience.retry import call_with_retry
+    if world.rank == 0:
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    world.barrier()
+    part = _world_snapshot(state, world)
+    digests = _part_digests(part, world.rank) if deep else None
+
+    def _write():
+        faults.maybe_raise("ckpt_io", step=step, site=site,
+                           msg=f"injected ckpt_io at {site}")
+        _write_world_part(tmp, world, part, digests)
+
+    nbytes = _part_nbytes(part)
+    call_with_retry(_write, site="ckpt_save", base_delay=0.01,
+                    **_save_retry_kwargs(nbytes))
+    world.barrier()
+    missing = _missing_parts(tmp, world.size) if world.rank == 0 else None
+    missing = world.from_rank0(missing)
+    if missing:
+        raise OSError(f"checkpoint {tmp}: rank 0 does not see the shard "
+                      f"files {missing[:4]}; the ranks of a world save into "
+                      "one directory that every rank can read")
+    return nbytes
+
+
+def _save_world(path: str, state, world: _World) -> str:
+    """A world's one-shot save (every rank calls it): the pieces into
+    ``<path>.tmp-world``, then rank 0 renames it into place."""
+    path = os.path.abspath(path)
+    world.barrier()
+    _write_world(f"{path}.tmp-world", state, world, False, None,
+                 "save_checkpoint")
+    if world.rank == 0:
+        _seal_world(f"{path}.tmp-world", path)
+    world.barrier()
+    return path
+
+
+def _part_nbytes(part) -> float:
+    return float(sum(t.numel() * t.element_size()
+                     for t in part["pieces"].values()))
 
 
 # -- telemetry ------------------------------------------------------------------
@@ -542,7 +983,15 @@ def save_checkpoint(path: str, state: Dict[str, Any], overwrite: bool = True,
     ``staging_dir`` (default ``staging_root()/<basename(path)>``). Returns
     the directory written; with ``use_async`` an :class:`AsyncSave` whose
     write runs after the host copy. The module keeps one write in flight:
-    a save first waits for the one before it (and raises its error)."""
+    a save first waits for the one before it (and raises its error).
+
+    A :class:`ShardedState` over 2+ ranks is saved by every rank of its
+    mesh (a collective): into one ``path``, as the one directory of the
+    world (module docstring), whose write is synchronous (``use_async``
+    gives an :class:`AsyncSave` that has finished) and raises past the
+    retry budget, since a world's pieces cannot stage on one host's
+    disk; into a ``path`` of each rank's own, in the one-rank format
+    (a state with ZeRO slices raises)."""
     global _writer
     path = os.path.abspath(path)
     if not overwrite and os.path.exists(path):
@@ -552,6 +1001,13 @@ def save_checkpoint(path: str, state: Dict[str, Any], overwrite: bool = True,
     if prev is not None:
         prev.wait_until_finished()
     t0 = time.perf_counter()
+    world = _world_of(state, path)
+    if world is not None:
+        out = _save_world(path, state, world)
+        dt = time.perf_counter() - t0
+        _record("save", dt, 0.0)
+        _record_stall(dt)
+        return AsyncSave(path, lambda: out) if use_async else out
     files = _host_files(state)
     nbytes = _nbytes(files)
     if use_async:
@@ -633,7 +1089,9 @@ class CheckpointManager:
     snapshot and a committer thread commits. ``dirty_probe`` (settable at
     any time) is asked at commit time: True suppresses the commit.
     ``commit_delay`` sleeps that many seconds before each commit (a test
-    knob that holds a commit in flight)."""
+    knob that holds a commit in flight). Every rank of a mesh that saves
+    a :class:`ShardedState` over 2+ ranks into the same ``directory``
+    writes the one directory of the world (module docstring)."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  save_interval_steps: int = 1, use_async: bool = True,
@@ -643,6 +1101,10 @@ class CheckpointManager:
                  dirty_probe: Optional[Callable[[], bool]] = None,
                  commit_delay: float = 0.0):
         self._dir = os.path.abspath(directory)
+        # the world whose one directory this is (None: one-rank format),
+        # worked out from the first state saved on each mesh
+        self._world: Optional[_World] = None
+        self._world_mesh = None
         os.makedirs(self._dir, exist_ok=True)
         self._staging = staging_dir or os.path.join(
             staging_root(), os.path.basename(self._dir))
@@ -787,6 +1249,14 @@ class CheckpointManager:
         step = int(step)
         tier_deep = self._tier_deep(deep)
         self._save_seq += 1
+        mesh = _find_world(state)
+        if mesh is not self._world_mesh:
+            self._world = _world_of(state, self._dir)
+            self._world_mesh = mesh
+        if self._world is not None:
+            if self._async_commit:
+                return self._save_world_async(step, state, tier_deep)
+            return self._save_world(step, state, tier_deep)
         if self._async_commit:
             return self._save_async(step, state, tier_deep)
         if step in self.all_steps():
@@ -830,6 +1300,131 @@ class CheckpointManager:
         _record("save", dt, nbytes, step=step)
         _record_stall(dt)  # a synchronous save stalls the step for its wall
         return True
+
+    # -- the one directory of a world ----------------------------------------
+
+    def _save_world(self, step: int, state, deep: bool) -> bool:
+        """A world's synchronous save (every rank calls it): rank 0
+        decides and clears, each rank writes its pieces into
+        ``<step>.tmp-world``, rank 0 renames, writes the manifest (with
+        every rank's piece digests on a deep save) and applies retention;
+        barriers between. An armed ``ckpt_torn`` tears the step on rank 0
+        and every rank raises ``SimulatedCrash`` after the last barrier."""
+        from ..resilience import faults
+        world = self._world
+        go = None
+        if world.rank == 0:
+            if step in self.all_steps():
+                self._delete(step)
+            latest = self.latest_step()
+            go = not ((latest is not None and latest >= step)
+                      or step % self._save_interval)
+        if not world.from_rank0(go):
+            return False
+        t0 = time.perf_counter()
+        tmp = os.path.join(self._dir, f"{step}.tmp-world")
+        nbytes = _write_world(tmp, state, world, deep, step, "manager_save")
+        torn = faults.fires("ckpt_torn", step=step, site="ckpt_commit")
+        if world.rank == 0:
+            sdir = self._step_dir(step)
+            arrays = _seal_world(tmp, sdir)
+            if torn:
+                _corrupt_one_file(sdir)
+                self._vcache.pop(step, None)
+            else:
+                write_manifest(sdir, arrays if deep else None)
+                _clear_pending_marker(self._dir, step)
+                self._vcache[step] = True
+                self._gc()
+        world.barrier()
+        if torn:
+            raise faults.SimulatedCrash(
+                f"simulated kill -9 committing checkpoint step {step}")
+        dt = time.perf_counter() - t0
+        _record("save", dt, nbytes, step=step)
+        _record_stall(dt)
+        return True
+
+    def _save_world_async(self, step: int, state, deep: bool) -> bool:
+        """A world's asynchronous save: the host copy of this rank's pieces
+        and a directory name agreed from rank 0, then the committer. No
+        snapshot is superseded (every rank commits every save it staged):
+        a save waits until the committer has taken the one before."""
+        self._raise_thread_error()
+        if step % self._save_interval:
+            return False
+        import uuid
+        world = self._world
+        token = world.from_rank0(uuid.uuid4().hex[:12])
+        t0 = time.perf_counter()
+        with self._cv:
+            while self._staged is not None:
+                self._cv.wait(timeout=0.05)
+            self.snapshots_total += 1
+        part = _WorldPart(_world_snapshot(state, world))
+        part["token"] = token
+        part["world"] = world
+        dt = time.perf_counter() - t0
+        with self._cv:
+            self._staged = (step, part, deep, None, None, [])
+            self._cv.notify_all()
+        self._ensure_committer()
+        self._set_inflight_gauge()
+        _record_stall(dt)
+        return True
+
+    def _commit_world(self, step: int, part, deep: bool):
+        """The committer's half of a world's save: this rank's pieces into
+        the agreed directory; on rank 0 also the wait for every rank's
+        file, the dirty probe, the seal, the manifest and retention."""
+        from ..resilience import faults
+        from ..resilience.retry import call_with_retry
+        world = part["world"]
+        tmp = os.path.join(self._dir, f"{step}.tmp-{part['token']}")
+        os.makedirs(tmp, exist_ok=True)
+        digests = _part_digests(part, world.rank) if deep else None
+
+        def _write():
+            faults.maybe_raise("ckpt_io", step=step, site="async_commit",
+                               msg=f"injected ckpt_io committing step {step}")
+            _write_world_part(tmp, world, part, digests)
+
+        t0 = time.perf_counter()
+        nbytes = _part_nbytes(part)
+        call_with_retry(_write, site="ckpt_save", base_delay=0.01,
+                        **_save_retry_kwargs(nbytes))
+        if world.rank != 0:
+            with self._cv:
+                self.committed_total += 1
+            return
+        _wait_parts(tmp, world.size, WORLD_PARTS_TIMEOUT_S)
+        with self._fs_lock:
+            _write_pending_marker(self._dir, step)
+            if step in self.all_steps():
+                self._delete(step)
+            latest = self.latest_step()
+            probe = self.dirty_probe
+            dirty = probe is not None and probe()
+            if dirty or (latest is not None and latest >= step):
+                shutil.rmtree(tmp, ignore_errors=True)
+                _clear_pending_marker(self._dir, step)
+                with self._cv:
+                    self._count_suppressed("dirty" if dirty else "superseded")
+                return
+            sdir = self._step_dir(step)
+            arrays = _seal_world(tmp, sdir)
+            if faults.fires("ckpt_torn", step=step, site="ckpt_commit"):
+                _corrupt_one_file(sdir)
+                self._vcache.pop(step, None)
+                raise faults.SimulatedCrash(
+                    f"simulated kill -9 committing checkpoint step {step}")
+            write_manifest(sdir, arrays if deep else None)
+            _clear_pending_marker(self._dir, step)
+            self._vcache[step] = True
+            with self._cv:
+                self.committed_total += 1
+            self._gc()
+        _record("save", time.perf_counter() - t0, nbytes, step=step)
 
     # -- the asynchronous pipeline -------------------------------------------
 
@@ -1000,7 +1595,10 @@ class CheckpointManager:
                 self._committing = step
                 self._committing_buf = buf
             try:
-                self._commit_one(step, files, deep, trace, events)
+                if isinstance(files, _WorldPart):
+                    self._commit_world(step, files, deep)
+                else:
+                    self._commit_one(step, files, deep, trace, events)
             except BaseException as e:  # noqa: BLE001 — raised at flush()
                 with self._cv:
                     self.failed_total += 1
@@ -1140,6 +1738,8 @@ class CheckpointManager:
                     return False
                 self._cv.wait(timeout=wait)
         self._raise_thread_error()
+        if self._async_commit and self._world is not None:
+            self._world.barrier()     # every rank's commit has landed
         return True
 
     def abandon(self):
@@ -1191,9 +1791,17 @@ class CheckpointManager:
             out = self._read(self._step_dir(step), template)
         except Exception:  # noqa: BLE001 — an unreadable payload fails
             return False, None
-        if compare_digests(recorded, tree_digests(out)):
+        if compare_digests(recorded, self._digests(step, out)):
             return False, None
         return True, out
+
+    def _digests(self, step: int, out) -> Dict[str, str]:
+        """The digests of a step as read back: a world's per piece, as its
+        save recorded them; otherwise per leaf of ``out``."""
+        sdir = self._step_dir(step)
+        if is_sharded_dir(sdir):
+            return _world_digests(sdir)
+        return tree_digests(out)
 
     def verify(self, step: int, deep: bool = False) -> Optional[bool]:
         """Re-verify a committed step from disk: the files (size and
@@ -1231,7 +1839,7 @@ class CheckpointManager:
             out = self._read(self._step_dir(step), template)
             recorded = self._manifest_arrays(step) if deep else None
             if recorded:
-                bad = compare_digests(recorded, tree_digests(out))
+                bad = compare_digests(recorded, self._digests(step, out))
                 if bad:
                     raise OSError(f"checkpoint step {step} failed deep "
                                   f"verification: {bad[:4]}")

@@ -53,6 +53,7 @@ __all__ = [
     "quantize_int4_blocks", "dequantize_int4_blocks",
     "pack_int4", "unpack_int4", "bucket_sizes",
     "compressed_tree_mean", "start_tree_mean", "compressed_psum_scatter",
+    "psum_scatter", "all_gather_dim",
     "init_residuals", "normalize_axis_policies", "wire_bytes_per_rank",
     "tree_wire_bytes", "residual_norm", "tree_flatten", "tree_unflatten",
 ]
@@ -487,12 +488,47 @@ def compressed_tree_mean(tree, axis, policy: Union[str, Mapping] = "int8",
 
 
 def _psum_scatter0(x, ax: _Axis):
-    """Tiled reduce-scatter SUM along dim 0 (all_reduce, then this rank's
-    chunk: gloo has no reduce_scatter of one tensor)."""
+    """Tiled reduce-scatter SUM along dim 0: ``reduce_scatter_tensor`` on
+    NCCL; on gloo, which has no reduce-scatter of one tensor, an
+    all_reduce and this rank's chunk."""
     if ax.n == 1:
         return x
+    if dist.get_backend(ax.group) == "nccl":
+        x = x.contiguous()
+        out = torch.empty((x.shape[0] // ax.n,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=ax.group)
+        return out
     full = ax.sum_start(x)()
     return torch.chunk(full, ax.n, dim=0)[ax.rank].contiguous()
+
+
+def psum_scatter(x, axis, scatter_dim: int = 0,
+                 mesh: Optional[Mesh] = None):
+    """Lossless tiled reduce-scatter SUM of ``x`` over ``axis`` along
+    ``scatter_dim`` (the reference's ``lax.psum_scatter(tiled=True)``):
+    this rank's chunk of the sum."""
+    ax = _Axis(mesh if mesh is not None else get_mesh(), axis)
+    if ax.n == 1:
+        return x
+    if x.shape[scatter_dim] % ax.n:
+        raise ValueError(f"scatter dim size {x.shape[scatter_dim]} not "
+                         f"divisible by axis size {ax.n}")
+    out = _psum_scatter0(torch.movedim(x, scatter_dim, 0), ax)
+    return torch.movedim(out, 0, scatter_dim).contiguous()
+
+
+def all_gather_dim(x, axis, dim: int = 0, mesh: Optional[Mesh] = None):
+    """Tiled all_gather of ``x`` over ``axis`` along ``dim`` (the
+    reference's ``lax.all_gather(tiled=True)``): the ranks' chunks in
+    rank order."""
+    ax = _Axis(mesh if mesh is not None else get_mesh(), axis)
+    if ax.n == 1:
+        return x
+    xm = torch.movedim(x, dim, 0).contiguous()
+    flat = ax.all_gather_start(xm.reshape(-1))()
+    out = flat.reshape((ax.n * xm.shape[0],) + tuple(xm.shape[1:]))
+    return torch.movedim(out, 0, dim).contiguous()
 
 
 def compressed_psum_scatter(x, axis, scatter_dim: int = 0,

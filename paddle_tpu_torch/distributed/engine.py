@@ -88,24 +88,59 @@ Two knobs of the reference's single-device step:
 value when the optimizer has one.
 
 ``device=None`` means the card; without one the trainer raises unless
-``device="cpu"`` is passed. ZeRO (``zero_stage``), pipeline
-micro-batches and any mesh axis but ``data`` wait in ``ROADMAP.md``
-(Queue 1) and raise ``NotImplementedError``.
+``device="cpu"`` is passed. Pipeline micro-batches and any ``model``,
+``pipe`` or ``sep`` axis larger than 1 wait in ``ROADMAP.md`` (Queue 1,
+item 15) and raise ``NotImplementedError``.
+
+**ZeRO** (``zero_stage=1|2|3`` on a mesh with a ``sharding`` axis of n > 1,
+reference ``engine.py:267-415,735-800``; at n = 1 every stage is stage 0,
+as the reference gates each at ``n_shard > 1``). The batch splits over
+``("data", "sharding")``, data-major: rank (d, s) takes slice
+``d * n + s``. A leaf is split where :func:`shard_spec_for` splits it
+(leaves under 1024 elements, or with no dim divisible by n, stay whole):
+
+- stage 1: the optimizer slots of a split leaf hold this rank's slice
+  (``slot_dims``); the gradients are exchanged as at stage 0; each rank
+  updates its slice of the parameter and the new slices are all-gathered
+  over ``sharding``.
+- stage 2: also the gradients of the split leaves (``zero2_dims``) leave
+  the exchange as this rank's slice: a reduce-scatter over ``sharding``
+  (``compressed_psum_scatter`` under the quantized policy of that axis,
+  with a per-rank, full-tensor error-feedback residual), divided by n,
+  then the mean over ``data``. Under ``accumulate_steps`` the sliced
+  gradients are what accumulates.
+- stage 3: the parameter storage between steps is this rank's slice
+  (``zero3_dims``; also every leaf a ``ShardingParallel`` of stage 3 gave a
+  ``pspec``). A step all-gathers the slices into the model's parameters,
+  reduce-scatters their gradients losslessly in float32 whatever the
+  policy (the reference's gather transpose carries no residual), divides
+  by n, takes the mean over ``data``, updates the slice and frees the
+  full parameters: the model's tensors of those leaves are empty between
+  steps (:meth:`ParallelTrainer.sync_to_model` gathers them back).
+- the other leaves keep the bucketed exchange over the live axes of
+  ``("data", "sharding")``, with the per-axis policy and DCN gating.
+- the NaN guard's finite flag is reduced over ``sharding`` where a
+  gradient is a slice, so every rank decides alike; the optimizer's clip
+  is told which gradients are slices (``apply_gradients(split=)``) and
+  sums their norms over ``sharding``. A ZeRO slice update needs an elementwise optimizer
+  (Lamb, Lars and DGC raise).
 
 **Replica integrity check** (``integrity_check_every=N``). Every N-th
 ``train_step`` (a host-side cadence, ``_steps_run % N``, as the
 reference's) fingerprints the updated ``params``, ``opt`` and
 ``comm_err`` (``resilience/integrity.py``'s ``fingerprint_array``, the
 reference's entry order: each part's leaves in sorted-key order) and
-compares the replicated leaves across the data ranks. The reference
-emits two scalar collectives a leaf (``pmin``/``pmax``); the port stacks
-the fingerprints and issues ONE ``all_reduce(MIN)`` and ONE
-``all_reduce(MAX)`` over the data group. A rank's own leaves (its
-``comm_err`` rows, when the data axis is live) get the combined digest,
-an ``all_reduce(SUM)`` taken modulo 2**32 as ``lax.psum`` wraps, and stay
-out of the equality decision. Off-cadence steps compute and issue
-nothing. A check step reads the divergence mask on the host (one sync)
-and records ``last_fingerprints`` (the stacked ``int64`` fingerprints,
+compares the replicated leaves across the live axes of ``("data",
+"sharding")``. The reference emits two scalar collectives a leaf
+(``pmin``/``pmax``); the port stacks the fingerprints and issues ONE
+``all_reduce(MIN)`` and ONE ``all_reduce(MAX)`` over that group. A leaf
+that differs across those ranks by design (its ``comm_err`` rows, a ZeRO
+slice of a parameter or a slot) gets the combined digest over the axes it
+is split on, an ``all_reduce(SUM)`` taken modulo 2**32 as ``lax.psum``
+wraps, and stays out of the equality decision (reference
+``engine.py:518-556``). Off-cadence steps compute and issue nothing. A
+check step reads the divergence mask on the host (one sync) and records
+``last_fingerprints`` (the stacked ``int64`` fingerprints,
 ``_integrity_entries`` names them), ``last_divergence`` (the diverged
 leaves, read and cleared by :meth:`ParallelTrainer.consume_divergence`),
 ``integrity_check_steps_total`` and ``replica_divergence_total{leaf}``.
@@ -114,18 +149,27 @@ leaves, read and cleared by :meth:`ParallelTrainer.consume_divergence`),
 elastic scale-up or scale-down): the optimizer state, residuals, NaN
 guard and loss scale start fresh; the parameters are the model's own
 tensors and keep their values (the reference re-reads them from the
-model too). Carrying trained state across is
+model too; at stage 3 call :meth:`ParallelTrainer.sync_to_model` on the
+old mesh first). Carrying trained state across is
 ``resilience.elastic.reshard_trainer``'s work.
 
 **State and checkpoints.** :attr:`ParallelTrainer.state` is the
-reference's ``trainer.state`` over the live tensors (parameters, buffers,
-optimizer state, residuals, NaN guard and loss scale); assigning to it
-copies a restored state in place. ``save_checkpoint``/``load_checkpoint``
-write and read it through ``distributed/checkpoint.py`` (one rank; more
-raise), and ``CheckpointManager.save(step, trainer.state)`` /
-``trainer.state = manager.restore(template=trainer.state)`` resume a run
-bit for bit. The optimizer state lives on the optimizer
-(``optimizer.state``), so ``optimizer.state_dict()`` holds it.
+reference's ``trainer.state`` over this rank's live tensors (parameters,
+buffers, optimizer state, residuals, NaN guard and loss scale): a ZeRO
+leaf is this rank's slice and a residual this rank's row. It is a
+:class:`~paddle_tpu_torch.distributed.checkpoint.ShardedState`: a dict
+whose ``layout`` places each leaf in its logical array (the reference's
+global ``jax.Array``), which the one-directory checkpoint of a world
+reads; assigning to it copies a restored state in place.
+``save_checkpoint``/``load_checkpoint`` write and read it through
+``distributed/checkpoint.py``: over 2+ ranks every rank calls them on
+one shared directory, the one directory of the world, each writing the
+pieces it owns, and a restore onto another ``data`` x ``sharding`` layout
+takes each rank's slice from the logical arrays.
+``CheckpointManager(dir).save(step, trainer.state)`` / ``trainer.state =
+manager.restore(template=trainer.state)`` resume a run bit for bit. The
+optimizer state lives on the optimizer (``optimizer.state``), so
+``optimizer.state_dict()`` holds it.
 
 While the profiler is on (``profiler.start_profiler``), each step is a
 ``train_step`` host range, synced on the device.
@@ -134,12 +178,14 @@ With telemetry on, each step records ``step_time_seconds`` (wall time
 synced on the device), ``tokens_per_sec`` (the lead input's first two dims
 over that time) and, where the exchange moves data (more than one rank),
 ``grad_sync_bytes_total{policy,link,bucket}`` (the ring model of
-``compressed.tree_wire_bytes``), ``grad_sync_compression_x`` (fp32 bytes
-over the policy's) and ``grad_sync_residual_norm``.
+``compressed.tree_wire_bytes``, over the leaves of the bucketed exchange),
+``grad_sync_compression_x`` (fp32 bytes over the policy's) and
+``grad_sync_residual_norm``.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional, Union
 
@@ -155,11 +201,14 @@ from ..framework.random import get_generator
 from ..resilience.guard import all_finite
 from ..resilience.integrity import _keystr, _leaves_with_path, \
     fingerprint_array
-from .compressed import (QUANTIZED_POLICIES, div_const,
-                         normalize_axis_policies, residual_norm,
-                         start_tree_mean, tree_wire_bytes)
+from .checkpoint import Piece, ShardedState
+from .compressed import (QUANTIZED_POLICIES, all_gather_dim,
+                         compressed_psum_scatter, div_const,
+                         normalize_axis_policies, psum_scatter,
+                         residual_norm, start_tree_mean, tree_wire_bytes)
 from .env import backend_for
 from .mesh import axis_links, require_mesh
+from .meta_parallel.sharding_parallel import shard_spec_for, spec_dim
 
 __all__ = ["ParallelTrainer", "partition_reverse_buckets"]
 
@@ -323,8 +372,10 @@ class _BucketHooks:
 
 
 class ParallelTrainer:
-    """model: a Layer; optimizer: an ``Optimizer``; loss_fn(outputs, labels)
-    -> scalar (the mean over the local batch)."""
+    """model: a Layer; optimizer: an ``Optimizer`` (or a
+    ``HybridParallelOptimizer``, whose inner optimizer the trainer
+    drives); loss_fn(outputs, labels) -> scalar (the mean over the local
+    batch)."""
 
     def __init__(self, model, optimizer, loss_fn: Callable, mesh=None,
                  micro_batches: int = 1, remat: bool = False,
@@ -338,29 +389,25 @@ class ParallelTrainer:
                  nan_guard: bool = True, integrity_check_every: int = 0,
                  scaler=None,
                  device: Optional[Union[str, torch.device]] = None):
-        if zero_stage:
-            _waits(f"zero_stage={zero_stage}", "items 14 and 15: ZeRO "
-                   "sharding and compressed_psum_scatter in the engine")
+        if int(zero_stage) not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage must be 0, 1, 2 or 3, got "
+                             f"{zero_stage}")
         if micro_batches > 1:
-            _waits(f"micro_batches={micro_batches}", "pipeline parallelism")
+            _waits(f"micro_batches={micro_batches}", "item 15: pipeline "
+                   "parallelism")
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got "
                              f"{accumulate_steps}")
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else require_mesh()
-        backend = self.mesh.backend()
-        if backend is not None and backend != backend_for(self.device):
-            raise RuntimeError(
-                f"ParallelTrainer: the mesh's process group is {backend} but "
-                f"the trainer runs on {self.device}; use "
-                f"{backend_for(self.device)} for it")
-        self.n_data = self.mesh.shape["data"]
-        self.data_rank = self.mesh.rank_in("data")
+        self._check_mesh(self.mesh)
         self.model = model.to(self.device)
         self.optimizer = optimizer
+        self._opt = getattr(optimizer, "_inner_opt", optimizer)
         self.loss_fn = loss_fn
         self.nan_guard = nan_guard
         self.remat = bool(remat)
+        self.zero_stage = int(zero_stage)
         self.accumulate_steps = int(accumulate_steps)
         self.scaler = scaler if (scaler is not None
                                  and scaler.is_enable()) else None
@@ -388,58 +435,226 @@ class ParallelTrainer:
 
         self.params = OrderedDict((n, p) for n, p in model.named_parameters()
                                   if p.requires_grad)
-        self.opt_state = optimizer.init_state(
-            {n: p.detach() for n, p in self.params.items()})
-        self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.amp = (self.scaler.init_scale_state(self.device)
-                    if self.scaler is not None else None)
-        self._init_exchange()
-        # the replica integrity check: a host-side cadence, no work between
         self.integrity_check_every = max(0, int(getattr(
             model, "integrity_check_every", integrity_check_every)))
         self._steps_run = 0
         self.last_divergence: list = []
         self.last_fingerprints: Optional[torch.Tensor] = None
+        self._setup()
+
+    def _check_mesh(self, mesh):
+        """The mesh's process group must be of this trainer's device's
+        backend (no silent fallback); axes but data and sharding wait."""
+        backend = mesh.backend()
+        if backend is not None and backend != backend_for(self.device):
+            raise RuntimeError(
+                f"ParallelTrainer: the mesh's process group is {backend} but "
+                f"the trainer runs on {self.device}; use "
+                f"{backend_for(self.device)} for it")
+        for ax in ("pipe", "sep", "model"):
+            if mesh.shape[ax] > 1:
+                _waits(f"a {ax!r} axis of {mesh.shape[ax]}", "item 15: "
+                       "tensor, pipeline and context parallelism")
+
+    def _setup(self):
+        """Everything that follows the mesh: ranks, the ZeRO plan and
+        storage, fresh optimizer state, guard, residuals and the exchange
+        and integrity plans."""
+        mesh = self.mesh
+        self.n_data = mesh.shape["data"]
+        self.data_rank = mesh.rank_in("data")
+        self.n_shard = mesh.shape["sharding"]
+        self.shard_rank = mesh.rank_in("sharding")
+        # the batch and the residual rows: ("data", "sharding"), data-major
+        self.n_reduce = self.n_data * self.n_shard
+        self.reduce_rank = self.data_rank * self.n_shard + self.shard_rank
+        self._init_zero()
+        self.opt_state = self._opt.init_state(OrderedDict(
+            (k, self._update_view(k)) for k in self.params))
+        self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.amp = (self.scaler.init_scale_state(self.device)
+                    if self.scaler is not None else None)
+        self._init_exchange()
         self._init_integrity()
+        # sharding.save_group_sharded_model gathers the slices through it
+        ref = (weakref.ref(self) if self.zero3_dims or self._update_dims
+               else None)
+        self.model._zero_trainer = self._opt._zero_trainer = ref
+
+    # -- the ZeRO plan --------------------------------------------------------
+    def _init_zero(self):
+        """Specs and dims as the reference's ``_init_state`` and
+        ``_slot_specs`` (``engine.py:267-310,390-415``), and the stage-3
+        storage: this rank's slice of each ``zero3_dims`` leaf."""
+        n = self.n_shard
+        freed = [k for k in getattr(self, "_shards", {})
+                 if self.params[k].numel() == 0]
+        if freed:
+            raise RuntimeError(
+                f"ZeRO-3 parameters {freed[:3]} hold no values here; call "
+                f"sync_to_model() on the old mesh before remesh")
+        self._full_shapes = {}
+        self.param_specs = OrderedDict(
+            (k, tuple(getattr(p, "pspec", None) or ()))
+            for k, p in self.params.items())
+        if self.zero_stage >= 3 and n > 1:
+            for k, p in self.params.items():
+                if all(ax is None for ax in self.param_specs[k]):
+                    self.param_specs[k] = shard_spec_for(p, n_shards=n)
+        self.zero3_dims = {}
+        if n > 1:
+            for k, spec in self.param_specs.items():
+                d = spec_dim(spec)
+                if d is not None:
+                    self.zero3_dims[k] = d
+        self.zero2_dims = {}
+        if self.zero_stage >= 2 and n > 1:
+            for k, p in self.params.items():
+                if k in self.zero3_dims or any(
+                        ax is not None for ax in self.param_specs[k]):
+                    continue
+                d = spec_dim(shard_spec_for(p, n_shards=n))
+                if d is not None:
+                    self.zero2_dims[k] = d
+        # slot dims: split like shard_spec_for splits each slot at
+        # stage >= 1, else following the parameter's own split
+        self.slot_dims = OrderedDict()
+        self._update_dims = {}
+        for k, p in self.params.items():
+            shape = self._full_shape(k)
+            slots = self._opt.init_slots(
+                torch.empty(shape, dtype=p.dtype, device="meta"))
+            dims = {}
+            for s, v in slots.items():
+                if self.zero_stage >= 1 and n > 1:
+                    dims[s] = spec_dim(shard_spec_for(v, n_shards=n))
+                else:
+                    dims[s] = (self.zero3_dims.get(k)
+                               if tuple(v.shape) == shape else None)
+            self.slot_dims[k] = dims
+            d = self.zero3_dims.get(k, self.zero2_dims.get(k))
+            if d is None:
+                split = {dd for dd in dims.values() if dd is not None}
+                d = split.pop() if len(split) == 1 else None
+            for s, dd in dims.items():
+                if dd is not None and (dd != d or
+                                       tuple(slots[s].shape) != shape):
+                    raise NotImplementedError(
+                        f"ZeRO: slot {s!r} of {k!r} splits on dim {dd}, "
+                        f"its parameter's update on dim {d}")
+            if d is not None:
+                self._update_dims[k] = d
+        if self._update_dims and not getattr(self._opt, "_elementwise", True):
+            raise NotImplementedError(
+                f"ZeRO stage {self.zero_stage} over {n} sharding ranks needs "
+                f"an elementwise optimizer; {type(self._opt).__name__} takes "
+                f"norms or top-k over whole parameters")
+        # stage-3 storage: this rank's slice, the model's tensor freed
+        self._shards = OrderedDict()
+        with torch.no_grad():
+            for k, d in self.zero3_dims.items():
+                p = self.params[k]
+                self._shards[k] = self._slice(p.detach(), d).clone()
+                self._full_shapes[k] = tuple(p.shape)
+                p.data = p.data.new_empty(0)
+
+    def _full_shape(self, k) -> tuple:
+        return self._full_shapes.get(k, tuple(self.params[k].shape))
+
+    def _slice(self, x, d):
+        """This sharding rank's chunk of ``x`` along ``d``."""
+        return torch.chunk(x, self.n_shard, dim=d)[self.shard_rank]
+
+    def _update_view(self, k):
+        """The tensor this rank updates for leaf ``k``: its stage-3 slice,
+        the slice of the parameter its split slots cover, or all of it."""
+        if k in self._shards:
+            return self._shards[k]
+        p = self.params[k].detach()
+        d = self._update_dims.get(k)
+        return p if d is None else self._slice(p, d)
+
+    def _gather_params(self):
+        """Stage 3: every slice all-gathered into its model parameter."""
+        with torch.no_grad():
+            for k, d in self.zero3_dims.items():
+                self.params[k].data = all_gather_dim(
+                    self._shards[k], "sharding", d, mesh=self.mesh)
+
+    def _free_params(self):
+        for k in self.zero3_dims:
+            p = self.params[k]
+            p.data = p.data.new_empty(0)
+
+    def sync_to_model(self):
+        """Gather every stage-3 slice into the model's parameters (a
+        collective of the sharding group); they stay until the next step
+        frees them. The other stages keep the model whole."""
+        self._gather_params()
+
+    def consolidated_state(self) -> dict:
+        """``{"model": state_dict, "opt": {"state": {"step", "slots"}}}``
+        with every ZeRO slice gathered (a collective of the sharding
+        group): what one process of stage 0 would hold."""
+        self.sync_to_model()
+        slots = OrderedDict()
+        for k, d in self.opt_state["slots"].items():
+            dims = self.slot_dims.get(k, {})
+            slots[k] = {s: (all_gather_dim(v, "sharding", dims[s],
+                                           mesh=self.mesh)
+                            if dims.get(s) is not None
+                            and k in self._update_dims else v)
+                        for s, v in d.items()}
+        return {"model": self.model.state_dict(),
+                "opt": {"state": {"step": self.opt_state["step"],
+                                  "slots": slots}}}
 
     # -- the integrity check ------------------------------------------------
     def _integrity_trees(self):
         """The parts a check step fingerprints, in the reference's order."""
-        return (("params", OrderedDict(self.model.named_parameters())),
-                ("opt", self.opt_state), ("comm_err", self.comm_err))
+        st = self.state
+        return (("params", st["params"]), ("opt", self.opt_state),
+                ("comm_err", self.comm_err))
 
     def _init_integrity(self):
-        """Entry names and kinds of the check, the reference's order: each
-        part's leaves in sorted-key order. A leaf is per-rank (combined
-        digest, no vote) when it is a comm_err row and the data axis is
-        live; every other leaf is replicated and compared."""
-        self.integrity_axes = tuple(ax for ax in DATA_AXES
-                                    if self.mesh.shape.get(ax, 1) > 1)
+        """Entry names and split axes of the check, the reference's order:
+        each part's leaves in sorted-key order. A leaf split over live
+        check axes (a residual row, a ZeRO slice) gets the combined digest
+        over them and no vote; every other leaf is compared."""
+        self.integrity_axes = self.mesh.live(DATA_AXES)
+        self.replica_rank = self.mesh.rank_in(self.integrity_axes)
+        layout = self._layout()
         entries = []
         for part, tree in self._integrity_trees():
-            per_rank = part == "comm_err" and bool(self.integrity_axes)
             for path, _ in _leaves_with_path(tree):
-                entries.append((part + _keystr(path), per_rank))
+                pc = layout.get(".".join((part,) + tuple(map(str, path))))
+                axes = (() if pc is None else self.integrity_axes if pc.row
+                        else self.mesh.live("sharding"))
+                entries.append((part + _keystr(path), axes))
         self._integrity_entries = entries
-        self._integrity_cmp_idx = [i for i, (_, r) in enumerate(entries)
-                                   if not r]
-        self._integrity_rank_idx = [i for i, (_, r) in enumerate(entries)
-                                    if r]
+        self._integrity_cmp_idx = [i for i, (_, a) in enumerate(entries)
+                                   if not a]
+        by_axes = OrderedDict()
+        for i, (_, a) in enumerate(entries):
+            if a:
+                by_axes.setdefault(a, []).append(i)
+        self._integrity_rank_idx = by_axes
 
     def _integrity_check(self):
-        """Fingerprint the state, compare across the data ranks, record."""
+        """Fingerprint the state, compare across the check ranks, record."""
         leaves = [v for _, tree in self._integrity_trees()
                   for _, v in _leaves_with_path(tree)]
         fps = (torch.stack([fingerprint_array(v) for v in leaves]) if leaves
                else torch.zeros(0, dtype=torch.int64, device=self.device))
-        cmp_idx, rank_idx = self._integrity_cmp_idx, self._integrity_rank_idx
+        for axes, idx in self._integrity_rank_idx.items():
+            idx = torch.tensor(idx, device=fps.device)
+            comb = fps[idx]
+            dist.all_reduce(comb, op=dist.ReduceOp.SUM,
+                            group=self.mesh.group_of(axes))
+            fps[idx] = comb & 0xFFFFFFFF
+        cmp_idx = self._integrity_cmp_idx
         group = (self.mesh.group_of(self.integrity_axes)
                  if self.integrity_axes else None)
-        if group is not None and rank_idx:
-            idx = torch.tensor(rank_idx, device=fps.device)
-            comb = fps[idx]
-            dist.all_reduce(comb, op=dist.ReduceOp.SUM, group=group)
-            fps[idx] = comb & 0xFFFFFFFF
         if group is not None and cmp_idx:
             idx = torch.tensor(cmp_idx, device=fps.device)
             lo, hi = fps[idx], fps[idx]
@@ -481,24 +696,12 @@ class ParallelTrainer:
         """Move onto ``mesh`` (module docstring): its process group must be
         of this trainer's device's backend. The optimizer state, residuals,
         NaN guard and loss scale start fresh; the parameters keep their
-        values."""
+        values (stage 3: from the model, so :meth:`sync_to_model` first)."""
         from .mesh import set_mesh
-        backend = mesh.backend()
-        if backend is not None and backend != backend_for(self.device):
-            raise RuntimeError(
-                f"ParallelTrainer.remesh: the mesh's process group is "
-                f"{backend} but the trainer runs on {self.device}")
+        self._check_mesh(mesh)
         self.mesh = mesh
         set_mesh(mesh)
-        self.n_data = mesh.shape["data"]
-        self.data_rank = mesh.rank_in("data")
-        self.opt_state = self.optimizer.init_state(
-            {n: p.detach() for n, p in self.params.items()})
-        self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.amp = (self.scaler.init_scale_state(self.device)
-                    if self.scaler is not None else None)
-        self._init_exchange()
-        self._init_integrity()
+        self._setup()
         return self
 
     # -- the exchange plan --------------------------------------------------
@@ -515,16 +718,27 @@ class ParallelTrainer:
         else:
             self._axis_policy = self.grad_sync
             quantized = self.grad_sync in QUANTIZED_POLICIES
-        # per-rank error-feedback residuals: this rank's row of the
-        # reference's replica-major comm_err
+        # the sharding hop of the ZeRO-2 leaves: quantized when that axis's
+        # policy is (ZeRO-3 leaves always reduce-scatter losslessly)
+        rs = (self._axis_policy.get("sharding", "fp32")
+              if isinstance(self._axis_policy, dict) else self._axis_policy)
+        self._rs_policy = rs if rs in QUANTIZED_POLICIES else None
+        plain_keys = [k for k in self.params if k not in self.zero2_dims
+                      and k not in self.zero3_dims]
+        self._plain = frozenset(plain_keys)
+        # per-rank error-feedback residuals, full-tensor shaped: this rank's
+        # row of the reference's replica-major comm_err
+        res_keys = []
+        if quantized:
+            res_keys = [k for k in self.params if k in self._plain or (
+                k in self.zero2_dims and self._rs_policy is not None)]
         self.comm_err = OrderedDict(
-            (k, torch.zeros(p.shape, dtype=torch.float32, device=self.device))
-            for k, p in self.params.items()) if quantized else OrderedDict()
+            (k, torch.zeros(self._full_shape(k), dtype=torch.float32,
+                            device=self.device)) for k in res_keys)
         # fp32/bf16: one-rank axes are no-ops and are skipped; the
         # quantized policies keep them, so the round trip runs at any size
         self.sync_axes = tuple(ax for ax in self.reduce_axes
                                if quantized or mesh.shape[ax] > 1)
-        plain_keys = list(self.params)
         use_buckets = (self.grad_sync_buckets > 1 and bool(self.sync_axes)
                        and len(plain_keys) >= 2)
         bucket_keys = []
@@ -537,8 +751,8 @@ class ParallelTrainer:
                                       if use_buckets else
                                       ([plain_keys] if plain_keys else []))
         self._use_buckets = use_buckets
-        # telemetry: logical wire bytes per rank of one step's exchange,
-        # per (policy, link, bucket)
+        # telemetry: logical wire bytes per rank of one step's bucketed
+        # exchange, per (policy, link, bucket)
         n_sync = mesh.axes_size(self.sync_axes) if self.sync_axes else 1
         self._wire_parts = []
         self._wire_bytes_per_step = 0.0
@@ -546,7 +760,7 @@ class ParallelTrainer:
         if plain_keys and n_sync > 1:
             k = self.accumulate_steps
             links = axis_links(mesh)
-            params = {n: p.detach() for n, p in self.params.items()}
+            params = {n: self.params[n].detach() for n in plain_keys}
             for bi, keys in enumerate(self.grad_sync_bucket_keys):
                 bparams = {n: params[n] for n in keys}
                 for axes_g, pol in normalize_axis_policies(
@@ -582,6 +796,41 @@ class ParallelTrainer:
             bucket_bytes=self.grad_sync_bucket_bytes,
             residuals=res or None, mesh=self.mesh)
 
+    def _data_mean(self, g):
+        """The mean over the data group (bf16 on the wire under
+        ``fp16_allreduce``, as the reference's ``_pmean``)."""
+        if self.n_data == 1:
+            return g
+        wire = (g.to(torch.bfloat16) if self.fp16_allreduce
+                and g.dtype == torch.float32 else g.clone())
+        dist.all_reduce(wire, group=self.mesh.group_of("data"))
+        return div_const(wire, self.n_data).to(g.dtype)
+
+    def _zero_exchange(self, grads: dict):
+        """The ZeRO leaves' reduce-scatters (reference ``engine.py:
+        735-800``): this rank's slice of each mean gradient, and the new
+        residuals of a quantized sharding hop."""
+        grads = self._unscale(grads)
+        out, res = {}, {}
+        for k in sorted(grads):
+            g = grads[k]
+            if k in self.zero3_dims:
+                g = psum_scatter(g, "sharding", self.zero3_dims[k],
+                                 mesh=self.mesh)
+            elif self._rs_policy is not None:
+                r = self.comm_err.get(k)
+                g = compressed_psum_scatter(
+                    g, "sharding", self.zero2_dims[k],
+                    policy=self._rs_policy, block=self.grad_sync_block,
+                    residual=r, mesh=self.mesh)
+                if r is not None:
+                    g, res[k] = g
+            else:
+                g = psum_scatter(g, "sharding", self.zero2_dims[k],
+                                 mesh=self.mesh)
+            out[k] = self._data_mean(div_const(g, self.n_shard))
+        return out, res
+
     # -- run ----------------------------------------------------------------
     def train_step(self, inputs, labels, lr: Optional[float] = None,
                    grad_taint: Optional[float] = None) -> torch.Tensor:
@@ -604,6 +853,7 @@ class ParallelTrainer:
                              f"by accumulate_steps={k}")
         names = list(self.params)
         comm_err0 = self.comm_err
+        self._gather_params()
         if k > 1:
             # gradient merge: the mean of K sequential chunks' losses and
             # gradients (the reference sums l_i / K, then the grads / K);
@@ -623,25 +873,8 @@ class ParallelTrainer:
         if grad_taint is not None and tainted is not None and \
                 grads[tainted] is not None:
             grads[tainted] = grads[tainted] * grad_taint
-        with torch.no_grad():
-            old = {n: p.detach() for n, p in self.params.items()}
-            new_params, new_opt = self.optimizer.apply_gradients(
-                old, grads, self.opt_state, lr=lr)
-            if self.nan_guard or self.amp is not None:
-                finite = all_finite(g for g in grads.values()
-                                    if g is not None)
-                if self.nan_guard:
-                    new_params = {n: torch.where(finite, v, old[n])
-                                  for n, v in new_params.items()}
-                    new_opt = _keep(finite, new_opt, self.opt_state)
-                    self.comm_err = _keep(finite, self.comm_err, comm_err0)
-                    self.skipped += (~finite).to(torch.int32)
-                if self.amp is not None:
-                    self.amp = self.scaler.update_scale_state(self.amp,
-                                                              ~finite)
-            for n, p in self.params.items():
-                p.copy_(new_params[n])
-            self.opt_state = new_opt
+        self._update(grads, lr, comm_err0)
+        self._free_params()
         if ce and self._steps_run % ce == 0:
             self._integrity_check()
         loss = loss.detach()
@@ -655,11 +888,56 @@ class ParallelTrainer:
             self._record_step_telemetry(time.perf_counter() - t0, inputs)
         return loss
 
+    @torch.no_grad()
+    def _update(self, grads, lr, comm_err0):
+        """The optimizer on each leaf's update view (a ZeRO slice or the
+        whole parameter), the NaN guard, and the new values written back:
+        stage-3 slices stay, other slices are all-gathered over
+        ``sharding``."""
+        ud = self._update_dims
+        old = OrderedDict((k, self._update_view(k)) for k in self.params)
+        upd = {}
+        for k, g in grads.items():
+            if g is not None and k in ud and k in self._plain:
+                g = self._slice(g, ud[k])      # stage 1: the full mean
+            upd[k] = g
+        sliced = any(k in ud for k, g in upd.items() if g is not None)
+        split = ((frozenset(ud), self.mesh.group_of("sharding"))
+                 if sliced else None)
+        new_params, new_opt = self._opt.apply_gradients(
+            old, upd, self.opt_state, lr=lr, split=split)
+        if self.nan_guard or self.amp is not None:
+            finite = all_finite(g for g in upd.values() if g is not None)
+            if sliced and self.n_shard > 1:
+                flag = finite.to(torch.int32).reshape(1)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                                group=self.mesh.group_of("sharding"))
+                finite = flag[0] > 0
+            if self.nan_guard:
+                new_params = {n: torch.where(finite, v, old[n])
+                              for n, v in new_params.items()}
+                new_opt = _keep(finite, new_opt, self.opt_state)
+                self.comm_err = _keep(finite, self.comm_err, comm_err0)
+                self.skipped += (~finite).to(torch.int32)
+            if self.amp is not None:
+                self.amp = self.scaler.update_scale_state(self.amp, ~finite)
+        for n, p in self.params.items():
+            v = new_params[n]
+            if n in self._shards:
+                self._shards[n].copy_(v)
+            elif n in ud:
+                p.copy_(all_gather_dim(v.contiguous(), "sharding", ud[n],
+                                       mesh=self.mesh))
+            else:
+                p.copy_(v)
+        self.opt_state = new_opt
+
     def _grads(self, names, inputs, labels):
         """(loss, exchanged grads in ``names`` order) of one forward and
-        backward on this rank's slice of the batch; updates the residuals."""
-        inputs = _shard(inputs, self.n_data, self.data_rank)
-        labels = _shard(labels, self.n_data, self.data_rank)
+        backward on this rank's slice of the batch; updates the residuals.
+        A ZeRO-2/3 leaf's gradient is this rank's slice."""
+        inputs = _shard(inputs, self.n_reduce, self.reduce_rank)
+        labels = _shard(labels, self.n_reduce, self.reduce_rank)
         if self.remat:
             out = checkpoint(_RngReplay(self.model, self.device), inputs,
                              use_reentrant=False)
@@ -679,22 +957,32 @@ class ParallelTrainer:
                     h.remove()
             raise
         grads = dict(zip(names, raw))
-        live = {n: g for n, g in grads.items() if g is not None}
+        live = {n: g for n, g in grads.items()
+                if g is not None and n in self._plain}
         if hooks is not None:
             means, res = hooks.finish(live)
         elif self.sync_axes and live:
             means, res = self._start_exchange(live)()
         else:
             means, res = self._unscale(live), {}
+        means, res = dict(means), dict(res or {})
+        zero = {n: g for n, g in grads.items()
+                if g is not None and n not in self._plain}
+        if zero:
+            zmeans, zres = self._zero_exchange(zero)
+            means.update(zmeans)
+            res.update(zres)
         grads.update(means)
         if res:
             self.comm_err = OrderedDict(self.comm_err)
             self.comm_err.update(res)
         loss = loss.detach()
-        if self.n_data > 1:       # the reference's pmean over "data"
-            loss = loss.clone()
-            dist.all_reduce(loss, group=self.mesh.group_of("data"))
-            loss = div_const(loss, self.n_data)
+        for ax in DATA_AXES:          # the reference's pmean over each axis
+            n = self.mesh.shape[ax]
+            if n > 1:
+                loss = loss.clone()
+                dist.all_reduce(loss, group=self.mesh.group_of(ax))
+                loss = div_const(loss, n)
         if scale is not None:
             loss = (loss * scale.to(loss.dtype)) * \
                 (1.0 / scale).to(loss.dtype)
@@ -735,55 +1023,80 @@ class ParallelTrainer:
     def opt_state(self):
         """The optimizer state (``step`` and ``slots``), kept on the
         optimizer so that ``optimizer.state_dict()`` holds it."""
-        return self.optimizer.state
+        return self._opt.state
 
     @opt_state.setter
     def opt_state(self, value):
-        self.optimizer.state = value
+        self._opt.state = value
 
     @property
-    def state(self) -> dict:
-        """The trainer's whole state over its live tensors, the reference's
-        ``ParallelTrainer.state``: ``params`` (every model parameter, each
-        once), ``buffers`` (the persistent ones), ``opt``, ``comm_err``
-        (this rank's residuals) and ``guard`` (``skipped``, and ``amp``
-        with a scaler). Assigning a state of the same structure copies it
-        into the live tensors in place; a dtype or shape that differs
-        raises."""
+    def state(self) -> ShardedState:
+        """The trainer's whole state over this rank's live tensors, the
+        reference's ``ParallelTrainer.state``: ``params`` (every model
+        parameter, each once; a stage-3 leaf as this rank's slice),
+        ``buffers`` (the persistent ones), ``opt``, ``comm_err`` (this
+        rank's residual rows) and ``guard`` (``skipped``, and ``amp`` with
+        a scaler), with the ``layout`` of each split leaf. Assigning a
+        state of the same structure copies it into the live tensors in
+        place; a dtype or shape that differs raises."""
         params = OrderedDict(self.model.named_parameters())
         seen = {id(p) for p in params.values()}
+        params.update(self._shards)
         buffers = OrderedDict(
             (k, v) for k, v in self.model.state_dict(keep_vars=True).items()
             if id(v) not in seen)
         guard = {"skipped": self.skipped}
         if self.amp is not None:
             guard["amp"] = self.amp
-        return {"params": params, "buffers": buffers, "opt": self.opt_state,
-                "comm_err": self.comm_err, "guard": guard}
+        out = ShardedState(params=params, buffers=buffers,
+                           opt=self.opt_state, comm_err=self.comm_err,
+                           guard=guard)
+        out.layout = self._layout()
+        out.world = self.mesh
+        return out
 
     @state.setter
     def state(self, value: dict):
         _copy_state(self.state, value, "state")
 
-    def _single_rank(self, what):
-        if self.n_data > 1:
-            _waits(f"{what} of a run over {self.n_data} ranks",
-                   "item 15a: checkpoints of per-rank and sharded state")
+    def _layout(self) -> dict:
+        """Dotted path -> :class:`Piece` for every leaf that is not
+        replicated on the whole mesh: ZeRO slices (written by the first
+        data rank of each) and residual rows (``(n_reduce, *shape)``,
+        data-major, each written by its owner)."""
+        out = {}
+        writer = self.data_rank == 0
+        for k, d in self.zero3_dims.items():
+            out["params." + k] = Piece(self._full_shape(k), d,
+                                       self.shard_rank, self.n_shard,
+                                       False, writer)
+        for k, dims in self.slot_dims.items():
+            for s, d in dims.items():
+                if d is not None and k in self._update_dims:
+                    out[f"opt.slots.{k}.{s}"] = Piece(
+                        self._full_shape(k), d, self.shard_rank,
+                        self.n_shard, False, writer)
+        for k, v in self.comm_err.items():
+            out["comm_err." + k] = Piece(
+                (self.n_reduce,) + tuple(v.shape), 0, self.reduce_rank,
+                self.n_reduce, True, True)
+        return out
 
     def save_checkpoint(self, path: str, use_async: bool = False):
         """Save :attr:`state` as a checkpoint directory
         (``distributed/checkpoint.py``); returns the directory, or with
         ``use_async`` an ``AsyncSave`` once the host copy is taken (its
-        ``wait_until_finished()`` returns the directory)."""
+        ``wait_until_finished()`` returns the directory). Over 2+ ranks it
+        is the one directory of the world: every rank calls this with the
+        same ``path``."""
         from .checkpoint import save_checkpoint as _save
-        self._single_rank("save_checkpoint")
         return _save(path, self.state, use_async=use_async)
 
     def load_checkpoint(self, path: str):
         """Restore :attr:`state` from a checkpoint directory, in place, on
-        this trainer's device."""
+        this trainer's device (either format; a world's directory onto any
+        ``data`` x ``sharding`` layout)."""
         from .checkpoint import load_checkpoint as _load
-        self._single_rank("load_checkpoint")
         live = self.state
         _copy_state(live, _load(path, template=live), "state")
         return self.state
@@ -797,12 +1110,23 @@ class ParallelTrainer:
         return None if self.amp is None else float(self.amp["scale"])
 
     def get_param(self, name) -> torch.Tensor:
+        """The parameter's stored values (a stage-3 leaf: this rank's
+        slice)."""
+        if name in self._shards:
+            return self._shards[name]
         return self.params[name].detach()
 
     def set_param(self, name, value):
+        """Replace a parameter's values (the whole parameter; a stage-3
+        leaf keeps this rank's slice of it)."""
         with torch.no_grad():
-            p = self.params[name]
-            p.copy_(torch.as_tensor(value).to(p.dtype))
+            value = torch.as_tensor(value)
+            if name in self._shards:
+                dst = self._shards[name]
+                value = self._slice(value, self.zero3_dims[name])
+            else:
+                dst = self.params[name]
+            dst.copy_(value.to(dst.dtype))
 
     def get_opt_slot(self, name, slot) -> Optional[torch.Tensor]:
         return self.opt_state["slots"].get(name, {}).get(slot)

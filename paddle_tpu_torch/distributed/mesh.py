@@ -1,17 +1,28 @@
 """The device mesh of the port: named axes over ``torch.distributed``.
 
-Port of ``paddle_tpu/distributed/mesh.py:55-260``. The reference builds one
+Port of ``paddle_tpu/distributed/mesh.py``. The reference builds one
 ``jax.sharding.Mesh`` whose named axes (``data``, ``pipe``, ``sharding``,
 ``sep``, ``model``) are the hybrid-parallel axes. The port runs one
 process per card, so a :class:`Mesh` here is a thin object over process
-groups that covers the world: each axis has a size, and an axis larger
-than 1 has the process group its collectives run over.
+groups that covers the world:
 
-Only ``data`` may be larger than 1 so far: the other axes (tensor, pipeline,
-ZeRO sharding and context parallelism) wait in ROADMAP.md (Queue 1, items
-14 and 15), and :func:`build_mesh` raises ``NotImplementedError`` for them.
+- rank ``r`` of the mesh's group sits at coordinate
+  ``np.unravel_index(r, shape)`` over :data:`AXES_ORDER`, as the reference
+  reshapes its device array: ``model`` varies fastest, ``data`` slowest;
+- each axis larger than 1 has the process group its collectives run
+  over (``group_of``): the comm lists of
+  :meth:`CommunicateTopology.get_comm_list`. So has the trainer's
+  ``("data", "sharding")`` exchange, the ranks that differ only on those
+  two axes, and the whole mesh (its own group). A rank's index in a group
+  of several axes (``rank_in``) is its coordinate over them, data-major,
+  which is the index the reference's collectives give a tuple of axes.
+  Other sets of axes get their groups with the callers that need them
+  (ROADMAP.md, Queue 1, item 15).
 
-A mesh of one rank needs no process group. A larger one needs the default
+:func:`build_mesh` creates these groups at once, in one order on every
+rank (``torch.distributed.new_group`` is a collective of the default
+group: every rank of it calls ``build_mesh``, or the world deadlocks). A
+mesh of one rank needs no process group. A larger one needs the default
 group started (``env.init_parallel_env``), or a group passed to
 :func:`build_mesh`, whose size is the mesh's.
 
@@ -19,17 +30,23 @@ Axis link types keep the reference's names: ``"ici"`` for ranks on one
 host (NVLink on an H100 box) and ``"dcn"`` for an axis that crosses hosts
 (the network between them). ``infer_axis_links`` places rank ``r`` on host
 ``r // LOCAL_WORLD_SIZE`` (``torchrun`` and ``spawn`` set it; without it
-every rank shares one host). ``set_axis_links`` overrides the inference,
-as in the reference; the compressed exchange reads the map under
+every rank shares one host); an axis is ``"dcn"`` when stepping along it
+ever crosses a host. ``set_axis_links`` overrides the inference, as in the
+reference; the compressed exchange reads the map under
 ``grad_sync_dcn_only``. The reference's link bandwidths and latencies
 (``link_bandwidth``/``link_latency``) price ``grad_sync_overlap_efficiency``
 and wait with it (ROADMAP.md, Queue 1, item 16).
+
+:class:`CommunicateTopology` and :class:`HybridCommunicateGroup` are the
+reference's coordinate math over the hybrid axes (the fleet API's view of
+the mesh), in pure numpy.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch.distributed as dist
 
 from .env import get_local_world_size
@@ -37,26 +54,53 @@ from .env import get_local_world_size
 __all__ = ["AXES_ORDER", "LINK_TYPES", "Mesh", "build_mesh", "set_mesh",
            "get_mesh", "require_mesh", "axis_size", "set_axis_links",
            "explicit_axis_links", "infer_axis_links", "axis_links",
-           "axis_link"]
+           "axis_link", "CommunicateTopology", "HybridCommunicateGroup"]
 
 AXES_ORDER = ("data", "pipe", "sharding", "sep", "model")
 
 LINK_TYPES = ("ici", "dcn")
 
 
+def _axis_tuple(axes) -> Tuple[str, ...]:
+    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+
 class Mesh:
     """Axis sizes over the world's ranks, in :data:`AXES_ORDER`, and the
-    process group of the one axis that may be larger than 1 (``data``).
-    ``hosts`` is the host index of each data rank."""
+    process groups of its live axes (the module docstring).
+
+    ``group`` is the whole mesh's group (None: the default group);
+    ``groups`` maps an axes tuple (in :data:`AXES_ORDER` order) to the
+    group this rank belongs to along those axes (:func:`build_mesh` fills
+    it). ``hosts`` is the host index of each rank of the mesh, in rank
+    order. ``rank`` is this process's rank in the mesh (read from the
+    group when None)."""
 
     axis_names = AXES_ORDER
 
     def __init__(self, shape: Dict[str, int], group=None,
-                 hosts: Optional[Sequence[int]] = None):
+                 hosts: Optional[Sequence[int]] = None,
+                 groups: Optional[Dict[Tuple[str, ...], object]] = None,
+                 rank: Optional[int] = None):
         self.shape = {ax: int(shape.get(ax, 1)) for ax in AXES_ORDER}
         self.group = group
-        n = self.shape["data"]
-        self.hosts = tuple(hosts) if hosts is not None else (0,) * n
+        self.size = int(np.prod(list(self.shape.values())))
+        self._groups = dict(groups or {})
+        if rank is None:
+            rank = (dist.get_rank(group) if self.size > 1
+                    and dist.is_initialized() else 0)
+        self.rank = int(rank)
+        dims = tuple(self.shape[ax] for ax in AXES_ORDER)
+        self.coord = {ax: int(c) for ax, c in
+                      zip(AXES_ORDER, np.unravel_index(self.rank, dims))}
+        self.hosts = (tuple(int(h) for h in hosts) if hosts is not None
+                      else (0,) * self.size)
+
+    def live(self, axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+        """``axes`` larger than 1, in :data:`AXES_ORDER` order."""
+        want = set(_axis_tuple(axes))
+        return tuple(ax for ax in AXES_ORDER
+                     if ax in want and self.shape[ax] > 1)
 
     def axes_size(self, axes: Union[str, Sequence[str]]) -> int:
         out = 1
@@ -66,17 +110,27 @@ class Mesh:
 
     def group_of(self, axes: Union[str, Sequence[str]]):
         """The process group of ``axes`` (None when they span one rank)."""
-        if self.axes_size(axes) <= 1:
+        key = self.live(axes)
+        if not key:
             return None
-        return self.group if self.group is not None else dist.group.WORLD
+        if key in self._groups:
+            return self._groups[key]
+        if key == self.live(AXES_ORDER):
+            return self.group if self.group is not None else dist.group.WORLD
+        raise ValueError(f"mesh {self.shape} has no process group for axes "
+                         f"{key}; build it with build_mesh")
 
     def rank_in(self, axes: Union[str, Sequence[str]]) -> int:
-        group = self.group_of(axes)
-        return 0 if group is None else dist.get_rank(group)
+        """This rank's index along ``axes``: its coordinates over them,
+        data-major (the index of its group's collectives)."""
+        idx = 0
+        for ax in self.live(axes):
+            idx = idx * self.shape[ax] + self.coord[ax]
+        return idx
 
     def backend(self) -> Optional[str]:
-        """The data group's backend ("nccl", "gloo"), or None without one."""
-        group = self.group_of("data")
+        """The mesh group's backend ("nccl", "gloo"), or None without one."""
+        group = self.group_of(AXES_ORDER)
         return None if group is None else dist.get_backend(group)
 
     def _key(self) -> tuple:
@@ -86,8 +140,18 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
-def _axis_tuple(axes) -> Tuple[str, ...]:
-    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+def _comm_lists(shape: Dict[str, int], axes: Tuple[str, ...]
+                ) -> List[List[int]]:
+    """Mesh ranks that differ only on ``axes``, one list for every value
+    of the other axes, in ascending order (the lists of
+    :meth:`CommunicateTopology.get_comm_list`, for a set of axes)."""
+    dims = tuple(shape[ax] for ax in AXES_ORDER)
+    ranks = np.arange(int(np.prod(dims))).reshape(dims)
+    keep = [i for i, ax in enumerate(AXES_ORDER) if ax in axes]
+    other = [i for i in range(len(AXES_ORDER)) if i not in keep]
+    moved = np.transpose(ranks, other + keep)
+    n = int(np.prod([dims[i] for i in keep]))
+    return [sorted(int(r) for r in row) for row in moved.reshape(-1, n)]
 
 
 class _MeshState(threading.local):
@@ -103,35 +167,47 @@ def build_mesh(degrees: Dict[str, int], group=None,
                axis_links: Optional[Dict[str, str]] = None) -> Mesh:
     """Create (and set current) a mesh from per-axis degrees.
 
-    Only ``data`` may exceed 1 (the other axes raise
-    ``NotImplementedError``). ``group`` is the data axis's process group;
-    None takes the default group when ``data`` > 1, whose size must be
-    ``data``. ``axis_links`` pins link types as :func:`set_axis_links`.
-    """
-    for ax, d in degrees.items():
+    ``group`` is the mesh's process group; None takes the default group
+    when the mesh has more than one rank, whose size must be the product
+    of the degrees. Each live axis, and ``("data", "sharding")`` where
+    both are live beside a third, gets its groups (the module docstring);
+    every rank of the default group must call this.
+    ``axis_links`` pins link types as :func:`set_axis_links`."""
+    for ax in degrees:
         if ax not in AXES_ORDER:
             raise ValueError(f"unknown mesh axis {ax!r}; axes are "
                              f"{AXES_ORDER}")
-        if ax != "data" and int(d) > 1:
-            raise NotImplementedError(
-                f"build_mesh: axis {ax!r} of size {d} is not ported yet; "
-                f"tensor, pipeline, ZeRO and context parallelism wait in "
-                f"ROADMAP.md (Queue 1, items 14 and 15)")
-    n = int(degrees.get("data", 1))
-    hosts = None
+    shape = {ax: int(degrees.get(ax, 1)) for ax in AXES_ORDER}
+    for ax, d in shape.items():
+        if d < 1:
+            raise ValueError(f"mesh axis {ax!r} has degree {d}")
+    n = int(np.prod(list(shape.values())))
+    hosts, groups, rank = None, {}, 0
     if n > 1:
         if not dist.is_initialized():
-            raise ValueError(f"build_mesh: data={n} needs a process group; "
-                             f"call init_parallel_env first")
+            raise ValueError(f"build_mesh: {n} ranks ({degrees}) need a "
+                             f"process group; call init_parallel_env first")
         have = dist.get_world_size(group)
         if have != n:
-            raise ValueError(f"build_mesh: data={n} but the process group "
-                             f"has {have} ranks")
-        per_host = max(1, min(get_local_world_size(), n))
+            raise ValueError(f"build_mesh: degrees {degrees} need {n} ranks "
+                             f"but the process group has {have}")
+        rank = dist.get_rank(group)
         ranks = (dist.get_process_group_ranks(group) if group is not None
-                 else range(n))
+                 else list(range(n)))
+        per_host = max(1, min(get_local_world_size(), n))
         hosts = [r // per_host for r in ranks]
-    mesh = Mesh({"data": n}, group=group, hosts=hosts)
+        backend = dist.get_backend(group)
+        live = tuple(ax for ax in AXES_ORDER if shape[ax] > 1)
+        sets = [(ax,) for ax in live] if len(live) > 1 else []
+        if len(live) > 2 and {"data", "sharding"} <= set(live):
+            sets.append(("data", "sharding"))
+        for axes in sets:
+            for members in _comm_lists(shape, axes):
+                pg = dist.new_group(ranks=[ranks[m] for m in members],
+                                    backend=backend)
+                if rank in members:
+                    groups[axes] = pg
+    mesh = Mesh(shape, group=group, hosts=hosts, groups=groups, rank=rank)
     _state.mesh = mesh
     if axis_links is not None:
         set_axis_links(axis_links, mesh=mesh)
@@ -195,12 +271,19 @@ def explicit_axis_links(mesh: Optional[Mesh] = None
 
 
 def infer_axis_links(mesh: Optional[Mesh] = None) -> Dict[str, str]:
-    """An axis is "dcn" iff stepping along it crosses a host; size-1 axes
-    are "ici" (they move no data)."""
+    """An axis is "dcn" iff stepping along it ever crosses a host; size-1
+    axes are "ici" (they move no data)."""
     mesh = mesh if mesh is not None else require_mesh()
-    links = {ax: "ici" for ax in mesh.axis_names}
-    if len(set(mesh.hosts)) > 1:
-        links["data"] = "dcn"
+    dims = tuple(mesh.shape[ax] for ax in AXES_ORDER)
+    ids = np.asarray(mesh.hosts).reshape(dims)
+    links = {}
+    for i, ax in enumerate(AXES_ORDER):
+        if dims[i] <= 1:
+            links[ax] = "ici"
+            continue
+        lo = np.take(ids, range(dims[i] - 1), axis=i)
+        hi = np.take(ids, range(1, dims[i]), axis=i)
+        links[ax] = "dcn" if bool((lo != hi).any()) else "ici"
     return links
 
 
@@ -219,3 +302,113 @@ def axis_link(axis: str, mesh: Optional[Mesh] = None) -> str:
     """Link type of one axis ("ici" when the axis is unknown)."""
     return axis_links(mesh).get(axis, "ici")
 
+
+# ---------------------------------------------------------------------------
+# the reference's topology objects
+# ---------------------------------------------------------------------------
+
+class CommunicateTopology:
+    """Coordinate math over the hybrid axes (reference
+    ``fleet/base/topology.py:36``): rank ``r`` is
+    ``np.unravel_index(r, dims)``."""
+
+    def __init__(self, hybrid_group_names=("data", "pipe", "sharding",
+                                           "model"),
+                 dims=(1, 1, 1, 1)):
+        self._parallel_names = list(hybrid_group_names)
+        self._dims = list(dims)
+        self.coordinate = None
+        shape = tuple(dims)
+        self._world = int(np.prod(shape))
+        self._coords = {}
+        for rank in range(self._world):
+            self._coords[rank] = tuple(
+                int(x) for x in np.unravel_index(rank, shape))
+
+    def get_hybrid_group_names(self):
+        return self._parallel_names
+
+    def get_dim(self, axis_name):
+        return self._dims[self._parallel_names.index(axis_name)]
+
+    get_dim_size = get_dim
+
+    def world_size(self):
+        return self._world
+
+    def get_rank(self, **kwargs):
+        coords = tuple(kwargs[n] for n in self._parallel_names)
+        return int(np.ravel_multi_index(coords, tuple(self._dims)))
+
+    def get_coord(self, rank):
+        return self._coords[rank]
+
+    def get_axis_list(self, axis_name, index):
+        axis = self._parallel_names.index(axis_name)
+        return [r for r, c in self._coords.items() if c[axis] == index]
+
+    def get_comm_list(self, axis_name):
+        """All subgroups along ``axis_name`` (a list of rank lists)."""
+        axis = self._parallel_names.index(axis_name)
+        groups = {}
+        for r, c in self._coords.items():
+            key = tuple(v for i, v in enumerate(c) if i != axis)
+            groups.setdefault(key, []).append(r)
+        return [sorted(v) for _, v in sorted(groups.items())]
+
+
+class HybridCommunicateGroup:
+    """One rank's view of the topology (reference
+    ``fleet/base/topology.py:117``): degrees, coordinates and the pipeline
+    neighbours."""
+
+    def __init__(self, topology: CommunicateTopology, global_rank: int = 0):
+        self._topo = topology
+        self.global_rank = global_rank
+        self._dp_degree = topology.get_dim("data")
+        self._pp_degree = topology.get_dim("pipe")
+        self._sharding_degree = topology.get_dim("sharding")
+        self._mp_degree = topology.get_dim("model")
+        coord = topology.get_coord(global_rank)
+        names = topology.get_hybrid_group_names()
+        self._coord = dict(zip(names, coord))
+
+    def get_data_parallel_world_size(self):
+        return self._dp_degree
+
+    def get_data_parallel_rank(self):
+        return self._coord["data"]
+
+    def get_model_parallel_world_size(self):
+        return self._mp_degree
+
+    def get_model_parallel_rank(self):
+        return self._coord["model"]
+
+    def get_pipe_parallel_world_size(self):
+        return self._pp_degree
+
+    def get_stage_id(self):
+        return self._coord["pipe"]
+
+    def get_sharding_parallel_world_size(self):
+        return self._sharding_degree
+
+    def get_sharding_parallel_rank(self):
+        return self._coord["sharding"]
+
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self._pp_degree - 1
+
+    def get_p2p_next_rank(self):
+        coords = dict(self._coord)
+        coords["pipe"] = (coords["pipe"] + 1) % self._pp_degree
+        return self._topo.get_rank(**coords)
+
+    def get_p2p_prev_rank(self):
+        coords = dict(self._coord)
+        coords["pipe"] = (coords["pipe"] - 1) % self._pp_degree
+        return self._topo.get_rank(**coords)

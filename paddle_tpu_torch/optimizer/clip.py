@@ -1,6 +1,11 @@
 """Gradient clipping (port of ``paddle_tpu/optimizer/clip.py``): pure
 functions over ``{name: grad}`` dicts, float32 norms, results in each
-grad's dtype."""
+grad's dtype.
+
+``split=(keys, group)`` says that the gradients of ``keys`` are this
+rank's slices of parameters split over the process group ``group`` (a
+ZeRO trainer's ``sharding`` slices): a norm sums their squares over it,
+the norm the reference takes of its global arrays."""
 from __future__ import annotations
 
 import torch
@@ -10,8 +15,16 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 
 
 class ClipGradBase:
-    def __call__(self, grads: dict) -> dict:
+    def __call__(self, grads: dict, split=None) -> dict:
         raise NotImplementedError
+
+
+def _sum_over(sq: torch.Tensor, group) -> torch.Tensor:
+    """``sq`` summed over the ranks of ``group``."""
+    import torch.distributed as dist
+    out = sq.reshape(1).clone()
+    dist.all_reduce(out, group=group)
+    return out[0]
 
 
 class ClipGradByValue(ClipGradBase):
@@ -19,7 +32,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def __call__(self, grads):
+    def __call__(self, grads, split=None):
         return {k: g.clamp(self.min, self.max) if g is not None else None
                 for k, g in grads.items()}
 
@@ -28,13 +41,15 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, grads):
+    def __call__(self, grads, split=None):
+        keys, group = split if split is not None else ((), None)
         out = {}
         for k, g in grads.items():
             if g is None:
                 out[k] = None
                 continue
-            norm = g.float().square().sum().sqrt()
+            sq = g.float().square().sum()
+            norm = (_sum_over(sq, group) if k in keys else sq).sqrt()
             scale = torch.clamp(self.clip_norm / norm.clamp(min=1e-12),
                                 max=1.0)
             out[k] = (g * scale).to(g.dtype)
@@ -46,19 +61,29 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def global_norm_sq(self, grads):
-        sq = [g.float().square().sum() for g in grads.values()
-              if g is not None]
-        return torch.stack(sq).sum() if sq else torch.zeros(())
+    def global_norm_sq(self, grads, split=None):
+        """The squared global norm; the slices of ``split`` summed over
+        their group, then added to the whole leaves'."""
+        keys, group = split if split is not None else ((), None)
+        sq = [g.float().square().sum() for k, g in grads.items()
+              if g is not None and k not in keys]
+        total = torch.stack(sq).sum() if sq else torch.zeros(())
+        if split is not None:
+            parts = [g.float().square().sum() for k, g in grads.items()
+                     if g is not None and k in keys]
+            part = torch.stack(parts).sum() if parts else \
+                torch.zeros((), device=total.device)
+            total = total.to(part.device) + _sum_over(part, group)
+        return total
 
-    def __call__(self, grads):
-        gnorm = self.global_norm_sq(grads).sqrt()
+    def __call__(self, grads, split=None):
+        gnorm = self.global_norm_sq(grads, split).sqrt()
         scale = self.clip_norm / gnorm.clamp(min=self.clip_norm)
         return {k: (g * scale).to(g.dtype) if g is not None else None
                 for k, g in grads.items()}
 
 
-def clip_grads(grads, clip):
+def clip_grads(grads, clip, split=None):
     if clip is None:
         return grads
-    return clip(grads)
+    return clip(grads) if split is None else clip(grads, split=split)

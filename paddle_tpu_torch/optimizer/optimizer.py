@@ -112,6 +112,9 @@ def _keyed(parameters) -> "OrderedDict[object, torch.nn.Parameter]":
 
 class Optimizer:
     _decoupled_wd = False   # True for AdamW-style decoupled decay
+    # every update is elementwise over the parameter, so a ZeRO rank may
+    # update its slice alone (Lamb, Lars and DGC take norms or top-k)
+    _elementwise = True
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, multi_precision=False):
@@ -168,12 +171,15 @@ class Optimizer:
     def apply_gradients(self, params: Dict[str, torch.Tensor],
                         grads: Dict[str, Optional[torch.Tensor]], state,
                         lr: Optional[float] = None,
-                        lr_scales: Optional[Dict[str, float]] = None):
+                        lr_scales: Optional[Dict[str, float]] = None,
+                        split=None):
         """(params, grads, state) -> (new_params, new_state); reads and
         writes no tensor in place. ``lr_scales[key]`` multiplies that key's
-        learning rate."""
+        learning rate. ``split=(keys, group)``: the gradients of ``keys``
+        are slices of parameters split over ``group``, which the clip's
+        norms sum over (``clip.py``)."""
         lr = self.get_lr() if lr is None else float(lr)
-        grads = clip_grads(grads, self._grad_clip)
+        grads = clip_grads(grads, self._grad_clip, split)
         wd, decoupled = self._wd_coeff()
         step = state["step"] + 1
         new_params, new_slots = {}, {}
@@ -301,6 +307,7 @@ class DGCMomentum(Optimizer):
     residual ``v`` until its coordinates enter the top k. The sparsity
     follows the rampup schedule from ``rampup_begin_step``. As in the
     reference, the selection applies to the already-averaged gradient."""
+    _elementwise = False
 
     def __init__(self, learning_rate, momentum=0.9, parameters=None,
                  rampup_begin_step=0, rampup_step=1, sparsity=(0.999,),
@@ -497,6 +504,7 @@ class Lamb(Optimizer):
     """Layer-wise adaptive moments: Adam's step plus decay, scaled by the
     trust ratio ||p|| / ||r||; keys ``exclude_from_weight_decay_fn``
     accepts take no decay."""
+    _elementwise = False
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
@@ -531,6 +539,7 @@ class Lars(Momentum):
     """LARS momentum: a local learning rate from the ratio of the weight's
     and the gradient's norms; keys holding one of
     ``exclude_from_weight_decay``'s strings take no decay."""
+    _elementwise = False
 
     def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, parameters=None, grad_clip=None,

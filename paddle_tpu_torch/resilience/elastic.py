@@ -18,12 +18,15 @@ decides; this module makes the decision safe to act on:
   ``elastic_restore_barrier_total`` / ``elastic_step_disagreements_total``.
 - :func:`reshard_trainer` / :func:`remap_comm_err`: scale-up and
   scale-down. Parameters, buffers, optimizer state and the NaN guard go
-  through a checkpoint (saved before the remesh, restored after); the
-  error-feedback residuals, whose replica dimension follows the mesh, are
-  remapped on the host. The reference holds them replica-major, ``(R,
-  ...)``, in one process; a port rank holds only its own row, so
-  :func:`gather_comm_err` all-gathers every rank's row over the old data
-  group before that group goes away, and :func:`remap_comm_err` takes
+  through a checkpoint (saved before the remesh, restored after: for a
+  trainer with ZeRO slices the one directory of the world, so any
+  ``data`` x ``sharding`` layout takes its slices from the logical
+  arrays); the error-feedback residuals, whose replica dimension follows
+  the mesh, are remapped on the host. The reference holds them
+  replica-major, ``(R, ...)``, in one process; a port rank holds only its
+  own row, so :func:`gather_comm_err` all-gathers every rank's row over
+  the old ``("data", "sharding")`` group (data-major) before that group
+  goes away, and :func:`remap_comm_err` takes
   that ``(R_old, ...)`` array, carries the surviving rows as a prefix,
   drops the rest (their L2 norm counted in
   ``elastic_residual_dropped_norm_total``), zero-fills new ranks, and
@@ -265,12 +268,12 @@ def coordinated_restore(manager, template, coordinator: FileCoordinator,
 
 
 def gather_comm_err(trainer) -> Dict[str, np.ndarray]:
-    """Every data rank's residual rows as the reference's replica-major
-    host arrays, ``{name: (R, *shape)}``: an ``all_gather`` over the data
-    group (a collective: every rank calls it), or this rank's row at one
-    rank."""
+    """Every rank's residual rows as the reference's replica-major host
+    arrays, ``{name: (R, *shape)}``, rows data-major over ``("data",
+    "sharding")``: an ``all_gather`` over that group (a collective: every
+    rank calls it), or this rank's row at one rank."""
     import torch.distributed as dist
-    group = trainer.mesh.group_of("data")
+    group = trainer.mesh.group_of(("data", "sharding"))
     out = {}
     for k, row in trainer.comm_err.items():
         if group is None:
@@ -291,7 +294,8 @@ def remap_comm_err(old_host_arrays: Dict[str, np.ndarray], trainer):
     dropped_sq = 0.0
     new = {}
     current = trainer.comm_err
-    n_new, rank = int(trainer.n_data), int(trainer.data_rank)
+    n_new = int(getattr(trainer, "n_reduce", trainer.n_data))
+    rank = int(getattr(trainer, "reduce_rank", trainer.data_rank))
     for k, fresh in current.items():
         old = old_host_arrays.get(k)
         if old is None:
@@ -327,25 +331,49 @@ def remap_comm_err(old_host_arrays: Dict[str, np.ndarray], trainer):
     return current
 
 
+def _split_state(trainer) -> bool:
+    """Whether the trainer holds a leaf as a slice (a ZeRO leaf)."""
+    return bool(getattr(trainer, "zero3_dims", None)
+                or getattr(trainer, "_update_dims", None))
+
+
 def reshard_trainer(trainer, new_mesh, reshard_dir: str):
     """Carry a live trainer onto a new mesh: every rank's residual rows are
     gathered over the old group, parameters, buffers, optimizer state and
-    guard are saved to ``reshard_dir`` (this process's own directory),
-    then ``new_mesh`` (a mesh, or a callable giving one: it may destroy the
-    old process group and start another, since every collective on the old
-    group has finished) takes the trainer (``ParallelTrainer.remesh``), the
-    checkpoint is restored on it and the residuals are remapped."""
+    guard are saved to ``reshard_dir``, then ``new_mesh`` (a mesh, or a
+    callable giving one: it may destroy the old process group and start
+    another, since every collective on the old group has finished) takes
+    the trainer (``ParallelTrainer.remesh``), the checkpoint is restored
+    on it and the residuals are remapped.
+
+    A trainer with ZeRO slices saves the one directory of its world
+    (``reshard_dir`` shared by every rank; stage-3 parameters are gathered
+    into the model first), and each rank of the new mesh takes its slices
+    from the logical arrays, so any ``data`` x ``sharding`` layout (one
+    process included) restores it; otherwise ``reshard_dir`` is this
+    process's own. A callable ``new_mesh`` that returns None on a rank
+    takes that rank out: its trainer stops after the save and the call
+    returns None."""
     from .. import telemetry
     from ..distributed.checkpoint import load_checkpoint, save_checkpoint
     old_comm = gather_comm_err(trainer)
+    sharded = _split_state(trainer)
     state = trainer.state
-    save_checkpoint(reshard_dir, {k: state[k] for k in RESHARD_STATE_KEYS},
-                    overwrite=True)
+    if sharded:
+        trainer.sync_to_model()
+        save_checkpoint(reshard_dir, state.subset(RESHARD_STATE_KEYS),
+                        overwrite=True)
+    else:
+        save_checkpoint(reshard_dir,
+                        {k: state[k] for k in RESHARD_STATE_KEYS},
+                        overwrite=True)
     mesh = new_mesh() if callable(new_mesh) else new_mesh
+    if mesh is None:
+        return None
     trainer.remesh(mesh)
     state = trainer.state
     restored = load_checkpoint(
-        reshard_dir, template={k: state[k] for k in RESHARD_STATE_KEYS})
+        reshard_dir, template=state.subset(RESHARD_STATE_KEYS))
     full = dict(state)
     full.update({k: restored[k] for k in RESHARD_STATE_KEYS})
     trainer.state = full
@@ -360,8 +388,9 @@ def data_parallel_remesh_fn(reshard_dir: str,
                             degrees_fn: Optional[Callable] = None):
     """A ``remesh_fn`` for :class:`ElasticRuntime`: a data mesh sized to
     the healthy hosts (``degrees_fn(hosts) -> degrees`` overrides the
-    one-axis policy, at most the default process group's size),
-    resharded through ``reshard_dir``."""
+    one-axis policy, any ``data`` x ``sharding`` degrees whose product is
+    the default process group's size), resharded through ``reshard_dir``
+    (shared by every rank when the trainer holds ZeRO slices)."""
     def _remesh(trainer, hosts: List[str]):
         import torch.distributed as dist
         from ..distributed.mesh import build_mesh

@@ -260,9 +260,15 @@ def replica_coords(mesh, axes: Sequence[str]) -> Dict[int, int]:
 
 def _voting_leaves(trainer) -> List[str]:
     """Trainable parameters replicated over the check axes: their bytes
-    must agree on every replica, so they vote. Every parameter of the
-    port's data-parallel trainer is replicated."""
-    return list(trainer.params)
+    must agree on every replica, so they vote (a ZeRO-3 leaf is a slice
+    on each sharding rank and does not)."""
+    split = getattr(trainer, "zero3_dims", {})
+    return [k for k in trainer.params if k not in split]
+
+
+def _replica_rank(trainer) -> int:
+    """This rank's replica index over the check axes (data-major)."""
+    return int(getattr(trainer, "replica_rank", trainer.data_rank))
 
 
 def vote_outliers(chains: Dict[int, int],
@@ -292,14 +298,15 @@ def _local_digest_chains(trainer) -> Dict[int, int]:
     for name in _voting_leaves(trainer):
         _, _, raw = _host_bytes(trainer.params[name])
         crc = zlib.crc32(raw, crc)
-    return {int(trainer.data_rank): crc}
+    return {_replica_rank(trainer): crc}
 
 
-def _world_digest_chains(local: Dict[int, int], mesh) -> Dict[int, int]:
-    """Every replica's chain, gathered over the data group (the
+def _world_digest_chains(local: Dict[int, int], mesh,
+                         axes=("data",)) -> Dict[int, int]:
+    """Every replica's chain, gathered over the check axes' group (the
     reference's one process observes every device of its mesh)."""
     import torch.distributed as dist
-    group = mesh.group_of("data")
+    group = mesh.group_of(axes)
     if group is None:
         return dict(local)
     views: List[Any] = [None] * dist.get_world_size(group)
@@ -360,8 +367,9 @@ def quarantine_outliers(trainer, leaves: Optional[List[str]] = None,
             "leaves": list(leaves or [])}
     if n_rep <= 1:
         return base
-    chains = _world_digest_chains(_local_digest_chains(trainer),
-                                  trainer.mesh)
+    chains = _world_digest_chains(
+        _local_digest_chains(trainer), trainer.mesh,
+        tuple(getattr(trainer, "integrity_axes", ("data",))))
     outliers, _quorum = vote_outliers(chains, n_rep)
     if not outliers:
         return base
@@ -400,7 +408,7 @@ def inject_param_flip(trainer, seed: int = 0, step: Optional[int] = None,
     if bit is None:
         bit = rng.randrange(0, 3)  # lowest mantissa bits
     elem = rng.randrange(max(1, v.numel()))
-    if int(trainer.data_rank) == int(replica):
+    if _replica_rank(trainer) == int(replica):
         lane = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
             v.element_size()]
         with torch.no_grad():

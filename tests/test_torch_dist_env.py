@@ -79,11 +79,10 @@ def test_build_mesh_axes_and_errors():
     assert tuple(m.axis_names) == ref_mesh.AXES_ORDER
     assert m.group_of("data") is None and m.rank_in("data") == 0
     assert m.backend() is None and mesh.axis_size("data") == 1
-    for ax in ("pipe", "sharding", "sep", "model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every axis is accepted; more than one rank needs a process group
+    for ax in ("data", "pipe", "sharding", "sep", "model"):
+        with pytest.raises(ValueError, match="process group"):
             mesh.build_mesh({"data": 1, ax: 2})
-    with pytest.raises(ValueError, match="process group"):
-        mesh.build_mesh({"data": 2})
     with pytest.raises(ValueError, match="unknown mesh axis"):
         mesh.build_mesh({"tensor": 2})
 

@@ -273,15 +273,25 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu():
                                     dict(integrity_check_every=5),
                                     dict(mesh_axis="sep")])
 def test_trainer_options_that_wait_raise(kwargs):
-    """What still waits in ROADMAP.md raises there: mesh axes other than
-    data, ZeRO and pipeline micro-batches (data parallelism, the grad_sync
-    policies and the loss scaler are ported:
-    ``test_trainer_options_ported_since_build``). The integrity check is
-    ported too; its case now runs the option: five steps, the fifth a
-    check step, the only one."""
-    from paddle_tpu_torch.distributed.mesh import build_mesh
+    """What still waits in ROADMAP.md raises there: the ``pipe``,
+    ``model`` and ``sep`` mesh axes and pipeline micro-batches (data
+    parallelism, the grad_sync policies and the loss scaler are ported:
+    ``test_trainer_options_ported_since_build``). The integrity check and
+    ZeRO are ported too; their cases now run the option: five steps, the
+    fifth a check step, the only one; a ZeRO stage on a mesh of one rank,
+    where nothing splits (as in the reference; ``test_torch_zero.py``
+    holds the stages over 2 and 4 ranks)."""
+    from paddle_tpu_torch.distributed.mesh import Mesh
     _, port = _pair()
     kwargs = dict(kwargs)
+    if "zero_stage" in kwargs:
+        tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                             lambda out, _l: out, device="cpu",
+                             mesh=Mesh({"data": 1}), **kwargs)
+        assert tr.zero_stage == kwargs["zero_stage"]
+        assert tr.zero2_dims == tr.zero3_dims == {}
+        assert np.isfinite(float(tr.train_step(_batch(), 0.0)))
+        return
     if "integrity_check_every" in kwargs:
         tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
                              lambda out, _l: out, device="cpu", **kwargs)
@@ -294,7 +304,7 @@ def test_trainer_options_that_wait_raise(kwargs):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "mesh_axis" in kwargs:
-            kwargs["mesh"] = build_mesh({kwargs.pop("mesh_axis"): 2})
+            kwargs["mesh"] = Mesh({kwargs.pop("mesh_axis"): 2})
         ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
                         lambda out, _l: out, device="cpu", **kwargs)
 
