@@ -91,6 +91,15 @@ per source, all started together), then:
   format, as the format follows the state) and resumed on a fresh
   fleet-built trainer bit for bit.
 
+- tensor, pipeline and context parallelism, after ``zero``
+  (``hybrid``): ``GPTForPretraining(tensor_parallel=True)`` under
+  ``TensorParallel`` at ``mp_degree`` 1 through the fleet API against
+  ``dense_b8`` on the same weights; ``PipelineLayer`` of
+  ``gpt_pipeline_descs`` at one stage under GPipe and 1F1B, bit for bit
+  each other and the trainer's gradient merge; the ring attention's block
+  steps over four chunks of a 4096-row sequence against the flash kernels
+  over the whole sequence, with their device times and launches.
+
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and never
@@ -3677,6 +3686,311 @@ def zero_phase(fa, fc, nn, gpt, optim, framework, work):
             "launches": launches}
 
 
+# hybrid (h3): the ring's block steps over four chunks against the flash
+# kernels over the whole sequence.
+# - out and lse: each side within its kernels' bound of exact attention
+#   (MMA_FWD_BOUND; each ring block the same kernel at its own rows), and
+#   the ring rounds each block's out to bf16 once before its float32
+#   merge, a convex combination of block outputs (one rounding, 2**-8 of
+#   it); lse is float32 on both sides (the merge's logaddexp), within 2 x
+#   MMA_FWD_BOUND's lse bar plus 8 float32 ulps of lse ~ 9 (8 * 2**-20).
+# - the accumulation: the ring's dq, dk and dv equal, bit for bit, the
+#   float32 sums, in the ring's order, of its blocks' kernel outputs
+#   launched one by one (ring_block_sums; the kernels repeat their bits,
+#   flash_repeat). That is what float32 accumulators give; one kept in
+#   bf16 rounds each partial sum and fails it
+#   (tests/test_torch_ring_rounding.py).
+# - dq, dk, dv against the whole-sequence backward kernels run on the
+#   ring's own out and lse: the same lse and delta, so the same p and ds
+#   on both sides. They differ by the bf16 roundings of the block outputs
+#   g_j and of the two results, independent, each with an RMS error at
+#   most RING_ROUNDING of its value (the error uniform within half an ulp,
+#   the ulp at most 2**-7 of the value), so ||ring - whole|| / ||whole||
+#   <= RING_ROUNDING * sqrt(sum_j ||g_j||**2 / ||whole||**2 + 2)
+#   (ring_grad_bar), over a few million elements
+RING_CHUNKS = 4
+RING_BOUND = {"out_rel": 2 * MMA_FWD_BOUND["out_rel"] + 2 ** -8,
+              "lse_abs": 2 * MMA_FWD_BOUND["lse_abs"] + 8 * 2 ** -20}
+RING_ROUNDING = 2 ** -7 / 12 ** 0.5
+
+
+def ring_block_sums(ra, q, k, v, do, out, lse, n, causal):
+    """The ring's gradients rebuilt from its blocks: each block's
+    ``block_backward`` (the dq and dk/dv kernels on a CUDA tensor, their
+    plain versions on the CPU) on the ring's ``out`` and ``lse``, summed in
+    float32 in the ring's order (hop ``j`` adds block ``(i, (i - j) mod
+    n)``) -> ``((dq, dk, dv) in q's dtype, [sum_j ||g_j||**2 of each])``."""
+    sm_scale = ra._scale(q.shape[-1], None)
+    qs, ks, vs, dos, outs = (t.chunk(n, dim=1) for t in (q, k, v, do, out))
+    lses = [t.contiguous() for t in lse.chunk(n, dim=2)]
+    acc = [[torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+            for t in ts] for ts in (qs, ks, vs)]
+    sq = [0.0, 0.0, 0.0]
+    for j in range(n):
+        for i in range(n):
+            src = (i - j) % n
+            mode = ra._mode(i, src, causal)
+            if mode is None:
+                continue
+            g = ra.block_backward(qs[i], ks[src], vs[src], dos[i], lses[i],
+                                  ra._delta(outs[i], dos[i]), mode,
+                                  sm_scale)
+            for x, at in enumerate((i, src, src)):
+                acc[x][at] += g[x].float()
+                sq[x] += float(g[x].float().square().sum())
+    return tuple(torch.cat(a, dim=1).to(q.dtype) for a in acc), sq
+
+
+def ring_grad_bar(block_sq, whole) -> float:
+    """The bar of ||ring - whole|| / ||whole|| for one gradient, from its
+    blocks' ``sum_j ||g_j||**2`` (the comment above RING_CHUNKS)."""
+    w = float(whole.float().square().sum())
+    return RING_ROUNDING * (block_sq / w + 2) ** 0.5
+
+
+# hybrid (h1): GPTForPretraining(tensor_parallel=True) at mp 1 against the
+# dense logits + cross_entropy on the same weights: bf16 training drifts
+# apart in the summation order of the loss (ParallelCrossEntropy's float32
+# max/sum-exp against logsumexp): train_variants' band
+HYBRID_LOSS_RTOL = 1e-2
+
+
+def hybrid_phase(fa, fc, nn, gpt, optim, framework, layers=12, seq=1024,
+                 batch=8, ring=(4, 4096, 12, 64)):
+    """``hybrid``: tensor, pipeline and context parallelism on one card
+    through the fleet API, on an NCCL mesh of one rank (``dp_setup``).
+
+    - (h1) ``GPTForPretraining(tensor_parallel=True)`` at ``mp_degree`` 1
+      under ``TensorParallel`` (built on ``fleet.init``'s hcg; at degree 1
+      ``distributed_model`` gives ``DataParallel``, as the reference's),
+      ``loss`` through ``ParallelCrossEntropy``, batch 8 x 1024, 2 warm-up
+      and 3 timed steps, against ``dense_b8`` (the same weights, dense
+      logits + ``cross_entropy``) within ``HYBRID_LOSS_RTOL``; 36
+      launches of each flash kernel on the mma route, no CE launch.
+    - (h2) ``PipelineLayer(gpt_pipeline_descs(tensor_parallel=False))`` at
+      one stage under ``PipelineParallel`` with ``accumulate_steps`` 4
+      (micro-batches of 2 x 1024), GPipe and 1F1B: bit for bit each
+      other and the trainer's gradient merge over 4 chunks on the same
+      weights (the same operations in the same order).
+    - (h3) the ring's block steps (``ring_attention_local``) over
+      ``RING_CHUNKS`` chunks of one sequence (B 4, S 4096, H 12, D 64,
+      bf16), causal and not: out and lse against the flash kernels over
+      the whole sequence within ``RING_BOUND``; dq, dk, dv bit for bit
+      the float32 sums of the blocks' kernel outputs
+      (``ring_block_sums``) and against the whole-sequence backward on
+      the ring's out and lse within ``ring_grad_bar``; the device times
+      of both, and the blocks' launches (10 causal, 16 not, each on the
+      mma route).
+    """
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import engine, fleet
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        PipelineLayer, PipelineParallel, TensorParallel)
+    from paddle_tpu_torch.ops import ring_attention as ra
+    dp_setup()
+    out = {}
+    launches = {k: 0 for k in REPLACES if k not in ("decode", "verify")}
+
+    def count(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    def run_steps(trainer, batch_args, what, fwd, bwd):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [trainer.train_step(*batch_args).item() for _ in range(2)]
+        zero_counts(fa, fc)
+        ms = []
+        for _ in range(3):
+            loss, t = _timed_step(trainer, *batch_args)
+            losses.append(loss)
+            ms.append(t)
+        count(check_path(fa, fc, what, fwd, bwd, 0))
+        check(trainer.skipped_steps() == 0, f"{what}: a step skipped")
+        check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+        return {"losses": losses, "ms_per_step": ms,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    try:
+        ids, lbl = gpt_base_batch(batch, seq)
+        dense = gpt_base_model(gpt, framework, seq, layers)
+        state = {k: v.detach().float().numpy()
+                 for k, v in dense.named_state().items()}
+        ce = lambda lg, y: nn.functional.cross_entropy(lg, y)  # noqa: E731
+        per = 3 * layers
+
+        # the yardstick: dense_b8 on these weights
+        tr = engine.ParallelTrainer(dense, optim.AdamW(3e-4), ce)
+        out["dense_b8"] = run_steps(tr, (ids, lbl), "hybrid dense_b8", per,
+                                    per)
+        del tr, dense
+
+        # (h1) tensor parallelism at mp_degree 1
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                                   "pp_degree": 1, "sharding_degree": 1}
+        strategy.pipeline_configs = {"accumulate_steps": 4,
+                                     "schedule": "gpipe"}
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        framework.seed(0)
+        model = gpt.GPTForPretraining(
+            tensor_parallel=True, vocab_size=50304, hidden_size=768,
+            num_layers=layers, num_heads=12, max_position_embeddings=seq,
+            attn_dropout=0.0, hidden_dropout=0.0)
+        model.set_state_dict_from_numpy(state)
+        model = TensorParallel(model.bfloat16(), hcg, strategy)
+        tr = engine.ParallelTrainer(
+            model, fleet.distributed_optimizer(optim.AdamW(3e-4)),
+            model.loss)
+        h1 = run_steps(tr, (ids, lbl), "hybrid h1", per, per)
+        check(np.allclose(h1["losses"], out["dense_b8"]["losses"],
+                          rtol=HYBRID_LOSS_RTOL),
+              f"h1 losses {h1['losses']} vs dense_b8 "
+              f"{out['dense_b8']['losses']}")
+        h1["loss_rel_gap"] = max(abs(a - b) / abs(b) for a, b in zip(
+            h1["losses"], out["dense_b8"]["losses"]))
+        out["h1_tensor_parallel"] = h1
+        del tr, model
+
+        # (h2) the pipeline at one stage, GPipe and 1F1B, and the trainer's
+        # gradient merge over the same 4 chunks
+        pstate = gpt.pipeline_state_from_dense(state, layers)
+        rows = {}
+        for schedule in ("gpipe", "1f1b"):
+            strategy.pipeline_configs = {"accumulate_steps": 4,
+                                         "schedule": schedule}
+            pl = PipelineLayer(gpt.gpt_pipeline_descs(
+                vocab_size=50304, hidden_size=768, num_layers=layers,
+                num_heads=12, max_position_embeddings=seq, dropout=0.0,
+                tensor_parallel=False), num_stages=1)
+            pl.set_state_dict_from_numpy(pstate)
+            pp = PipelineParallel(pl.bfloat16(), hcg, strategy)
+            tr = engine.ParallelTrainer(pp, optim.AdamW(3e-4), ce,
+                                        micro_batches=4)
+            rows[schedule] = run_steps(tr, (ids, lbl), f"hybrid h2 "
+                                       f"{schedule}", 4 * per, 4 * per)
+            rows[schedule]["max_in_flight"] = pp.max_in_flight
+            rows[schedule]["final"] = {
+                k: p.detach().cpu().clone() for k, p in tr.params.items()}
+            del tr, pp, pl
+        dense = gpt_base_model(gpt, framework, seq, layers)
+        dense.set_state_dict_from_numpy(state)
+        tr = engine.ParallelTrainer(dense, optim.AdamW(3e-4), ce,
+                                    accumulate_steps=4)
+        merge = run_steps(tr, (ids, lbl), "hybrid h2 merge", 4 * per,
+                          4 * per)
+        merged = gpt.pipeline_state_from_dense(
+            {k: p.detach().cpu() for k, p in tr.params.items()}, layers)
+        del tr, dense
+        g, f = rows["gpipe"], rows["1f1b"]
+        check(g["losses"] == f["losses"] and all(
+            torch.equal(v, f["final"][k]) for k, v in g["final"].items()),
+            "h2: GPipe and 1F1B differ")
+        check((g["max_in_flight"], f["max_in_flight"]) == (4, 1),
+              f"h2 in flight {g['max_in_flight']}, {f['max_in_flight']}")
+        check(g["losses"] == merge["losses"] and all(
+            torch.equal(v, merged[k]) for k, v in g["final"].items()),
+            f"h2: the pipeline and the gradient merge differ (losses "
+            f"{g['losses']} vs {merge['losses']}, or a final parameter)")
+        for r in rows.values():
+            r.pop("final")
+        out["h2_pipeline"] = {**rows, "gradient_merge": merge,
+                              "bit_equal_to_merge": True,
+                              "gpipe_equals_1f1b": True}
+        del merged
+        torch.cuda.empty_cache()
+
+        # (h3) the ring on one card
+        out["h3_ring"] = ring_on_one_card(fa, ra, *ring)
+        count(out["h3_ring"].pop("launches"))
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    return out
+
+
+def ring_on_one_card(fa, ra, b, s, h, d):
+    """(h3): the ring's block steps over RING_CHUNKS chunks against the
+    flash kernels over the whole sequence, causal and not."""
+    n = RING_CHUNKS
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_SEED)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    res, launches = {}, {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for causal in (True, False):
+        for c in (fa.LAUNCHES, fa.ROUTES):
+            for key in c:
+                c[key] = 0
+        r_out, r_lse, r_grads = ra.ring_attention_local(q, k, v, n, causal,
+                                                        do=do)
+        torch.cuda.synchronize()
+        blocks = n * (n + 1) // 2 if causal else n * n
+        got = dict(fa.LAUNCHES)
+        check(got == {"flash_fwd": blocks, "flash_dq": blocks,
+                      "flash_dkv": blocks},
+              f"ring launches {got}, not {blocks} blocks each")
+        check(fa.ROUTES == {f"{key}_{route}": blocks * (route == "mma")
+                            for key in got for route in ("mma", "scalar")},
+              f"ring routes {fa.ROUTES}")
+        for key in launches:
+            launches[key] += got[key]
+        w_out, w_lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        w_grads = fa.flash_attention_bwd(q, k, v, w_out, w_lse, do,
+                                         causal=causal)
+        # the whole-sequence backward on the ring's own out and lse, and
+        # the ring's blocks one by one (comparison launches, not counted)
+        o_grads = fa.flash_attention_bwd(q, k, v, r_out, r_lse, do,
+                                         causal=causal)
+        sums, block_sq = ring_block_sums(ra, q, k, v, do, r_out, r_lse, n,
+                                         causal)
+        rel = lambda a, w: float((a.float() - w.float()).norm() /  # noqa
+                                 w.float().norm())
+        names = ("dq", "dk", "dv")
+        errs = {"out_rel": rel(r_out, w_out),
+                "lse_abs": float((r_lse - w_lse).abs().max()),
+                **{f"{x}_rel": rel(a, w) for x, a, w in
+                   zip(names, r_grads, o_grads)}}
+        bars = {f"{x}_rel": ring_grad_bar(sq, w)
+                for x, sq, w in zip(names, block_sq, o_grads)}
+        # the gradients against the whole-sequence kernels' own forward
+        # and backward: a reading (its lse and delta differ from the
+        # ring's by float32 ulps and out's roundings)
+        independent = {f"{x}_rel": rel(a, w) for x, a, w in
+                       zip(names, r_grads, w_grads)}
+        what = "causal" if causal else "full"
+        check(all(torch.equal(a, b) for a, b in zip(r_grads, sums)),
+              f"ring ({what}): dq/dk/dv are not the float32 sums of the "
+              f"blocks' kernel outputs")
+        check(errs["out_rel"] <= RING_BOUND["out_rel"] and
+              errs["lse_abs"] <= RING_BOUND["lse_abs"] and
+              all(errs[x] <= bars[x] for x in bars),
+              f"ring vs whole ({what}): {errs} over {RING_BOUND}, {bars}")
+        fwd_ms = time_ms(lambda: ra.ring_attention_local(q, k, v, n, causal),
+                         reps=10, warmup=2)
+        both_ms = time_ms(lambda: ra.ring_attention_local(q, k, v, n, causal,
+                                                          do=do),
+                          reps=10, warmup=2)
+        w_fwd_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                          causal=causal),
+                           reps=10, warmup=2)
+
+        def whole_both():
+            o, l_ = fa.flash_attention_fwd(q, k, v, causal=causal)
+            fa.flash_attention_bwd(q, k, v, o, l_, do, causal=causal)
+        w_both_ms = time_ms(whole_both, reps=10, warmup=2)
+        res["causal" if causal else "full"] = {
+            "shape": [b, s, h, d], "chunks": n, "blocks": blocks,
+            "errors": errs, "bound": {**RING_BOUND, **bars},
+            "grads_vs_independent_whole": independent,
+            "grads_equal_block_sums": True,
+            "ring_fwd_ms": fwd_ms, "ring_fwd_bwd_ms": both_ms,
+            "whole_fwd_ms": w_fwd_ms, "whole_fwd_bwd_ms": w_both_ms}
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -4076,6 +4390,15 @@ def run(work) -> int:
     rep = zero_phase(fa, fc, nn, gpt, optim, framework, work)
     path_launches["zero"] = rep["launches"]
     emit(phase="zero", card=card, **rep)
+
+    # 15h. tensor, pipeline and context parallelism on one card: TP at mp 1
+    # against dense_b8, the pipeline at one stage (GPipe == 1F1B == the
+    # gradient merge), the ring's block steps against the whole sequence
+    t0 = time.perf_counter()
+    rep = hybrid_phase(fa, fc, nn, gpt, optim, framework)
+    path_launches["hybrid"] = rep["launches"]
+    emit(phase="hybrid", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
 
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training

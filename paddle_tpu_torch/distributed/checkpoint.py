@@ -295,14 +295,18 @@ class Piece(NamedTuple):
     """Where one rank's leaf sits in its logical array (the reference's
     global ``jax.Array``): ``shape`` is the logical shape; the leaf is
     chunk ``index`` of ``count`` along ``dim`` (with ``row``, row
-    ``index`` of a ``(count, *leaf.shape)`` array); ``write`` says whether
-    this rank writes it (one writer per set of equal copies)."""
+    ``index`` of a ``(count, *leaf.shape)`` array), and also chunk ``i``
+    of ``c`` along ``d`` for each ``(d, i, c)`` of ``extra`` (a leaf split
+    over several axes: a tensor-parallel slice of a pipeline stage's
+    members; dims of the logical array); ``write`` says whether this rank
+    writes it (one writer per set of equal copies)."""
     shape: Tuple[int, ...]
     dim: int
     index: int
     count: int
     row: bool
     write: bool
+    extra: Tuple[Tuple[int, int, int], ...] = ()
 
 
 class ShardedState(dict):
@@ -409,7 +413,7 @@ def _world_of(state, path: str) -> Optional[_World]:
                          "directory, or each into its own; got "
                          f"{sorted(set(paths))[:4]} over {len(paths)} ranks")
     sliced = sorted(p for p, pc in _layout_of(state, "", {}).items()
-                    if pc.dim >= 0 and not pc.row)
+                    if (pc.dim >= 0 and not pc.row) or pc.extra)
     if sliced:
         raise ValueError("checkpoint: a state with ZeRO slices (e.g. "
                          f"{sliced[:2]}) is saved by every rank into one "
@@ -442,12 +446,17 @@ def _entries(state) -> Dict[str, Tuple[str, Any, Optional[Piece]]]:
     return out
 
 
-def _piece_range(pc: Piece) -> Tuple[int, int, int]:
-    """(dim, start, stop) of a piece in its logical array; dim -1: all."""
-    if pc is None or pc.dim < 0:
-        return (-1, 0, 0)
-    step = pc.shape[pc.dim] // pc.count
-    return (pc.dim, pc.index * step, (pc.index + 1) * step)
+def _piece_box(pc: Optional[Piece], shape) -> List[List[int]]:
+    """[[start, stop]] per dim: the part of its logical array of ``shape``
+    that a piece covers (None: all of it)."""
+    box = [[0, int(n)] for n in shape]
+    if pc is None:
+        return box
+    for d, i, c in ((pc.dim, pc.index, pc.count),) + tuple(pc.extra):
+        if d >= 0:
+            step = int(shape[d]) // c
+            box[d] = [i * step, (i + 1) * step]
+    return box
 
 
 class _WorldPart(dict):
@@ -469,7 +478,7 @@ def _world_snapshot(state, world: _World):
         if write:
             pieces[ekey] = t.unsqueeze(0) if (pc is not None and pc.row) \
                 else t
-            index[ekey] = list(_piece_range(pc))
+            index[ekey] = _piece_box(pc, shape)
     if torch.cuda.is_available() and any(
             t.is_cuda for t in pieces.values()):
         torch.cuda.synchronize()
@@ -562,9 +571,14 @@ def _world_index(path: str):
         blob = torch.load(os.path.join(path, _shard_file(r, size)),
                           weights_only=True, map_location="cpu", mmap=True)
         for ekey, t in blob["pieces"].items():
-            d, a, b = (int(x) for x in blob["index"][ekey])
+            where = blob["index"][ekey]
             shape = layout["leaves"][ekey]["shape"]
-            index.setdefault(ekey, []).append((_box(shape, d, a, b), t, r))
+            # a box per dim, or (the format before multi-axis pieces) one
+            # (dim, start, stop)
+            box = ([tuple(int(x) for x in ab) for ab in where]
+                   if not where or isinstance(where[0], (list, tuple))
+                   else _box(shape, *(int(x) for x in where)))
+            index.setdefault(ekey, []).append((box, t, r))
     return layout, index
 
 
@@ -625,7 +639,7 @@ def _read_world(path: str, template=None, map_location=None):
             raise ValueError(f"checkpoint {dotted}: logical shape "
                              f"{tuple(meta['shape'])}, template {want}")
         t = _assemble(ekey, meta, index.get(ekey, ()),
-                      _box(want, *_piece_range(pc)))
+                      [tuple(ab) for ab in _piece_box(pc, want)])
         if pc is not None and pc.row:
             t = t[0]
         local[dotted] = t.to(map_location) if map_location is not None \

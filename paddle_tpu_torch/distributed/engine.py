@@ -1,8 +1,10 @@
-"""``ParallelTrainer``: one device, or data parallelism over
+"""``ParallelTrainer``: one device, or hybrid parallelism over
 ``torch.distributed``.
 
-Port of ``paddle_tpu/distributed/engine.py``'s trainer for the
-single-device and data-parallel paths. ``train_step(inputs, labels)``
+Port of ``paddle_tpu/distributed/engine.py``'s trainer: data parallelism,
+ZeRO over ``sharding``, tensor parallelism over ``model``, pipeline
+parallelism over ``pipe`` and context parallelism over ``sep``.
+``train_step(inputs, labels)``
 runs ``loss_fn(model(inputs), labels)``, its backward, the gradient
 exchange and the optimizer's ``apply_gradients`` with the in-step NaN
 guard:
@@ -88,9 +90,38 @@ Two knobs of the reference's single-device step:
 value when the optimizer has one.
 
 ``device=None`` means the card; without one the trainer raises unless
-``device="cpu"`` is passed. Pipeline micro-batches and any ``model``,
-``pipe`` or ``sep`` axis larger than 1 wait in ``ROADMAP.md`` (Queue 1,
-item 15) and raise ``NotImplementedError``.
+``device="cpu"`` is passed.
+
+**Tensor parallelism** (a ``model`` axis): the Megatron layers
+(``meta_parallel/parallel_layers/mp_layers.py``) hold their slices and
+issue their own collectives over ``model``; a replicated leaf's gradient
+comes out whole and equal on every model rank, and no gradient is
+exchanged over ``model``.
+
+**Pipeline parallelism** (a ``pipe`` axis; the model a
+``PipelineParallel``): the step runs the pipeline's schedule
+(``PipelineParallel.train_batch``, GPipe or 1F1B) over ``micro_batches``
+micro-batches (the reference's M; the pipeline's ``accumulate_steps`` is
+what its own ``train_batch`` takes when called without one), which
+returns the mean loss on every stage and each stage's gradients, the
+pipe-replicated ones already summed over ``pipe``. The bucketed exchange
+inside the backward is off under a pipeline (the exchange runs after the
+schedule); ``remat`` does not apply to it, as in the reference.
+
+**Context parallelism** (a ``sep`` axis): every input and label tensor of
+rank >= 2 is split along dim 1 over ``sep`` as well (the model runs ring
+attention over it); the loss and the gradients are averaged over
+``("data", "sharding", "sep")``, and the error-feedback residual rows run
+over those three axes. A pipeline under ``sep`` must decompose as the
+reference's ``uniform_split`` does, else it raises as the reference.
+
+On any such mesh the NaN guard's finite flag is reduced over ``model``
+and ``pipe`` (and ``sharding`` where a gradient is a ZeRO slice), so
+every rank skips alike; the optimizer is told which leaves are slices
+(``apply_gradients(split={key: group})``: ZeRO slices over ``sharding``,
+tensor-parallel slices over ``model``, stage members over ``pipe``), whose
+norms (the clips', Lamb's and Lars's) sum over the group and whose top-k
+(DGCMomentum's) is taken over the gathered leaf.
 
 **ZeRO** (``zero_stage=1|2|3`` on a mesh with a ``sharding`` axis of n > 1,
 reference ``engine.py:267-415,735-800``; at n = 1 every stage is stage 0,
@@ -119,11 +150,10 @@ as the reference gates each at ``n_shard > 1``). The batch splits over
   steps (:meth:`ParallelTrainer.sync_to_model` gathers them back).
 - the other leaves keep the bucketed exchange over the live axes of
   ``("data", "sharding")``, with the per-axis policy and DCN gating.
-- the NaN guard's finite flag is reduced over ``sharding`` where a
-  gradient is a slice, so every rank decides alike; the optimizer's clip
-  is told which gradients are slices (``apply_gradients(split=)``) and
-  sums their norms over ``sharding``. A ZeRO slice update needs an elementwise optimizer
-  (Lamb, Lars and DGC raise).
+- a leaf whose ``pspec`` names ``model`` or ``pipe`` keeps its own split:
+  ZeRO splits neither it nor its slots (the reference still splits a
+  ``model`` leaf's slots over ``sharding``: memory, not results;
+  ROADMAP Queue 3).
 
 **Replica integrity check** (``integrity_check_every=N``). Every N-th
 ``train_step`` (a host-side cadence, ``_steps_run % N``, as the
@@ -131,7 +161,10 @@ reference's) fingerprints the updated ``params``, ``opt`` and
 ``comm_err`` (``resilience/integrity.py``'s ``fingerprint_array``, the
 reference's entry order: each part's leaves in sorted-key order) and
 compares the replicated leaves across the live axes of ``("data",
-"sharding")``. The reference emits two scalar collectives a leaf
+"sharding")`` (and ``sep``): the true replicas. A tensor-parallel slice
+or a pipeline stage is compared with the ranks that hold the same slice;
+the verdict is spread over ``model`` and ``pipe``, so every rank reads the
+same one. The reference emits two scalar collectives a leaf
 (``pmin``/``pmax``); the port stacks the fingerprints and issues ONE
 ``all_reduce(MIN)`` and ONE ``all_reduce(MAX)`` over that group. A leaf
 that differs across those ranks by design (its ``comm_err`` rows, a ZeRO
@@ -164,8 +197,9 @@ reads; assigning to it copies a restored state in place.
 ``save_checkpoint``/``load_checkpoint`` write and read it through
 ``distributed/checkpoint.py``: over 2+ ranks every rank calls them on
 one shared directory, the one directory of the world, each writing the
-pieces it owns, and a restore onto another ``data`` x ``sharding`` layout
-takes each rank's slice from the logical arrays.
+pieces it owns (a tensor-parallel slice and a stage's members are pieces
+too), and a restore onto another ``data`` x ``sharding`` layout takes each
+rank's slice from the logical arrays.
 ``CheckpointManager(dir).save(step, trainer.state)`` / ``trainer.state =
 manager.restore(template=trainer.state)`` resume a run bit for bit. The
 optimizer state lives on the optimizer (``optimizer.state``), so
@@ -207,18 +241,14 @@ from .compressed import (QUANTIZED_POLICIES, all_gather_dim,
                          normalize_axis_policies, psum_scatter,
                          residual_norm, start_tree_mean, tree_wire_bytes)
 from .env import backend_for
-from .mesh import axis_links, require_mesh
+from .mesh import (AXES_ORDER, OWN_AXES, axis_links, own_splits,
+                   require_mesh, split_of)
+from .meta_parallel.pipeline_parallel import PipelineParallel
 from .meta_parallel.sharding_parallel import shard_spec_for, spec_dim
 
 __all__ = ["ParallelTrainer", "partition_reverse_buckets"]
 
 DATA_AXES = ("data", "sharding")   # the batch splits over both (ZeRO within DP)
-
-
-def _waits(what: str, item: str):
-    raise NotImplementedError(
-        f"ParallelTrainer: {what} is not ported yet; it waits in ROADMAP.md "
-        f"(Queue 1, {item})")
 
 
 def partition_reverse_buckets(items, k: int):
@@ -280,21 +310,29 @@ def _split(x, k):
     return [x] * k
 
 
-def _shard(x, n, rank):
-    """This data rank's slice along dim 0 of every tensor of ``x`` with a
-    leading dim (the reference's P("data") leaf spec); 0-d tensors and
-    other leaves are replicated."""
+def _shard(x, n, rank, dim=0, min_rank=1):
+    """This rank's slice along ``dim`` of every tensor of ``x`` of rank
+    ``min_rank`` or more (dim 0: the reference's P("data") leaf spec; dim
+    1 of rank >= 2: its "sep" sequence split); the other leaves are
+    replicated."""
     if n == 1:
         return x
-    if isinstance(x, torch.Tensor) and x.dim() > 0:
-        if x.shape[0] % n:
-            raise ValueError(f"batch dim {x.shape[0]} is not divisible by "
-                             f"the {n} data ranks")
-        c = x.shape[0] // n
-        return x[rank * c:(rank + 1) * c]
+    if isinstance(x, torch.Tensor) and x.dim() >= max(min_rank, dim + 1):
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {x.shape[dim]} is not divisible "
+                             f"by the {n} ranks")
+        c = x.shape[dim] // n
+        return x.narrow(dim, rank * c, c)
     if isinstance(x, (tuple, list)):
-        return type(x)(_shard(v, n, rank) for v in x)
+        return type(x)(_shard(v, n, rank, dim, min_rank) for v in x)
     return x
+
+
+def _pipeline_of(model) -> Optional[PipelineParallel]:
+    if isinstance(model, PipelineParallel):
+        return model
+    inner = getattr(model, "_layers", None)
+    return inner if isinstance(inner, PipelineParallel) else None
 
 
 class _RngReplay:
@@ -392,13 +430,11 @@ class ParallelTrainer:
         if int(zero_stage) not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0, 1, 2 or 3, got "
                              f"{zero_stage}")
-        if micro_batches > 1:
-            _waits(f"micro_batches={micro_batches}", "item 15: pipeline "
-                   "parallelism")
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got "
                              f"{accumulate_steps}")
         self.device = resolve_device(device)
+        self.pp = _pipeline_of(model)
         self.mesh = mesh if mesh is not None else require_mesh()
         self._check_mesh(self.mesh)
         self.model = model.to(self.device)
@@ -407,6 +443,7 @@ class ParallelTrainer:
         self.loss_fn = loss_fn
         self.nan_guard = nan_guard
         self.remat = bool(remat)
+        self.micro_batches = int(micro_batches)
         self.zero_stage = int(zero_stage)
         self.accumulate_steps = int(accumulate_steps)
         self.scaler = scaler if (scaler is not None
@@ -444,17 +481,24 @@ class ParallelTrainer:
 
     def _check_mesh(self, mesh):
         """The mesh's process group must be of this trainer's device's
-        backend (no silent fallback); axes but data and sharding wait."""
+        backend (no silent fallback); a ``pipe`` axis needs a pipeline,
+        and a pipeline under ``sep`` the reference's decomposable plan."""
         backend = mesh.backend()
         if backend is not None and backend != backend_for(self.device):
             raise RuntimeError(
                 f"ParallelTrainer: the mesh's process group is {backend} but "
                 f"the trainer runs on {self.device}; use "
                 f"{backend_for(self.device)} for it")
-        for ax in ("pipe", "sep", "model"):
-            if mesh.shape[ax] > 1:
-                _waits(f"a {ax!r} axis of {mesh.shape[ax]}", "item 15: "
-                       "tensor, pipeline and context parallelism")
+        if mesh.shape["pipe"] > 1 and self.pp is None:
+            raise ValueError(
+                f"ParallelTrainer: a pipe axis of {mesh.shape['pipe']} needs "
+                f"the model wrapped in PipelineParallel")
+        if (self.pp is not None and mesh.shape["sep"] > 1
+                and self.pp._layers.uniform_split() is None):
+            raise NotImplementedError(
+                "pipeline + context parallelism ('sep' axis) requires a "
+                "plan that decomposes into prologue/stacked-body/epilogue "
+                "(PipelineLayer.uniform_split)")
 
     def _setup(self):
         """Everything that follows the mesh: ranks, the ZeRO plan and
@@ -465,10 +509,16 @@ class ParallelTrainer:
         self.data_rank = mesh.rank_in("data")
         self.n_shard = mesh.shape["sharding"]
         self.shard_rank = mesh.rank_in("sharding")
-        # the batch and the residual rows: ("data", "sharding"), data-major
-        self.n_reduce = self.n_data * self.n_shard
-        self.reduce_rank = self.data_rank * self.n_shard + self.shard_rank
+        self.n_sep = mesh.shape["sep"]
+        # the batch: ("data", "sharding"), data-major
+        self.n_batch = self.n_data * self.n_shard
+        self.batch_rank = self.data_rank * self.n_shard + self.shard_rank
+        # the gradient mean and the residual rows: also over "sep"
+        self.reduce_axes = DATA_AXES + (("sep",) if self.n_sep > 1 else ())
+        self.n_reduce = mesh.axes_size(self.reduce_axes)
+        self.reduce_rank = mesh.rank_in(self.reduce_axes)
         self._init_zero()
+        self._init_splits()
         self.opt_state = self._opt.init_state(OrderedDict(
             (k, self._update_view(k)) for k in self.params))
         self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -525,8 +575,9 @@ class ParallelTrainer:
             slots = self._opt.init_slots(
                 torch.empty(shape, dtype=p.dtype, device="meta"))
             dims = {}
+            own_split = bool(own_splits(getattr(p, "pspec", None)))
             for s, v in slots.items():
-                if self.zero_stage >= 1 and n > 1:
+                if self.zero_stage >= 1 and n > 1 and not own_split:
                     dims[s] = spec_dim(shard_spec_for(v, n_shards=n))
                 else:
                     dims[s] = (self.zero3_dims.get(k)
@@ -544,11 +595,6 @@ class ParallelTrainer:
                         f"its parameter's update on dim {d}")
             if d is not None:
                 self._update_dims[k] = d
-        if self._update_dims and not getattr(self._opt, "_elementwise", True):
-            raise NotImplementedError(
-                f"ZeRO stage {self.zero_stage} over {n} sharding ranks needs "
-                f"an elementwise optimizer; {type(self._opt).__name__} takes "
-                f"norms or top-k over whole parameters")
         # stage-3 storage: this rank's slice, the model's tensor freed
         self._shards = OrderedDict()
         with torch.no_grad():
@@ -560,6 +606,28 @@ class ParallelTrainer:
 
     def _full_shape(self, k) -> tuple:
         return self._full_shapes.get(k, tuple(self.params[k].shape))
+
+    def _init_splits(self):
+        """Each leaf's own split over the live ``pipe``/``model`` axes
+        (``self.own_splits[k]``: ((axis, dim), ...)), its logical shape,
+        and the group each split leaf's norms and top-k run over
+        (``self._split_groups``: ZeRO slices add ``sharding``)."""
+        mesh = self.mesh
+        self.own_splits = OrderedDict(
+            (k, own_splits(getattr(p, "pspec", None), mesh))
+            for k, p in self.params.items())
+        self._split_groups = split_of(self.params, mesh,
+                                      sharded=self._update_dims)
+        # the finite flag differs across these ranks where leaves differ
+        self._flag_axes = mesh.live(OWN_AXES)
+
+    def _logical_shape(self, k) -> tuple:
+        """Leaf ``k``'s whole shape: the ZeRO-3 full shape, times the
+        degree of each own split."""
+        shape = list(self._full_shape(k))
+        for ax, d in self.own_splits.get(k, ()):
+            shape[d] *= self.mesh.shape[ax]
+        return tuple(shape)
 
     def _slice(self, x, d):
         """This sharding rank's chunk of ``x`` along ``d``."""
@@ -621,15 +689,21 @@ class ParallelTrainer:
         each part's leaves in sorted-key order. A leaf split over live
         check axes (a residual row, a ZeRO slice) gets the combined digest
         over them and no vote; every other leaf is compared."""
-        self.integrity_axes = self.mesh.live(DATA_AXES)
+        self.integrity_axes = self.mesh.live(self.reduce_axes)
         self.replica_rank = self.mesh.rank_in(self.integrity_axes)
         layout = self._layout()
         entries = []
         for part, tree in self._integrity_trees():
             for path, _ in _leaves_with_path(tree):
-                pc = layout.get(".".join((part,) + tuple(map(str, path))))
+                dotted = ".".join((part,) + tuple(map(str, path)))
+                pc = layout.get(dotted)
+                # a residual row differs over every check axis; a ZeRO
+                # slice over sharding; a model/pipe slice is compared with
+                # the ranks that hold the same slice
                 axes = (() if pc is None else self.integrity_axes if pc.row
-                        else self.mesh.live("sharding"))
+                        else self.mesh.live("sharding")
+                        if "sharding" in self._piece_axes.get(dotted, ())
+                        else ())
                 entries.append((part + _keystr(path), axes))
         self._integrity_entries = entries
         self._integrity_cmp_idx = [i for i, (_, a) in enumerate(entries)
@@ -662,7 +736,14 @@ class ParallelTrainer:
             dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
             div = lo != hi
         else:
-            div = torch.zeros(len(cmp_idx), dtype=torch.bool)
+            div = torch.zeros(len(cmp_idx), dtype=torch.bool,
+                              device=fps.device)
+        if self._flag_axes and cmp_idx:
+            # one verdict on every rank, whichever slice diverged
+            d = div.to(torch.int32)
+            dist.all_reduce(d, op=dist.ReduceOp.MAX,
+                            group=self.mesh.group_of(self._flag_axes))
+            div = d > 0
         self._record_integrity(fps, div)
 
     def _record_integrity(self, fps, div):
@@ -707,7 +788,6 @@ class ParallelTrainer:
     # -- the exchange plan --------------------------------------------------
     def _init_exchange(self):
         mesh = self.mesh
-        self.reduce_axes = DATA_AXES
         if self.grad_sync_dcn_only and self.grad_sync in QUANTIZED_POLICIES:
             links = axis_links(mesh)
             self._axis_policy = {
@@ -740,7 +820,7 @@ class ParallelTrainer:
         self.sync_axes = tuple(ax for ax in self.reduce_axes
                                if quantized or mesh.shape[ax] > 1)
         use_buckets = (self.grad_sync_buckets > 1 and bool(self.sync_axes)
-                       and len(plain_keys) >= 2)
+                       and len(plain_keys) >= 2 and self.pp is None)
         bucket_keys = []
         if use_buckets:
             bucket_keys = partition_reverse_buckets(
@@ -797,14 +877,18 @@ class ParallelTrainer:
             residuals=res or None, mesh=self.mesh)
 
     def _data_mean(self, g):
-        """The mean over the data group (bf16 on the wire under
-        ``fp16_allreduce``, as the reference's ``_pmean``)."""
-        if self.n_data == 1:
-            return g
-        wire = (g.to(torch.bfloat16) if self.fp16_allreduce
-                and g.dtype == torch.float32 else g.clone())
-        dist.all_reduce(wire, group=self.mesh.group_of("data"))
-        return div_const(wire, self.n_data).to(g.dtype)
+        """The mean over the ``data`` group, then over ``sep`` (bf16 on
+        the wire under ``fp16_allreduce``, as the reference's ``_pmean``
+        over each)."""
+        for ax in ("data", "sep"):
+            n = self.mesh.shape[ax]
+            if n == 1:
+                continue
+            wire = (g.to(torch.bfloat16) if self.fp16_allreduce
+                    and g.dtype == torch.float32 else g.clone())
+            dist.all_reduce(wire, group=self.mesh.group_of(ax))
+            g = div_const(wire, n).to(g.dtype)
+        return g
 
     def _zero_exchange(self, grads: dict):
         """The ZeRO leaves' reduce-scatters (reference ``engine.py:
@@ -902,16 +986,18 @@ class ParallelTrainer:
                 g = self._slice(g, ud[k])      # stage 1: the full mean
             upd[k] = g
         sliced = any(k in ud for k, g in upd.items() if g is not None)
-        split = ((frozenset(ud), self.mesh.group_of("sharding"))
-                 if sliced else None)
+        split = {k: grp for k, grp in self._split_groups.items()
+                 if upd.get(k) is not None} or None
         new_params, new_opt = self._opt.apply_gradients(
             old, upd, self.opt_state, lr=lr, split=split)
         if self.nan_guard or self.amp is not None:
             finite = all_finite(g for g in upd.values() if g is not None)
-            if sliced and self.n_shard > 1:
+            flag_axes = self.mesh.live(
+                self._flag_axes + (("sharding",) if sliced else ()))
+            if flag_axes:
                 flag = finite.to(torch.int32).reshape(1)
                 dist.all_reduce(flag, op=dist.ReduceOp.MIN,
-                                group=self.mesh.group_of("sharding"))
+                                group=self.mesh.group_of(flag_axes))
                 finite = flag[0] > 0
             if self.nan_guard:
                 new_params = {n: torch.where(finite, v, old[n])
@@ -936,27 +1022,37 @@ class ParallelTrainer:
         """(loss, exchanged grads in ``names`` order) of one forward and
         backward on this rank's slice of the batch; updates the residuals.
         A ZeRO-2/3 leaf's gradient is this rank's slice."""
-        inputs = _shard(inputs, self.n_reduce, self.reduce_rank)
-        labels = _shard(labels, self.n_reduce, self.reduce_rank)
-        if self.remat:
-            out = checkpoint(_RngReplay(self.model, self.device), inputs,
-                             use_reentrant=False)
-        else:
-            out = self.model(inputs)
-        loss = self.loss_fn(out, labels)
+        inputs, labels = (
+            _shard(_shard(x, self.n_batch, self.batch_rank), self.n_sep,
+                   self.mesh.coord["sep"], dim=1, min_rank=2)
+            for x in (inputs, labels))
         scale = self.amp["scale"] if self.amp is not None else None
-        target = loss if scale is None else loss * scale.to(loss.dtype)
-        hooks = (_BucketHooks(self, names)
-                 if self._use_buckets and torch.is_grad_enabled() else None)
-        try:
-            raw = torch.autograd.grad(target, [self.params[n] for n in names],
-                                      allow_unused=True)
-        except BaseException:
-            if hooks is not None:
-                for h in hooks.handles:
-                    h.remove()
-            raise
-        grads = dict(zip(names, raw))
+        hooks = None
+        if self.pp is not None:
+            loss, grads = self.pp.train_batch(
+                inputs, labels, self.loss_fn,
+                OrderedDict((n, self.params[n]) for n in names),
+                micro_batches=self.micro_batches, scale=scale)
+        else:
+            if self.remat:
+                out = checkpoint(_RngReplay(self.model, self.device), inputs,
+                                 use_reentrant=False)
+            else:
+                out = self.model(inputs)
+            loss = self.loss_fn(out, labels)
+            target = loss if scale is None else loss * scale.to(loss.dtype)
+            hooks = (_BucketHooks(self, names) if self._use_buckets
+                     and torch.is_grad_enabled() else None)
+            try:
+                raw = torch.autograd.grad(
+                    target, [self.params[n] for n in names],
+                    allow_unused=True)
+            except BaseException:
+                if hooks is not None:
+                    for h in hooks.handles:
+                        h.remove()
+                raise
+            grads = dict(zip(names, raw))
         live = {n: g for n, g in grads.items()
                 if g is not None and n in self._plain}
         if hooks is not None:
@@ -977,13 +1073,13 @@ class ParallelTrainer:
             self.comm_err = OrderedDict(self.comm_err)
             self.comm_err.update(res)
         loss = loss.detach()
-        for ax in DATA_AXES:          # the reference's pmean over each axis
+        for ax in self.reduce_axes:   # the reference's pmean over each axis
             n = self.mesh.shape[ax]
             if n > 1:
                 loss = loss.clone()
                 dist.all_reduce(loss, group=self.mesh.group_of(ax))
                 loss = div_const(loss, n)
-        if scale is not None:
+        if scale is not None and self.pp is None:
             loss = (loss * scale.to(loss.dtype)) * \
                 (1.0 / scale).to(loss.dtype)
         return loss, [grads[n] for n in names]
@@ -1061,25 +1157,51 @@ class ParallelTrainer:
 
     def _layout(self) -> dict:
         """Dotted path -> :class:`Piece` for every leaf that is not
-        replicated on the whole mesh: ZeRO slices (written by the first
-        data rank of each) and residual rows (``(n_reduce, *shape)``,
-        data-major, each written by its owner)."""
-        out = {}
-        writer = self.data_rank == 0
-        for k, d in self.zero3_dims.items():
-            out["params." + k] = Piece(self._full_shape(k), d,
-                                       self.shard_rank, self.n_shard,
-                                       False, writer)
+        replicated on the whole mesh: ZeRO slices, tensor-parallel slices
+        and stage members (and their slots), and residual rows
+        (``(n_reduce, *shape)``, data-major, with the leaf's own split on
+        the trailing dims). Each piece is written by the one rank of its
+        set of equal copies whose coordinates off the piece's axes are 0;
+        ``self._piece_axes`` keeps each piece's axes."""
+        mesh = self.mesh
+        live = mesh.live(AXES_ORDER)
+        out, self._piece_axes = {}, {}
+
+        def piece(path, shape, splits, row=False):
+            axes = {a for ax, _, _, _ in splits
+                    for a in (ax if isinstance(ax, tuple) else (ax,))}
+            write = all(mesh.coord[a] == 0 for a in live if a not in axes)
+            (_, d, i, c), extra = splits[0], splits[1:]
+            out[path] = Piece(tuple(shape), d, i, c, row, write,
+                              tuple((dd, ii, cc) for _, dd, ii, cc in extra))
+            self._piece_axes[path] = axes
+
+        def own(k, shift=0):
+            return [(ax, d + shift, mesh.coord[ax], mesh.shape[ax])
+                    for ax, d in self.own_splits[k]]
+
+        zero = ("sharding",)
+        for k in self.params:
+            splits = own(k)
+            if k in self.zero3_dims:
+                splits = [(zero, self.zero3_dims[k], self.shard_rank,
+                           self.n_shard)] + splits
+            if splits:
+                piece("params." + k, self._logical_shape(k), splits)
         for k, dims in self.slot_dims.items():
-            for s, d in dims.items():
+            local = tuple(self.params[k].shape)
+            for s, v in self.opt_state["slots"].get(k, {}).items():
+                d = dims.get(s)
                 if d is not None and k in self._update_dims:
-                    out[f"opt.slots.{k}.{s}"] = Piece(
-                        self._full_shape(k), d, self.shard_rank,
-                        self.n_shard, False, writer)
-        for k, v in self.comm_err.items():
-            out["comm_err." + k] = Piece(
-                (self.n_reduce,) + tuple(v.shape), 0, self.reduce_rank,
-                self.n_reduce, True, True)
+                    piece(f"opt.slots.{k}.{s}", self._full_shape(k),
+                          [(zero, d, self.shard_rank, self.n_shard)])
+                elif own(k) and tuple(v.shape) == local:
+                    piece(f"opt.slots.{k}.{s}", self._logical_shape(k),
+                          own(k))
+        for k in self.comm_err:
+            piece("comm_err." + k, (self.n_reduce,) + self._logical_shape(k),
+                  [(self.reduce_axes, 0, self.reduce_rank, self.n_reduce)]
+                  + own(k, shift=1), row=True)
         return out
 
     def save_checkpoint(self, path: str, use_async: bool = False):

@@ -8,7 +8,7 @@ hybrid mesh (``data``/``pipe``/``sharding``/``sep``/``model``) from
 the world size when every degree is 1) and the reference's topology
 objects; ``distributed_model`` wraps the network by the live degrees
 (``PipelineParallel``, ``TensorParallel``, ``ShardingParallel``, else
-``DataParallel``; the first two raise until ROADMAP.md Queue 1 item 15);
+``DataParallel``);
 ``distributed_optimizer`` wraps the optimizer in
 ``HybridParallelOptimizer``. ``save``/``save_inference_model`` export
 through ``jit.save`` and ``save_persistables(model=)`` pickles the
@@ -120,13 +120,16 @@ class Fleet:
         world = _env.get_world_size()
         if total == 1 and world > 1:
             degrees["data"] = world   # default: data parallel over all
-        build_mesh(degrees)
-        dims = [degrees[a] for a in ("data", "pipe", "sharding", "model")]
-        self._topology = CommunicateTopology(
-            ("data", "pipe", "sharding", "model"), dims)
+        mesh = build_mesh(degrees)
+        names = ("data", "pipe", "sharding", "model")
+        self._topology = CommunicateTopology(names,
+                                             [degrees[a] for a in names])
+        # the rank in the four-axis topology: this rank's mesh coordinates
+        # without "sep"
         self._hcg = HybridCommunicateGroup(
             self._topology,
-            global_rank=_env.get_rank() % max(self._topology.world_size(), 1))
+            global_rank=self._topology.get_rank(
+                **{a: mesh.coord[a] for a in names}))
         self._is_initialized = True
         return self
 

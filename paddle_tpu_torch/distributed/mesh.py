@@ -9,15 +9,17 @@ groups that covers the world:
 - rank ``r`` of the mesh's group sits at coordinate
   ``np.unravel_index(r, shape)`` over :data:`AXES_ORDER`, as the reference
   reshapes its device array: ``model`` varies fastest, ``data`` slowest;
-- each axis larger than 1 has the process group its collectives run
-  over (``group_of``): the comm lists of
-  :meth:`CommunicateTopology.get_comm_list`. So has the trainer's
-  ``("data", "sharding")`` exchange, the ranks that differ only on those
-  two axes, and the whole mesh (its own group). A rank's index in a group
-  of several axes (``rank_in``) is its coordinate over them, data-major,
+- every set of live axes (axes larger than 1) has the process group its
+  collectives run over (``group_of``): the ranks that differ only on
+  those axes, the comm lists of :meth:`CommunicateTopology.get_comm_list`
+  for one axis. So ``model`` (the Megatron layers), ``pipe`` (the
+  pipeline's tied-weight sums; its point-to-point hops go to
+  :meth:`Mesh.neighbor`), ``sep`` (ring attention), the trainer's
+  ``("data", "sharding", "sep")`` gradient mean and ``("pipe",
+  "model")`` (the norm of a stacked tensor-parallel slice) all have one,
+  and the whole mesh is its own group. A rank's index in a group of
+  several axes (``rank_in``) is its coordinate over them, data-major,
   which is the index the reference's collectives give a tuple of axes.
-  Other sets of axes get their groups with the callers that need them
-  (ROADMAP.md, Queue 1, item 15).
 
 :func:`build_mesh` creates these groups at once, in one order on every
 rank (``torch.distributed.new_group`` is a collective of the default
@@ -43,6 +45,7 @@ the mesh), in pure numpy.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -51,12 +54,16 @@ import torch.distributed as dist
 
 from .env import get_local_world_size
 
-__all__ = ["AXES_ORDER", "LINK_TYPES", "Mesh", "build_mesh", "set_mesh",
+__all__ = ["AXES_ORDER", "OWN_AXES", "LINK_TYPES", "Mesh", "build_mesh",
+           "set_mesh", "own_splits", "local_piece", "split_of",
            "get_mesh", "require_mesh", "axis_size", "set_axis_links",
            "explicit_axis_links", "infer_axis_links", "axis_links",
            "axis_link", "CommunicateTopology", "HybridCommunicateGroup"]
 
 AXES_ORDER = ("data", "pipe", "sharding", "sep", "model")
+# the axes a parameter's own split may name, by its ``pspec`` (ZeRO's
+# ``sharding`` slices are the trainer's)
+OWN_AXES = ("pipe", "model")
 
 LINK_TYPES = ("ici", "dcn")
 
@@ -120,6 +127,19 @@ class Mesh:
         raise ValueError(f"mesh {self.shape} has no process group for axes "
                          f"{key}; build it with build_mesh")
 
+    def neighbor(self, axis: str, offset: int) -> int:
+        """The default-group rank of the process ``offset`` steps along
+        ``axis`` (cyclic), the other coordinates kept: the peer of a
+        point-to-point hop."""
+        coord = dict(self.coord)
+        coord[axis] = (coord[axis] + offset) % self.shape[axis]
+        dims = tuple(self.shape[ax] for ax in AXES_ORDER)
+        r = int(np.ravel_multi_index(tuple(coord[ax] for ax in AXES_ORDER),
+                                     dims))
+        if self.group is None or self.group is dist.group.WORLD:
+            return r
+        return dist.get_global_rank(self.group, r)
+
     def rank_in(self, axes: Union[str, Sequence[str]]) -> int:
         """This rank's index along ``axes``: its coordinates over them,
         data-major (the index of its group's collectives)."""
@@ -169,9 +189,9 @@ def build_mesh(degrees: Dict[str, int], group=None,
 
     ``group`` is the mesh's process group; None takes the default group
     when the mesh has more than one rank, whose size must be the product
-    of the degrees. Each live axis, and ``("data", "sharding")`` where
-    both are live beside a third, gets its groups (the module docstring);
-    every rank of the default group must call this.
+    of the degrees. Every set of live axes but the whole mesh gets its
+    groups (the module docstring), in one order on every rank: every rank
+    of the default group must call this.
     ``axis_links`` pins link types as :func:`set_axis_links`."""
     for ax in degrees:
         if ax not in AXES_ORDER:
@@ -198,9 +218,8 @@ def build_mesh(degrees: Dict[str, int], group=None,
         hosts = [r // per_host for r in ranks]
         backend = dist.get_backend(group)
         live = tuple(ax for ax in AXES_ORDER if shape[ax] > 1)
-        sets = [(ax,) for ax in live] if len(live) > 1 else []
-        if len(live) > 2 and {"data", "sharding"} <= set(live):
-            sets.append(("data", "sharding"))
+        sets = [axes for k in range(1, len(live))
+                for axes in itertools.combinations(live, k)]
         for axes in sets:
             for members in _comm_lists(shape, axes):
                 pg = dist.new_group(ranks=[ranks[m] for m in members],
@@ -237,6 +256,52 @@ def axis_size(axis: str) -> int:
     if mesh is None or axis not in mesh.axis_names:
         return 1
     return mesh.shape[axis]
+
+
+# ---------------------------------------------------------------------------
+# a parameter's own split: its ``pspec`` over OWN_AXES
+
+
+def own_splits(pspec, mesh: Optional[Mesh] = None) -> tuple:
+    """``((axis, dim), ...)``: the dims a parameter's ``pspec`` splits over
+    ``pipe`` or ``model`` (with ``mesh``, only its axes larger than 1)."""
+    out = tuple((a, d) for d, ax in enumerate(tuple(pspec or ()))
+                for a in _axis_tuple(ax) if a in OWN_AXES)
+    return out if mesh is None else tuple(
+        (a, d) for a, d in out if mesh.shape[a] > 1)
+
+
+def local_piece(value, pspec, mesh: Optional[Mesh] = None):
+    """This rank's piece of a whole array: along each dim whose ``pspec``
+    entry names a ``pipe`` or ``model`` axis of ``mesh`` (the current one
+    when None) larger than 1, chunk ``coord[axis]`` of ``shape[axis]``."""
+    mesh = get_mesh() if mesh is None else mesh
+    if mesh is None:
+        return value
+    for a, d in own_splits(pspec, mesh):
+        value = value.chunk(mesh.shape[a], dim=d)[mesh.coord[a]]
+    return value
+
+
+def split_of(params: dict, mesh: Optional[Mesh] = None,
+             sharded=()) -> dict:
+    """``{key: group}`` for the parameters of ``params`` that are slices
+    on ``mesh`` (the current one when None): split over ``model`` or
+    ``pipe`` by their ``pspec``, or, for the keys of ``sharded``, over
+    ``sharding`` too (a ZeRO trainer's slices). The group is the one
+    their norms and top-k sum over."""
+    mesh = get_mesh() if mesh is None else mesh
+    if mesh is None:
+        return {}
+    out = {}
+    for k, p in params.items():
+        axes = tuple(a for a, _ in own_splits(getattr(p, "pspec", None),
+                                              mesh))
+        if k in sharded:
+            axes += ("sharding",)
+        if mesh.live(axes):
+            out[k] = mesh.group_of(axes)
+    return out
 
 
 # ---------------------------------------------------------------------------

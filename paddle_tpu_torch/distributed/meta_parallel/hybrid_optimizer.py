@@ -10,10 +10,12 @@ wrapper keeps the inner optimizer's whole surface and adds:
   ``data`` first (the mean the reference's ``apply_gradients`` takes).
 
 ``ParallelTrainer`` exchanges gradients itself and drives the inner
-optimizer, so nothing is averaged twice; it tells the inner optimizer's
-clip which gradients are ZeRO slices, whose norms it sums over
-``sharding``. No port path splits a parameter over ``model`` or ``pipe``
-yet, so the clip sums over no other axis (ROADMAP.md, Queue 1, item 15).
+optimizer, so nothing is averaged twice; it tells the inner optimizer
+which gradients are slices (ZeRO slices over ``sharding``,
+tensor-parallel slices over ``model``, a stage's members over ``pipe``),
+whose norms it sums over those ranks. The eager ``apply_gradients`` and
+``step`` tell it the same of every parameter whose ``pspec`` names
+``model`` or ``pipe`` on the current mesh (``mesh.split_of``).
 
 ``HybridParallelGradScaler.unscale_`` reduces the found-non-finite flag
 over every live axis (``all_reduce(MAX)``), so all ranks skip a step
@@ -26,9 +28,26 @@ import torch.distributed as dist
 
 from ...optimizer.optimizer import Optimizer
 from ..compressed import div_const
-from ..mesh import AXES_ORDER, get_mesh
+from ..mesh import AXES_ORDER, get_mesh, split_of
 
 __all__ = ["HybridParallelOptimizer", "HybridParallelGradScaler"]
+
+
+def data_mean(grads: dict) -> dict:
+    """The mean of each gradient over the current mesh's data group (None
+    stays)."""
+    group, n = _group(("data",))
+    if n == 1:
+        return grads
+    out = {}
+    for k, g in grads.items():
+        if g is None:
+            out[k] = None
+            continue
+        s = g.clone()
+        dist.all_reduce(s, group=group)
+        out[k] = div_const(s, n)
+    return out
 
 
 def _group(axes):
@@ -51,23 +70,17 @@ class HybridParallelOptimizer:
 
     def sync_gradients(self, grads: dict) -> dict:
         """The mean of each gradient over the data group (None stays)."""
-        group, n = _group(("data",))
-        if n == 1:
-            return grads
-        out = {}
-        for k, g in grads.items():
-            if g is None:
-                out[k] = None
-                continue
-            s = g.clone()
-            dist.all_reduce(s, group=group)
-            out[k] = div_const(s, n)
-        return out
+        return data_mean(grads)
 
-    def apply_gradients(self, params, grads, state, lr=None, lr_scales=None):
+    def apply_gradients(self, params, grads, state, lr=None, lr_scales=None,
+                        split=None):
         grads = self.sync_gradients(grads)
+        plist = self._inner_opt._parameter_list or {}
+        split = split if split is not None else (
+            split_of({k: plist.get(k, v) for k, v in params.items()})
+            or None)
         return self._inner_opt.apply_gradients(params, grads, state, lr,
-                                               lr_scales)
+                                               lr_scales, split)
 
     @torch.no_grad()
     def step(self):
@@ -76,7 +89,7 @@ class HybridParallelOptimizer:
         for k, g in self.sync_gradients(grads).items():
             if g is not None:
                 plist[k].grad.copy_(g)
-        self._inner_opt.step()
+        self._inner_opt.step(split=split_of(plist) or None)
 
     def clear_grad(self):
         self._inner_opt.clear_grad()

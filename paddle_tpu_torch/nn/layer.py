@@ -7,15 +7,21 @@ what the reference builds by hand (parameters, sublayers, buffers,
 - ``create_parameter(shape, dtype, initializer, is_bias)`` with the
   reference's defaults (``Constant(0)`` for biases, ``XavierUniform`` for
   weights);
-- ``set_state_dict_from_numpy(state)``: loads the reference's
+- ``set_state_dict_from_numpy(state, mesh=None)``: loads the reference's
   ``{structured_name: array}`` (``paddle_tpu.nn.Layer.state_dict()``) 1:1.
-  Name sets must be equal and shapes equal, else it raises.
+  Name sets must be equal, else it raises. A parameter that this rank
+  holds a piece of (its ``pspec`` names a ``model`` or ``pipe`` axis of
+  the mesh larger than 1: a tensor-parallel slice, a pipeline stage's
+  members of a ``stack{g}``) takes its piece of the reference's whole
+  array (``distributed.mesh.local_piece``, by this rank's mesh
+  coordinates); every other shape must be equal.
 
 Beside it, :func:`set_trainer_state_from_numpy` loads a reference
 ``ParallelTrainer``'s whole ``state`` (as numpy) into the port's trainer:
 parameters and buffers, optimizer step and slots, this rank's row of the
 replica-major error-feedback residuals (``comm_err``) and the NaN guard's
-and loss scaler's state.
+and loss scaler's state, each cut to this rank's piece as the trainer
+holds it.
 
 Names are the reference's: the module tree is built in the same order,
 ``Linear.weight`` keeps the reference's ``(in, out)`` layout, and a tied
@@ -64,9 +70,13 @@ class Layer(nn.Module):
         return out
 
     @torch.no_grad()
-    def set_state_dict_from_numpy(self, state: Mapping[str, object]):
+    def set_state_dict_from_numpy(self, state: Mapping[str, object],
+                                  mesh=None):
         """Copy the reference's ``{name: array}`` into this layer's
-        parameters and buffers, keeping each one's dtype and device."""
+        parameters and buffers, keeping each one's dtype and device; a
+        split parameter takes this rank's piece (``mesh``: the current
+        one when None)."""
+        from ..distributed.mesh import local_piece
         own = self.named_state()
         missing = sorted(set(own) - set(state))
         unexpected = sorted(set(state) - set(own))
@@ -75,6 +85,8 @@ class Layer(nn.Module):
                              f"unexpected {unexpected}")
         for name, t in own.items():
             v = _as_tensor(state[name])
+            if tuple(v.shape) != tuple(t.shape):
+                v = local_piece(v, getattr(t, "pspec", None), mesh)
             if tuple(v.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {name}: got "
                                  f"{tuple(v.shape)}, expected "
@@ -108,21 +120,40 @@ def set_trainer_state_from_numpy(trainer, state: Mapping[str, object]):
     arrays) into the port's ``trainer`` in place.
 
     ``state["params"]`` and ``state["buffers"]`` go through the model's
-    :meth:`Layer.set_state_dict_from_numpy`; ``state["opt"]`` must have the
-    port optimizer's structure (``step`` and ``slots``); ``comm_err[k]``
-    is replica-major, ``(R, *shape)``, and this rank takes row
-    ``trainer.data_rank``; ``state["guard"]`` holds ``skipped`` and, with a
-    scaler, ``amp`` (``scale``, ``good``, ``bad``)."""
+    :meth:`Layer.set_state_dict_from_numpy` (on the trainer's mesh);
+    ``state["opt"]`` must have the port optimizer's structure (``step``
+    and ``slots``; a slot of a split parameter takes the parameter's piece,
+    a ZeRO slot this rank's slice); ``comm_err[k]`` is replica-major,
+    ``(R, *shape)``, and this rank takes row ``trainer.reduce_rank``, cut
+    to its piece; ``state["guard"]`` holds ``skipped`` and, with a scaler,
+    ``amp`` (``scale``, ``good``, ``bad``)."""
+    from ..distributed.mesh import local_piece
+    mesh = trainer.mesh
     trainer.model.set_state_dict_from_numpy(
-        {**state["params"], **state.get("buffers", {})})
-    _load_tree(trainer.opt_state, state["opt"], "opt")
+        {**state["params"], **state.get("buffers", {})}, mesh)
+    opt = dict(state["opt"])
+    slots = {}
+    for k, d in opt.get("slots", {}).items():
+        spec = getattr(trainer.params.get(k), "pspec", None)
+        slots[k] = {}
+        for s, v in d.items():
+            v = local_piece(_as_tensor(v), spec, mesh)
+            dim = trainer.slot_dims.get(k, {}).get(s)
+            if dim is not None and k in trainer._update_dims:
+                v = trainer._slice(v, dim)
+            slots[k][s] = v
+    if "slots" in opt:
+        opt["slots"] = slots
+    _load_tree(trainer.opt_state, opt, "opt")
     comm_err = state.get("comm_err", {})
     if set(comm_err) != set(trainer.comm_err):
         raise ValueError(f"comm_err names differ: {sorted(comm_err)} vs "
                          f"{sorted(trainer.comm_err)}")
     for k, rows in comm_err.items():
+        row = _as_tensor(np.asarray(rows)[trainer.reduce_rank])
         _copy_into(trainer.comm_err[k],
-                   np.asarray(rows)[trainer.data_rank], f"comm_err.{k}")
+                   local_piece(row, getattr(trainer.params[k], "pspec",
+                                            None), mesh), f"comm_err.{k}")
     guard = state.get("guard", {})
     if "skipped" in guard:
         _copy_into(trainer.skipped, guard["skipped"], "guard.skipped")

@@ -2,10 +2,12 @@
 functions over ``{name: grad}`` dicts, float32 norms, results in each
 grad's dtype.
 
-``split=(keys, group)`` says that the gradients of ``keys`` are this
-rank's slices of parameters split over the process group ``group`` (a
-ZeRO trainer's ``sharding`` slices): a norm sums their squares over it,
-the norm the reference takes of its global arrays."""
+``split`` says which gradients are this rank's slices of parameters
+split over other ranks (a ZeRO trainer's ``sharding`` slices, a
+tensor-parallel ``model`` slice, a pipeline stage's members): a norm sums
+their squares over the process group of those ranks, the norm the
+reference takes of its global arrays. It is ``{key: group}``, or None
+when no key is split."""
 from __future__ import annotations
 
 import torch
@@ -42,14 +44,14 @@ class ClipGradByNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
 
     def __call__(self, grads, split=None):
-        keys, group = split if split is not None else ((), None)
+        groups = split or {}
         out = {}
         for k, g in grads.items():
             if g is None:
                 out[k] = None
                 continue
             sq = g.float().square().sum()
-            norm = (_sum_over(sq, group) if k in keys else sq).sqrt()
+            norm = (_sum_over(sq, groups[k]) if k in groups else sq).sqrt()
             scale = torch.clamp(self.clip_norm / norm.clamp(min=1e-12),
                                 max=1.0)
             out[k] = (g * scale).to(g.dtype)
@@ -63,14 +65,16 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
     def global_norm_sq(self, grads, split=None):
         """The squared global norm; the slices of ``split`` summed over
-        their group, then added to the whole leaves'."""
-        keys, group = split if split is not None else ((), None)
+        their group (one sum a group, in the order the groups first
+        appear), then added to the whole leaves'."""
+        groups = split or {}
         sq = [g.float().square().sum() for k, g in grads.items()
-              if g is not None and k not in keys]
+              if g is not None and k not in groups]
         total = torch.stack(sq).sum() if sq else torch.zeros(())
-        if split is not None:
+        order = list(dict.fromkeys(groups.values()))
+        for group in order:
             parts = [g.float().square().sum() for k, g in grads.items()
-                     if g is not None and k in keys]
+                     if g is not None and groups.get(k) is group]
             part = torch.stack(parts).sum() if parts else \
                 torch.zeros((), device=total.device)
             total = total.to(part.device) + _sum_over(part, group)

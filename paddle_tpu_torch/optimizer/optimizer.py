@@ -46,6 +46,13 @@ The math is the reference's:
   step, on the device;
 - ``Lamb`` and ``Lars`` scale each tensor's step by a trust ratio of
   norms (the per-key hook ``_update_with_key``);
+- a key that ``apply_gradients(split=)`` names is this rank's slice of a
+  parameter split over a process group (a ZeRO ``sharding`` slice, a
+  tensor-parallel ``model`` slice, a pipeline stage's members): the
+  hook gets that group, and ``Lamb``'s and ``Lars``'s norms sum their
+  squares over it and ``DGCMomentum`` takes its threshold over the
+  residual gathered from it, so each takes what the reference takes of
+  the whole parameter;
 - the step count is a 0-d int32 tensor on the parameters' device, so bias
   correction reads no host value.
 
@@ -112,9 +119,6 @@ def _keyed(parameters) -> "OrderedDict[object, torch.nn.Parameter]":
 
 class Optimizer:
     _decoupled_wd = False   # True for AdamW-style decoupled decay
-    # every update is elementwise over the parameter, so a ZeRO rank may
-    # update its slice alone (Lamb, Lars and DGC take norms or top-k)
-    _elementwise = True
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, name=None, multi_precision=False):
@@ -159,8 +163,9 @@ class Optimizer:
         """Per-parameter float32 update -> (new_p, new_slots)."""
         raise NotImplementedError
 
-    def _update_with_key(self, key, p, g, slots, lr, step):
-        """Per-key hook (Lamb and Lars exclude keys from their decay)."""
+    def _update_with_key(self, key, p, g, slots, lr, step, group=None):
+        """Per-key hook (Lamb and Lars exclude keys from their decay);
+        ``group``: the process group ``p`` is a slice over, or None."""
         return self.update(p, g, slots, lr, step)
 
     def init_state(self, params: Dict[str, torch.Tensor]):
@@ -175,11 +180,13 @@ class Optimizer:
                         split=None):
         """(params, grads, state) -> (new_params, new_state); reads and
         writes no tensor in place. ``lr_scales[key]`` multiplies that key's
-        learning rate. ``split=(keys, group)``: the gradients of ``keys``
-        are slices of parameters split over ``group``, which the clip's
-        norms sum over (``clip.py``)."""
+        learning rate. ``split``: ``{key: group}`` or None, the keys
+        whose parameters and gradients are slices of whole ones split over
+        ``group``; the clip's norms and the norm and top-k optimizers' take
+        the whole parameter over it."""
         lr = self.get_lr() if lr is None else float(lr)
         grads = clip_grads(grads, self._grad_clip, split)
+        groups = split or {}
         wd, decoupled = self._wd_coeff()
         step = state["step"] + 1
         new_params, new_slots = {}, {}
@@ -199,7 +206,7 @@ class Optimizer:
                     g = g + wd * p32
             p_lr = lr * (lr_scales.get(k, 1.0) if lr_scales else 1.0)
             np_, ns = self._update_with_key(k, p32, g, state["slots"][k],
-                                            p_lr, step)
+                                            p_lr, step, groups.get(k))
             if wd and decoupled and self._decays(k):
                 np_ = np_ - p_lr * wd * p32
             new_params[k] = np_.to(p.dtype)
@@ -209,8 +216,9 @@ class Optimizer:
     # -- the eager API ---------------------------------------------------------
 
     @torch.no_grad()
-    def step(self):
-        """One update of every parameter from its ``.grad``, in place."""
+    def step(self, split=None):
+        """One update of every parameter from its ``.grad``, in place
+        (``split`` as in :meth:`apply_gradients`)."""
         plist = self._parameter_list
         if plist is None:
             raise ValueError("optimizer created without parameters")
@@ -228,7 +236,7 @@ class Optimizer:
         lr_scales = {k: float(getattr(p, "optimize_attr", {}).get(
             "learning_rate", 1.0)) for k, p in plist.items()}
         new_params, self.state = self.apply_gradients(
-            params, grads, self.state, lr_scales=lr_scales)
+            params, grads, self.state, lr_scales=lr_scales, split=split)
         for k, p in plist.items():
             if grads[k] is not None:
                 p.copy_(new_params[k])
@@ -306,8 +314,9 @@ class DGCMomentum(Optimizer):
     sparsification with local accumulation; unsent mass stays in the
     residual ``v`` until its coordinates enter the top k. The sparsity
     follows the rampup schedule from ``rampup_begin_step``. As in the
-    reference, the selection applies to the already-averaged gradient."""
-    _elementwise = False
+    reference, the selection applies to the already-averaged gradient.
+    A split parameter's threshold is taken over the whole residual,
+    gathered from its group."""
 
     def __init__(self, learning_rate, momentum=0.9, parameters=None,
                  rampup_begin_step=0, rampup_step=1, sparsity=(0.999,),
@@ -336,14 +345,18 @@ class DGCMomentum(Optimizer):
                            torch.zeros_like(sched[0]), sched[idx.long()])
 
     def update(self, p, g, slots, lr, step):
+        return self._update_with_key(None, p, g, slots, lr, step)
+
+    def _update_with_key(self, key, p, g, slots, lr, step, group=None):
         u = self._momentum * slots["u"] + g        # momentum correction
         v = slots["v"] + u                          # local accumulation
         sp = self._sparsity_at(step)
-        n = v.numel()
+        mag = _whole(v.abs().reshape(-1), group)
+        n = mag.numel()
         if n > 1:
             # the threshold is sort(|v|)[k], the (k + 1)-th smallest
             k = torch.clamp((sp * n).to(torch.int32), 0, n - 1)
-            thr = torch.kthvalue(v.abs().reshape(-1), int(k) + 1).values
+            thr = torch.kthvalue(mag, int(k) + 1).values
             mask = (v.abs() >= thr) | (sp <= 0.0)
         else:
             mask = torch.ones_like(v, dtype=torch.bool)
@@ -496,15 +509,34 @@ class RMSProp(Optimizer):
         return p - mom, out
 
 
-def _norm(x):
-    return x.square().sum().sqrt()
+def _norm(x, group=None):
+    """The L2 norm of ``x``, or of the whole tensor ``x`` is a slice of
+    over ``group``."""
+    sq = x.square().sum()
+    if group is not None:
+        import torch.distributed as dist
+        sq = sq.reshape(1).clone()
+        dist.all_reduce(sq, group=group)
+        sq = sq[0]
+    return sq.sqrt()
+
+
+def _whole(flat, group=None):
+    """The 1-d ``flat`` gathered from every rank of ``group`` (equal
+    sizes), or itself."""
+    if group is None:
+        return flat
+    import torch.distributed as dist
+    parts = [torch.empty_like(flat)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 class Lamb(Optimizer):
     """Layer-wise adaptive moments: Adam's step plus decay, scaled by the
     trust ratio ||p|| / ||r||; keys ``exclude_from_weight_decay_fn``
     accepts take no decay."""
-    _elementwise = False
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
@@ -518,7 +550,7 @@ class Lamb(Optimizer):
     def init_slots(self, value):
         return {"m": _zeros(value), "v": _zeros(value)}
 
-    def _update_with_key(self, key, p, g, slots, lr, step):
+    def _update_with_key(self, key, p, g, slots, lr, step, group=None):
         wd = self._wd
         if self._exclude_fn is not None and self._exclude_fn(key):
             wd = 0.0
@@ -529,7 +561,7 @@ class Lamb(Optimizer):
         mhat = m / (1 - torch.pow(b1, t))
         vhat = v / (1 - torch.pow(b2, t))
         r = mhat / (vhat.sqrt() + self._epsilon) + wd * p
-        p_norm, r_norm = _norm(p), _norm(r)
+        p_norm, r_norm = _norm(p, group), _norm(r, group)
         trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                             1.0)
         return p - lr * trust * r, {"m": m, "v": v}
@@ -539,7 +571,6 @@ class Lars(Momentum):
     """LARS momentum: a local learning rate from the ratio of the weight's
     and the gradient's norms; keys holding one of
     ``exclude_from_weight_decay``'s strings take no decay."""
-    _elementwise = False
 
     def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, parameters=None, grad_clip=None,
@@ -551,11 +582,11 @@ class Lars(Momentum):
         self._exclude_list = list(exclude_from_weight_decay or [])
         self._eps = epsilon
 
-    def _update_with_key(self, key, p, g, slots, lr, step):
+    def _update_with_key(self, key, p, g, slots, lr, step, group=None):
         wd = self._lars_wd
         if any(sub in str(key) for sub in self._exclude_list):
             wd = 0.0
-        p_norm, g_norm = _norm(p), _norm(g)
+        p_norm, g_norm = _norm(p, group), _norm(g, group)
         local_lr = torch.where(
             (p_norm > 0) & (g_norm > 0),
             lr * self._lars_coeff * p_norm /

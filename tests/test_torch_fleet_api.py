@@ -3,8 +3,8 @@ port, against the JAX package's.
 
 In this process (a world of one rank): ``DistributedStrategy`` and
 ``HybridConfig`` field by field, ``fleet.init``'s degrees,
-``distributed_model``'s dispatch (``TensorParallel`` and
-``PipelineParallel`` raise naming ROADMAP item 15), ``ShardingParallel``'s
+``distributed_model``'s dispatch (``TensorParallel``, ``PipelineParallel``
+of a ``PipelineLayer``), ``ShardingParallel``'s
 stage-3 specs, ``HybridParallelOptimizer`` (a trainer drives its inner
 optimizer: bit-equal to the bare one), ``group_sharded_parallel``'s levels
 and errors and ``save_group_sharded_model`` (the reference's
@@ -90,12 +90,20 @@ def test_distributed_model_dispatch():
                       DataParallel)
     sp = _fleet_with((1, 1, 2, 1)).distributed_model(m)
     assert isinstance(sp, ShardingParallel) and sp.stage == 1
-    for dims, cls in (((1, 1, 1, 2), TensorParallel),
-                      ((1, 2, 1, 1), PipelineParallel)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            _fleet_with(dims).distributed_model(m)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            cls(m)
+    tp = _fleet_with((1, 1, 1, 2)).distributed_model(m)
+    assert isinstance(tp, TensorParallel) and tp._layers is m
+    assert [k for k, _ in tp.named_parameters()] == \
+        [k for k, _ in m.named_parameters()]
+    # the pipeline wraps a PipelineLayer only, as the reference's
+    with pytest.raises(TypeError, match="PipelineLayer"):
+        _fleet_with((1, 2, 1, 1)).distributed_model(m)
+    from paddle_tpu_torch.distributed.meta_parallel import (LayerDesc,
+                                                            PipelineLayer)
+    pl = PipelineLayer([LayerDesc(nn.Linear, 4, 4),
+                        LayerDesc(nn.Linear, 4, 4)], num_stages=2)
+    pp = _fleet_with((1, 2, 1, 1)).distributed_model(pl)
+    assert isinstance(pp, PipelineParallel) and pp.num_stages == 2
+    assert pp.schedule == "gpipe" and pp.accumulate_steps == 1
 
 
 def test_sharding_parallel_stage3_specs_equal_the_reference():

@@ -273,14 +273,18 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu():
                                     dict(integrity_check_every=5),
                                     dict(mesh_axis="sep")])
 def test_trainer_options_that_wait_raise(kwargs):
-    """What still waits in ROADMAP.md raises there: the ``pipe``,
-    ``model`` and ``sep`` mesh axes and pipeline micro-batches (data
-    parallelism, the grad_sync policies and the loss scaler are ported:
-    ``test_trainer_options_ported_since_build``). The integrity check and
-    ZeRO are ported too; their cases now run the option: five steps, the
-    fifth a check step, the only one; a ZeRO stage on a mesh of one rank,
-    where nothing splits (as in the reference; ``test_torch_zero.py``
-    holds the stages over 2 and 4 ranks)."""
+    """Every option of this list is ported now; each case runs it (data
+    parallelism, the grad_sync policies and the loss scaler:
+    ``test_trainer_options_ported_since_build``). The integrity check:
+    five steps, the fifth a check step, the only one; a ZeRO stage on a
+    mesh of one rank, where nothing splits (as in the reference;
+    ``test_torch_zero.py`` holds the stages over 2 and 4 ranks);
+    ``micro_batches`` on a model that is no pipeline is unused, as in the
+    reference; a ``model`` or ``sep`` axis is taken (a GPT of
+    ``tensor_parallel=False`` holds no slice; ``sep`` joins the gradient
+    mean), and a ``pipe`` axis needs a ``PipelineParallel`` model. These
+    axes' runs over 2 and 4 ranks are ``test_torch_tensor_parallel.py``,
+    ``test_torch_pipeline.py`` and ``test_torch_ring_attention.py``."""
     from paddle_tpu_torch.distributed.mesh import Mesh
     _, port = _pair()
     kwargs = dict(kwargs)
@@ -302,11 +306,28 @@ def test_trainer_options_that_wait_raise(kwargs):
         assert tr.last_fingerprints.shape == (len(tr._integrity_entries),)
         assert tr.consume_divergence() == []
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "mesh_axis" in kwargs:
-            kwargs["mesh"] = Mesh({kwargs.pop("mesh_axis"): 2})
-        ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
-                        lambda out, _l: out, device="cpu", **kwargs)
+    if "micro_batches" in kwargs:
+        tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                             lambda out, _l: out, device="cpu", **kwargs)
+        assert tr.pp is None and tr.micro_batches == 2
+        assert np.isfinite(float(tr.train_step(_batch(), 0.0)))
+        return
+    axis = kwargs.pop("mesh_axis")
+    mesh = Mesh({axis: 2})
+    if axis == "pipe":
+        with pytest.raises(ValueError, match="PipelineParallel"):
+            ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                            lambda out, _l: out, device="cpu", mesh=mesh)
+        return
+    tr = ParallelTrainer(_port_loss_layer(port), AdamW(3e-4),
+                         lambda out, _l: out, device="cpu", mesh=mesh)
+    assert all(not s for s in tr.own_splits.values())
+    if axis == "sep":
+        assert tr.reduce_axes == ("data", "sharding", "sep")
+        assert (tr.n_reduce, tr.n_batch) == (2, 1)
+    else:
+        assert tr.reduce_axes == ("data", "sharding")
+        assert tr._flag_axes == ("model",)
 
 
 @pytest.mark.parametrize("kwargs,policy", [
@@ -343,8 +364,25 @@ def test_adamw_decay_selection_waits():
 
 
 def test_unported_paths_raise_and_auto_counts_the_fallback():
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        GPTForPretraining(tensor_parallel=True, **gpt_tiny())
+    """``tensor_parallel=True`` builds (at one model rank every leaf is
+    whole: the same logits as the dense model on the same weights, and
+    ``loss`` is the mean cross entropy); its ``fused_head_loss`` raises,
+    as the reference's; ``"auto"`` off the card counts a fallback."""
+    cfg = gpt_tiny(attn_dropout=0.0, hidden_dropout=0.0)
+    tp = GPTForPretraining(tensor_parallel=True, **cfg)
+    dense = GPTForPretraining(tensor_parallel=False, **cfg)
+    dense.set_state_dict_from_numpy(
+        {k: v.detach().numpy() for k, v in tp.named_state().items()})
+    ids, lbl = (torch.from_numpy(a[:, :32]) for a in _batch())
+    logits = tp(ids)
+    torch.testing.assert_close(logits, dense(ids), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        tp.loss(logits, lbl),
+        torch.nn.functional.cross_entropy(logits.reshape(-1, 1024),
+                                          lbl.reshape(-1).long()),
+        rtol=1e-6, atol=1e-6)
+    with pytest.raises(RuntimeError, match="tensor parallelism"):
+        tp.fused_head_loss(ids, lbl)
     h = torch.randn(4, 8)
     w = torch.randn(8, 16)
     y = torch.tensor([1, 2, 3, -100])

@@ -14,7 +14,8 @@
   because they share the spawn).
 - the groups ``build_mesh`` asks ``torch.distributed`` for on a mesh of 8
   with three live axes, recorded in this process: each axis's comm
-  lists and ``("data", "sharding")``'s, in that order, and no other set.
+  lists, then those of each pair of axes (``("data", "sharding")`` first),
+  in ``itertools.combinations`` order, and not the whole mesh's.
 """
 import itertools
 import pickle
@@ -160,10 +161,16 @@ def test_build_mesh_creates_the_axis_groups_and_data_by_sharding(
     topo = ref_mesh.CommunicateTopology(mesh.AXES_ORDER, dims)
     want = [c for ax in ("data", "sharding", "model")
             for c in topo.get_comm_list(ax)]
-    want += [[0, 1, 2, 3, 4, 5, 6, 7][o::2] for o in (0, 1)]
+    # a pair of axes: the ranks that share the third axis's coordinate
+    # (data, sharding, model: strides 4, 2, 1)
+    want += [[0, 1, 2, 3, 4, 5, 6, 7][o::2] for o in (0, 1)]      # d, s
+    want += [[o, o + 1, o + 4, o + 5] for o in (0, 2)]            # d, m
+    want += [[o, o + 1, o + 2, o + 3] for o in (0, 4)]            # s, m
     assert made == want
     assert m.rank_in(("data", "sharding")) == 2 and \
         m.group_of(("data", "sharding")) is not None
-    with pytest.raises(ValueError, match="no process group"):
-        m.group_of(("sharding", "model"))
+    assert m.rank_in(("sharding", "model")) == 1 and \
+        m.group_of(("sharding", "model")) is not None
+    # the whole mesh is the default group, made by no new_group
+    assert m.group_of(("data", "sharding", "model")) is d.group.WORLD
     mesh.set_mesh(None)

@@ -66,7 +66,7 @@ def _run(scenario, n, tmp_path_factory):
 
 
 def _chunk(full, piece):
-    shape, dim, index, count, row, _ = piece
+    shape, dim, index, count, row = piece[:5]
     if row:
         return full[index]
     return np.split(full, count, axis=dim)[index]
