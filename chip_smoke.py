@@ -3991,6 +3991,393 @@ def ring_on_one_card(fa, ra, b, s, h, d):
     return res
 
 
+# -- vision: ResNet-50 ---------------------------------------------------------
+
+RESNET_LOSS_RTOL = (1e-4, 1e-3)     # step 0, later steps (train_golden's)
+RESNET_GRAD_NORM_RTOL = 2e-3
+RESNET_UPDATE_RTOL = 1e-2
+
+
+def _ce(nn):
+    return lambda logits, y: nn.functional.cross_entropy(logits, y)
+
+
+def resnet_golden(nn, optim, engine, mesh_mod, models):
+    """(v1) ResNet-50 at full width, float32 (TF32 off), the golden's
+    batch and optimizer, three ``train_step``s against
+    ``resnet_golden.json``: the step-0 loss (rtol 1e-4) and gradient norm
+    (``RESNET_GRAD_NORM_RTOL``), the later losses (1e-3) and the tracked
+    parameters' update norms (``RESNET_UPDATE_RTOL``; their sums beside
+    the golden's, unchecked)."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "resnet_golden.json")) as f:
+        gold = json.load(f)
+    cfg, rw = gold["config"], gold["recipe"]["weights"]
+    check(cfg["model"] == "resnet50" and cfg["dtype"] == "float32",
+          f"golden config {cfg}")
+    model = models.resnet50()
+    names_shapes = [(n, tuple(t.shape)) for n, t in
+                    model.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port state names/shapes differ from the ResNet golden")
+    w = recipes.resnet_weights(names_shapes, rw["seed"], rw["conv_std"],
+                               rw["linear_std"])
+    model.set_state_dict_from_numpy(w)
+    x, y = recipes.resnet_data(gold["recipe"]["data"]["seed"], cfg["batch"],
+                               cfg["image"], cfg["num_classes"])
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    opt = gold["optimizer"]
+    trainer = engine.ParallelTrainer(
+        model, optim.Momentum(opt["learning_rate"], momentum=opt["momentum"]),
+        _ce(nn), mesh=mesh_mod.build_mesh({"data": 1}))
+    loss0 = _ce(nn)(model(x), y)
+    grads = torch.autograd.grad(loss0, list(trainer.params.values()))
+    gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
+    loss0 = loss0.item()
+    del grads
+    ms = []
+    losses = []
+    for _ in gold["losses"]:
+        loss, t = _timed_step(trainer, x, y)
+        losses.append(loss)
+        ms.append(t)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    check(rel(loss0, gold["losses"][0]) <= RESNET_LOSS_RTOL[0],
+          f"v1 step-0 loss {loss0} vs golden {gold['losses'][0]}")
+    check(rel(gnorm, gold["step0_grad_norm"]) <= RESNET_GRAD_NORM_RTOL,
+          f"v1 step-0 grad norm {gnorm} vs {gold['step0_grad_norm']}")
+    check(rel(losses[0], gold["losses"][0]) <= RESNET_LOSS_RTOL[0],
+          f"v1 train_step 0 loss {losses[0]} vs {gold['losses'][0]}")
+    for i in range(1, len(losses)):
+        check(rel(losses[i], gold["losses"][i]) <= RESNET_LOSS_RTOL[1],
+              f"v1 loss after {i} updates {losses[i]} vs "
+              f"{gold['losses'][i]}")
+    after = {}
+    for k, g in gold["after"].items():
+        p = trainer.get_param(k).double().cpu().numpy()
+        upd = float(np.linalg.norm(p - w[k].astype(np.float64)))
+        check(rel(upd, g["update_norm"]) <= RESNET_UPDATE_RTOL,
+              f"v1 {k}: update norm {upd} vs golden {g['update_norm']}")
+        after[k] = {"update_norm": upd, "golden_update_norm":
+                    g["update_norm"], "sum": float(p.sum()),
+                    "golden_sum": g["sum"]}
+    check(trainer.skipped_steps() == 0, "v1: a step skipped")
+    return {"loss0": loss0, "grad_norm": gnorm, "losses": losses,
+            "golden_losses": gold["losses"],
+            "golden_grad_norm": gold["step0_grad_norm"],
+            "loss_rel_err": [rel(a, b) for a, b in
+                             zip([loss0] + losses, gold["losses"][:1]
+                                 + gold["losses"])],
+            "grad_norm_rel_err": rel(gnorm, gold["step0_grad_norm"]),
+            "after": after, "ms_per_step": ms, "batch": cfg["batch"],
+            "image": cfg["image"], "lr": opt["learning_rate"]}
+
+
+def _group_vision(name):
+    low = name.lower()
+    if any(k in low for k in ("conv", "xmma", "implicit", "cudnn", "winograd",
+                              "dgrad", "wgrad", "fprop")):
+        return "convolutions (cuDNN)"
+    if "gemm" in low or low.startswith("nvjet") or "cutlass" in low:
+        return "GEMMs"
+    if "reduce" in low or "welford" in low:
+        return "reductions (batch-norm statistics, loss)"
+    if "pool" in low:
+        return "pooling"
+    return "elementwise and the rest"
+
+
+def profile_steps(trainer, batch, group, steps=3):
+    """Device busy share and kernel time by ``group(name)`` over ``steps``
+    steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    inputs, lbls = batch
+    float(trainer.train_step(inputs, lbls))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = trainer.train_step(inputs, lbls)
+        float(loss)
+        wall = time.perf_counter() - t0
+    report, rows = _profile_report(prof, wall)
+    check(rows, "the profiler saw no kernel on the card")
+    groups = {}
+    for us, name, n in rows:
+        ms, launches = groups.get(group(name), (0.0, 0))
+        groups[group(name)] = (ms + us / 1e3 / steps, launches + n)
+    return dict(steps=steps, by_group={
+        k: {"ms_per_step": v[0], "launches_per_step": v[1] / steps}
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        **report)
+
+
+def resnet_main(nn, optim, engine, mesh_mod, models, framework, batch=128,
+                size=224, warmup=2, iters=10):
+    """(v2) bench_resnet50's configuration: ``resnet50()`` (weights from
+    seed 0), ``model.bfloat16()`` (parameters and running statistics),
+    ``Momentum(0.1, momentum=0.9)``, ``ParallelTrainer`` with
+    ``cross_entropy`` on a data mesh of one, one fixed batch of bfloat16
+    3x224x224 images (NCHW) and int32 labels from RandomState(0)."""
+    framework.seed(0)
+    model = models.resnet50()
+    model.bfloat16()
+    trainer = engine.ParallelTrainer(
+        model, optim.Momentum(0.1, momentum=0.9), _ce(nn),
+        mesh=mesh_mod.build_mesh({"data": 1}))
+    check(all(b.dtype == torch.bfloat16 for b in
+              trainer.state["buffers"].values()),
+          "bfloat16() left a running statistic in another dtype")
+    rs = np.random.RandomState(0)
+    imgs = torch.from_numpy(rs.randn(batch, 3, size, size).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    lbls = torch.from_numpy(rs.randint(0, 1000, (batch,)).astype(
+        np.int32)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(imgs, lbls).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step(imgs, lbls) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses)), f"v2 losses {losses}")
+    check(trainer.skipped_steps() == 0, "v2: a step skipped")
+    stats = trainer.state["buffers"]
+    moved = float(stats["bn1._variance"].float().sub(1).abs().max())
+    check(moved > 0, "v2: the running statistics did not move")
+    prof = profile_steps(trainer, (imgs, lbls), _group_vision)
+    del trainer, model, imgs
+    torch.cuda.empty_cache()
+    return {"batch": batch, "image": size, "dtype": "bfloat16",
+            "layout": "NCHW", "warmup": warmup, "iters": iters,
+            "losses": losses, "losses_fell": losses[-1] < losses[0],
+            "skipped": 0, "images_per_s": batch * iters / dt,
+            "ms_per_step": dt / iters * 1e3,
+            "max_memory_allocated_gb": peak,
+            "bn1_variance_moved": moved, "profile": prof}
+
+
+def vision_phase(fa, fc, nn, optim, engine, framework):
+    """``vision``: (v1) the ResNet-50 golden, (v2) bench_resnet50's main
+    path; no kernel of the port runs on this path (the reference's
+    convolutions, pooling and batch norm are XLA ops, no Pallas kernel):
+    the six training kernels' counts stay 0."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.vision import models
+    zero_counts(fa, fc)
+    out = {"v1_golden": resnet_golden(nn, optim, engine, mesh_mod, models)}
+    torch.cuda.empty_cache()
+    out["v2_resnet50_b128"] = resnet_main(nn, optim, engine, mesh_mod,
+                                          models, framework)
+    out["launches"] = check_path(fa, fc, "vision", 0, 0, 0)
+    return out
+
+
+# -- experts, the sharded lookup, LocalSGD -------------------------------------
+
+MOE_TOL = 1e-5          # rtol; atol 1e-5 of the largest element
+
+
+def _close(got, want, what, tol=MOE_TOL):
+    got, want = got.double().cpu(), want.double().cpu()
+    err = float((got - want).abs().max())
+    bar = tol * max(1.0, float(want.abs().max()))
+    check(torch.allclose(got, want, rtol=tol, atol=bar),
+          f"{what}: max abs error {err} over the bar")
+    return err
+
+
+def _moe_fwd_bwd(layer, x, r):
+    x = x.detach().requires_grad_(True)
+    y = layer(x)
+    grads = torch.autograd.grad((y * r).sum(), [x] + list(layer.parameters()))
+    return y.detach(), grads
+
+
+def moe_e1(incubate, tokens=(8, 1024)):
+    """(e1) ``MoELayer(768, 3072, num_experts=8)`` with every expert local:
+    the golden (2 x 8 tokens) within 1e-5; 8 x 1024 tokens in float32 (TF32
+    off) held against the port's CPU run of the same weights and tokens
+    (output, aux loss, input and parameter gradients within ``MOE_TOL``),
+    and in bfloat16 (finite, against float32 in relative L2); forward and
+    forward+backward device ms of each, and the share of a bfloat16
+    forward+backward's device time outside the GEMMs (the routing,
+    dispatch and combine)."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "moe_golden.json")) as f:
+        gold = json.load(f)
+    cfg = gold["config"]
+    check(cfg == {"d_model": 768, "d_hidden": 3072, "num_experts": 8,
+                  "capacity_factor": 2.0}, f"MoE golden config {cfg}")
+    layer = incubate.MoELayer(**cfg)
+    names_shapes = [(n, tuple(t.shape)) for n, t in
+                    layer.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port MoE names/shapes differ from the golden")
+    w = recipes.moe_weights(names_shapes, gold["recipe"]["weights"]["seed"])
+    layer.set_state_dict_from_numpy(w)
+    cpu_layer = incubate.MoELayer(**cfg)
+    cpu_layer.set_state_dict_from_numpy(w)
+    layer.cuda()
+    xg = torch.from_numpy(recipes.moe_tokens(gold["recipe"]["data"]["seed"],
+                                             gold["tokens"]))
+    with torch.no_grad():
+        yg = layer(xg.cuda())
+    out = {"golden_err": _close(yg, torch.tensor(gold["out"]).reshape(
+        yg.shape), "e1 golden")}
+    check(abs(float(layer.aux_loss) - gold["aux_loss"]) <=
+          MOE_TOL * max(1.0, abs(gold["aux_loss"])), "e1 golden aux_loss")
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.randn(*tokens, 768).astype(np.float32))
+    r = torch.from_numpy(rs.randn(*tokens, 768).astype(np.float32))
+    y_cpu, g_cpu = _moe_fwd_bwd(cpu_layer, x, r)
+    aux_cpu = float(cpu_layer.aux_loss)
+    xc, rc = x.cuda(), r.cuda()
+    y, g = _moe_fwd_bwd(layer, xc, rc)
+    errs = {"out": _close(y, y_cpu, "e1 out f32")}
+    names = ["x"] + [n for n, _ in layer.named_parameters()]
+    for n, a, b in zip(names, g, g_cpu):
+        errs[f"grad_{n}"] = _close(a, b, f"e1 grad {n} f32")
+    check(abs(float(layer.aux_loss) - aux_cpu) <= MOE_TOL, "e1 aux f32")
+    out["f32_vs_cpu_max_abs_err"] = errs
+    cap = layer.capacity(tokens[0] * tokens[1])
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lay = layer.to(dtype)
+        xd, rd = xc.to(dtype), rc.to(dtype)
+        with torch.no_grad():
+            fwd = time_ms(lambda: lay(xd), reps=10, warmup=2)
+        both = time_ms(lambda: _moe_fwd_bwd(lay, xd, rd), reps=10, warmup=2)
+        # the experts' FLOPs: 2 GEMMs of E*cap rows, forward; twice that
+        # more in the backward
+        flops = 2 * 2 * cfg["num_experts"] * cap * 768 * 3072
+        timing[str(dtype).split(".")[-1]] = {
+            "fwd_ms": fwd, "fwd_bwd_ms": both,
+            "expert_tflops_fwd": flops / fwd / 1e9}
+    yb, _ = _moe_fwd_bwd(layer, xc.bfloat16(), rc.bfloat16())
+    check(bool(torch.isfinite(yb).all()), "e1 bf16 output not finite")
+    rel_l2 = float((yb.float() - y).norm() / y.norm())
+    check(rel_l2 < 0.1, f"e1 bf16 output {rel_l2} off float32 in L2")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _moe_fwd_bwd(layer, xc.bfloat16(), rc.bfloat16())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report, rows = _profile_report(prof, wall)
+    check(rows, "the profiler saw no kernel of the MoE on the card")
+    gemm = sum(us for us, name, _ in rows if "gemm" in name.lower() or
+               name.startswith("nvjet") or "cutlass" in name.lower())
+    total = sum(us for us, _, _ in rows)
+    out.update(timing=timing, capacity=cap, tokens=list(tokens),
+               bf16_rel_l2_vs_f32=rel_l2,
+               bf16_outside_gemm_share=(total - gemm) / total,
+               bf16_profile=report)
+    del layer, cpu_layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def lookup_e2(sharded_embedding, mesh, fields=26, rows=100_000, dim=16,
+              batch=4096):
+    """(e2) ``alltoall_lookup`` at one rank on heter_ctr's table (26 fields
+    x 100,000 rows x 16 float32, ids ``zipf(1.3)`` of a 4096 x 26 batch):
+    a cap that holds every id and one that overflows; the forward bit for
+    bit the dense gather, the table's gradient within 1e-5 of the dense
+    gather's (``index_add_``); ms of a lookup."""
+    rs = np.random.RandomState(0)
+    table = torch.from_numpy(rs.randn(fields * rows, dim).astype(
+        np.float32)).cuda()
+    u = rs.zipf(1.3, size=(batch, fields))
+    ids = ((u % rows) + np.arange(fields)[None, :] * rows).reshape(-1)
+    ids = torch.from_numpy(ids.astype(np.int64)).cuda()
+    n = ids.numel()
+    coef = torch.from_numpy(rs.randn(n, 1).astype(np.float32)).cuda()
+    dense = table[ids]
+    want = torch.zeros_like(table).index_add_(0, ids, coef.expand(n, dim))
+    out = {}
+    for name, cap in (("fits", n), ("overflows", n // 2)):
+        t = table.clone().requires_grad_(True)
+        got = sharded_embedding.alltoall_lookup(t, ids, "data", cap,
+                                                table.shape[0], mesh=mesh)
+        check(torch.equal(got, dense), f"e2 lookup ({name}) != dense gather")
+        (g,) = torch.autograd.grad((got * coef).sum(), [t])
+        err = _close(g, want, f"e2 lookup grad ({name})")
+        with torch.no_grad():
+            ms = time_ms(lambda: sharded_embedding.alltoall_lookup(
+                table, ids, "data", cap, table.shape[0], mesh=mesh),
+                reps=10, warmup=2)
+        out[name] = {"cap": cap, "grad_max_abs_err": err, "ms": ms}
+    out.update(ids=n, dense_gather_ms=time_ms(lambda: table[ids], reps=10,
+                                              warmup=2))
+    return out
+
+
+def localsgd_e2(nn, optim, engine, meta_parallel, mesh, steps=4):
+    """(e2) ``LocalSGDTrainer`` at one rank on the NCCL mesh: k 1 fp32 bit
+    for bit the plain ``ParallelTrainer`` (the mean over one rank is the
+    identity); k 2 int8 runs with finite, falling losses."""
+    from paddle_tpu_torch.framework import seed
+
+    def model():
+        seed(0)
+        return nn.Sequential(nn.Linear(768, 3072), nn.GELU(),
+                             nn.Linear(3072, 768))
+
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(64, 768).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.randn(64, 768).astype(np.float32)).cuda()
+    mse = lambda o, t: ((o - t) ** 2).mean()  # noqa: E731
+    plain = engine.ParallelTrainer(model(), optim.Momentum(0.05), mse,
+                                   mesh=mesh)
+    local = meta_parallel.LocalSGDTrainer(model(), optim.Momentum(0.05), mse,
+                                          mesh=mesh)
+    lp = [plain.train_step(x, y).item() for _ in range(steps)]
+    ll = [local.train_step(x, y).item() for _ in range(steps)]
+    check(lp == ll and all(torch.equal(plain.params[k], local.params[k])
+                           for k in plain.params),
+          f"e2 LocalSGD k1 != ParallelTrainer: {ll} vs {lp}")
+    q = meta_parallel.LocalSGDTrainer(model(), optim.Momentum(0.05), mse,
+                                      mesh=mesh, k_steps=2,
+                                      param_sync="int8")
+    lq = [q.train_step(x, y).item() for _ in range(steps)]
+    check(all(np.isfinite(lq)) and lq[-1] < lq[0], f"e2 int8 losses {lq}")
+    return {"k1_losses": ll, "k1_bit_equal_plain": True,
+            "int8_k2_losses": lq}
+
+
+def experts_phase(fa, fc, nn, optim, engine):
+    """``experts``: (e1) the MoE layer on one card; (e2) the lookup and
+    LocalSGD at one rank over NCCL (``dp_setup``). A mesh of one rank
+    issues no collective (its groups are the identity); the collectives
+    are held on gloo (the CPU tests) and on four cards
+    (``tests/torch_ep_cards.py``). No kernel of the port runs here."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.distributed import meta_parallel
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.ops import sharded_embedding
+    zero_counts(fa, fc)
+    mesh_mod.set_mesh(None)
+    out = {"e1_moe": moe_e1(incubate)}
+    nccl, _, _ = dp_setup()
+    try:
+        out["e2_lookup"] = lookup_e2(sharded_embedding, nccl)
+        out["e2_localsgd"] = localsgd_e2(nn, optim, engine, meta_parallel,
+                                         nccl)
+        out["e2_backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = check_path(fa, fc, "experts", 0, 0, 0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -4398,6 +4785,21 @@ def run(work) -> int:
     rep = hybrid_phase(fa, fc, nn, gpt, optim, framework)
     path_launches["hybrid"] = rep["launches"]
     emit(phase="hybrid", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15i. ResNet-50: the golden in float32, then bench_resnet50's step at
+    # batch 128 in bfloat16
+    t0 = time.perf_counter()
+    rep = vision_phase(fa, fc, nn, optim, engine, framework)
+    path_launches["vision"] = rep["launches"]
+    emit(phase="vision", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15j. experts on one card, the sharded lookup and LocalSGD at one rank
+    t0 = time.perf_counter()
+    rep = experts_phase(fa, fc, nn, optim, engine)
+    path_launches["experts"] = rep["launches"]
+    emit(phase="experts", card=card, seconds=time.perf_counter() - t0, **rep)
     torch.cuda.empty_cache()
 
     # 15b. the same steps with dh and dw on the staged route: how far two

@@ -33,10 +33,16 @@ resilient training runtime (``resilience``); and the serving tier:
 export and load (``jit``: ``torch.export`` programs), the predictor API
 with int8/int4 weight quantization (``inference``, ``inference.quant``),
 the executor cache and the self-healing serving fleet
-(``inference.executor_cache``, ``inference.fleet``).
+(``inference.executor_cache``, ``inference.fleet``); hybrid parallelism
+(ZeRO, tensor, pipeline and context parallelism); the mixture of experts
+with expert parallelism (``incubate``), the sharded embedding lookup
+(``ops.sharded_embedding``) and LocalSGD
+(``distributed.meta_parallel.localsgd``); and the ResNet family
+(``vision``) with the convolutions, pooling, batch norm and activations
+of ``nn``.
 """
 __version__ = "0.1.0"
 
-__all__ = ["amp", "distributed", "framework", "framework_io", "inference",
-           "jit", "nn", "ops", "optimizer", "profiler", "regularizer",
-           "resilience", "telemetry", "text"]
+__all__ = ["amp", "distributed", "framework", "framework_io", "incubate",
+           "inference", "jit", "nn", "ops", "optimizer", "profiler",
+           "regularizer", "resilience", "telemetry", "text", "vision"]

@@ -25,6 +25,18 @@ parameters in place, where the reference keeps donated copies. A
 parameter that gets no gradient is left as it was and takes no part in
 the exchange.
 
+Buffers a training forward replaces (batch norm's running statistics,
+named by a layer's ``_stat_buffers``) keep the forward's update, the
+eager layer's behaviour; a step the NaN guard skips puts them back with
+the parameters. Batch statistics (layers with ``_stat_sync_axes``, the
+axes they already agree over) come from each rank's slice of the batch:
+after every step the ones the forward replaced are averaged over the
+batch's other axes (one float32 all-reduce), so every replica keeps the
+same running statistics, which the checkpoint writes once. The
+reference's trainer drops these updates (its ``local_loss`` discards the
+new buffers, so its running statistics stay at their initial values): an
+Oracle caveat (ROADMAP.md).
+
 **Data parallelism** (``mesh=build_mesh({"data": n})``). One process
 drives each card, the PyTorch idiom, where the reference has one
 controller for all chips; ``env.init_parallel_env`` starts the process
@@ -436,6 +448,8 @@ class ParallelTrainer:
         self.device = resolve_device(device)
         self.pp = _pipeline_of(model)
         self.mesh = mesh if mesh is not None else require_mesh()
+        self._token_axes = {getattr(m, "token_axis", None)
+                            for m in model.modules()} - {None}
         self._check_mesh(self.mesh)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -472,6 +486,10 @@ class ParallelTrainer:
 
         self.params = OrderedDict((n, p) for n, p in model.named_parameters()
                                   if p.requires_grad)
+        # the buffers a training forward replaces (batch norm's running
+        # statistics): put back when the NaN guard skips the step
+        self._stat_owners = [(m, b) for m in model.modules()
+                             for b in getattr(m, "_stat_buffers", ())]
         self.integrity_check_every = max(0, int(getattr(
             model, "integrity_check_every", integrity_check_every)))
         self._steps_run = 0
@@ -489,6 +507,12 @@ class ParallelTrainer:
                 f"ParallelTrainer: the mesh's process group is {backend} but "
                 f"the trainer runs on {self.device}; use "
                 f"{backend_for(self.device)} for it")
+        for ax in self._token_axes:
+            if mesh.shape[ax] > 1:
+                raise ValueError(
+                    f"ParallelTrainer: a layer takes its own tokens on each "
+                    f"rank of {ax!r} (split_tokens=True), but the trainer "
+                    f"gives every rank of it the same batch")
         if mesh.shape["pipe"] > 1 and self.pp is None:
             raise ValueError(
                 f"ParallelTrainer: a pipe axis of {mesh.shape['pipe']} needs "
@@ -937,6 +961,7 @@ class ParallelTrainer:
                              f"by accumulate_steps={k}")
         names = list(self.params)
         comm_err0 = self.comm_err
+        stats0 = [(m, b, getattr(m, b)) for m, b in self._stat_owners]
         self._gather_params()
         if k > 1:
             # gradient merge: the mean of K sequential chunks' losses and
@@ -957,7 +982,7 @@ class ParallelTrainer:
         if grad_taint is not None and tainted is not None and \
                 grads[tainted] is not None:
             grads[tainted] = grads[tainted] * grad_taint
-        self._update(grads, lr, comm_err0)
+        self._update(grads, lr, comm_err0, stats0)
         self._free_params()
         if ce and self._steps_run % ce == 0:
             self._integrity_check()
@@ -973,11 +998,12 @@ class ParallelTrainer:
         return loss
 
     @torch.no_grad()
-    def _update(self, grads, lr, comm_err0):
+    def _update(self, grads, lr, comm_err0, stats0=()):
         """The optimizer on each leaf's update view (a ZeRO slice or the
         whole parameter), the NaN guard, and the new values written back:
         stage-3 slices stay, other slices are all-gathered over
-        ``sharding``."""
+        ``sharding``. ``stats0``: (module, name, tensor) of each statistic
+        buffer before the forward, put back on a skipped step."""
         ud = self._update_dims
         old = OrderedDict((k, self._update_view(k)) for k in self.params)
         upd = {}
@@ -990,6 +1016,7 @@ class ParallelTrainer:
                  if upd.get(k) is not None} or None
         new_params, new_opt = self._opt.apply_gradients(
             old, upd, self.opt_state, lr=lr, split=split)
+        self._mean_batch_stats(stats0)
         if self.nan_guard or self.amp is not None:
             finite = all_finite(g for g in upd.values() if g is not None)
             flag_axes = self.mesh.live(
@@ -1004,6 +1031,10 @@ class ParallelTrainer:
                               for n, v in new_params.items()}
                 new_opt = _keep(finite, new_opt, self.opt_state)
                 self.comm_err = _keep(finite, self.comm_err, comm_err0)
+                for m, b, old_b in stats0:
+                    new_b = getattr(m, b)
+                    if new_b is not old_b:
+                        setattr(m, b, torch.where(finite, new_b, old_b))
                 self.skipped += (~finite).to(torch.int32)
             if self.amp is not None:
                 self.amp = self.scaler.update_scale_state(self.amp, ~finite)
@@ -1017,6 +1048,28 @@ class ParallelTrainer:
             else:
                 p.copy_(v)
         self.opt_state = new_opt
+
+    def _mean_batch_stats(self, stats0):
+        """The batch statistics this step's forward replaced, averaged over
+        the live batch axes each does not already agree over (one float32
+        all-reduce a set of axes)."""
+        by_axes = {}
+        for m, b, old_b in stats0:
+            synced = getattr(m, "_stat_sync_axes", None)
+            new_b = getattr(m, b)
+            if synced is None or new_b is old_b:
+                continue
+            axes = self.mesh.live(tuple(ax for ax in self.reduce_axes
+                                        if ax not in synced))
+            if axes:
+                by_axes.setdefault(axes, []).append((m, b, new_b))
+        for axes, owned in by_axes.items():
+            flat = torch.cat([v.reshape(-1).float() for _, _, v in owned])
+            dist.all_reduce(flat, group=self.mesh.group_of(axes))
+            flat = div_const(flat, self.mesh.axes_size(axes))
+            parts = flat.split([v.numel() for _, _, v in owned])
+            for (m, b, v), part in zip(owned, parts):
+                setattr(m, b, part.reshape(v.shape).to(v.dtype))
 
     def _grads(self, names, inputs, labels):
         """(loss, exchanged grads in ``names`` order) of one forward and

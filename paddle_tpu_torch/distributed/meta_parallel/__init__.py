@@ -1,9 +1,11 @@
 """Hybrid-parallel wrappers (reference: ``fleet/meta_parallel/``):
 ``TensorParallel`` (the Megatron layers of ``parallel_layers``),
 ``PipelineParallel`` (GPipe and 1F1B over ``PipelineLayer``),
-``ShardingParallel`` (ZeRO), and the hybrid optimizer and grad scaler."""
+``ShardingParallel`` (ZeRO), the hybrid optimizer and grad scaler, and
+``LocalSGDTrainer``."""
 from .hybrid_optimizer import (HybridParallelGradScaler,  # noqa: F401
                                HybridParallelOptimizer)
+from .localsgd import LocalSGDTrainer  # noqa: F401
 from .parallel_layers.mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelColumnLinearWithGeluFused,
     ParallelCrossEntropy, RowParallelLinear, VocabParallelEmbedding)
@@ -19,4 +21,5 @@ __all__ = ["ShardingParallel", "shard_spec_for", "opt_state_shardings",
            "TensorParallel", "PipelineParallel", "ColumnParallelLinear",
            "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "ParallelColumnLinearWithGeluFused",
-           "LayerDesc", "SharedLayerDesc", "SegmentLayers", "PipelineLayer"]
+           "LayerDesc", "SharedLayerDesc", "SegmentLayers", "PipelineLayer",
+           "LocalSGDTrainer"]

@@ -1,11 +1,20 @@
-"""paddle_tpu_torch.nn.functional — the functionals on the GPT path."""
-from .activation import gelu  # noqa: F401
+"""paddle_tpu_torch.nn.functional — activations, attention, common,
+convolutions, losses, normalization and pooling."""
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _activation
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import dropout, embedding, linear  # noqa: F401
+from .conv import *  # noqa: F401,F403
+from .conv import __all__ as _conv
 from .loss import (cross_entropy, fused_linear_cross_entropy,  # noqa: F401
                    softmax_with_cross_entropy)
-from .norm import layer_norm  # noqa: F401
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
+from .pooling import *  # noqa: F401,F403
+from .pooling import __all__ as _pooling
 
-__all__ = ["gelu", "scaled_dot_product_attention", "dropout", "embedding",
-           "linear", "cross_entropy", "softmax_with_cross_entropy",
-           "fused_linear_cross_entropy", "layer_norm"]
+__all__ = (list(_activation) + ["scaled_dot_product_attention", "dropout",
+                                "embedding", "linear", "cross_entropy",
+                                "softmax_with_cross_entropy",
+                                "fused_linear_cross_entropy"]
+           + list(_conv) + list(_norm) + list(_pooling))

@@ -1,7 +1,8 @@
-"""Weight initializers: ``Constant``, ``Normal`` and ``XavierUniform``.
+"""Weight initializers: ``Constant``, ``Normal``, ``Uniform``,
+``XavierUniform`` and ``KaimingUniform``.
 
-Port of the three of ``paddle_tpu/nn/initializer.py`` that ``Linear``,
-``Embedding``, ``LayerNorm`` and the GPT head use. Each is
+Port of the ones of ``paddle_tpu/nn/initializer.py`` that the port's layers
+use (the convolutions take ``KaimingUniform`` and a ``Uniform`` bias). Each is
 ``init(shape, dtype) -> torch.Tensor`` on the CPU, drawn from the CPU
 generator of ``framework.random`` (``seed`` controls determinism); the
 trainer moves parameters to the card.
@@ -14,7 +15,8 @@ import torch
 
 from ..framework.random import get_generator
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierUniform"]
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierUniform",
+           "KaimingUniform", "initializer_of"]
 
 
 def _fan_in_out(shape):
@@ -62,3 +64,30 @@ class XavierUniform(Initializer):
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
         u = torch.rand(tuple(shape), generator=get_generator("cpu"))
         return (u * (2.0 * limit) - limit).to(dtype)
+
+
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype):
+        u = torch.rand(tuple(shape), generator=get_generator("cpu"))
+        return (self.low + u * (self.high - self.low)).to(dtype)
+
+
+class KaimingUniform(Initializer):
+    def __init__(self, fan_in=None, negative_slope: float = 0.0):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+
+    def __call__(self, shape, dtype):
+        fi = self.fan_in if self.fan_in is not None else _fan_in_out(shape)[0]
+        gain = math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+        return Uniform(-gain * math.sqrt(3.0 / fi),
+                       gain * math.sqrt(3.0 / fi))(shape, dtype)
+
+
+def initializer_of(attr, default):
+    """A layer's ``weight_attr``/``bias_attr`` read as the reference's
+    ``_to_initializer``: an ``Initializer`` is used, anything else (None,
+    a name) leaves the layer's ``default``."""
+    return attr if isinstance(attr, Initializer) else default
