@@ -133,6 +133,10 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12         # bf16 dense tensor cores
 LEAD_CYCLES = 1_000_000          # ~0.5 ms of spinning at the H100's clocks
+# the depth of the GPT-base trainers the analysis phase's planner stages
+# and times (its top three one-card plans): cut to 4 of 12 layers, which
+# keeps each plan's trace and timed steps to a few seconds
+PLAN_LAYERS = 4
 
 SRC = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -393,11 +397,12 @@ def kernel_timing(pa, rs, tq, flush, b=8, dtype=torch.float32, h=12, d=64,
     ln0 = torch.zeros_like(ln)
     empty_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln0),
                        flush=flush, lead=True)
-    elem = kp.element_size()
-    moved = (2 * b * ctx * h * d * elem          # K and V context read once
-             + q.numel() * 4 + tab.numel() * 4 + ln.numel() * 4
-             + b * h * tq * (d + 2) * 4)         # acc, m, l written once
-    flops = 2 * 2 * b * h * tq * ctx * d         # QK^T and PV
+    from paddle_tpu_torch.analysis.cost import paged_work
+    # K and V context read once, q, tables, lens read once, acc, m, l
+    # written once; QK^T and PV (the cost model's price of the node, at
+    # this run's context lengths)
+    flops, moved = paged_work(b, h, tq, ctx, d, kp.element_size(),
+                              tab.numel(), q.element_size())
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
@@ -694,9 +699,10 @@ def _qkv_views(b, s, h, d, seed=0):
 def _fwd_bound(b, h, s, d, e=2):
     """The causal forward's least time on this card: 2 products of
     B*H*S*S*D/2 multiply-adds (2 FLOPs each) against q, k, v read and out
-    written once plus lse."""
-    flops = 2 * b * h * s * s * d
-    moved = 4 * b * s * h * d * e + b * h * s * 4
+    written once plus lse (``analysis.cost.flash_fwd_work``, the cost
+    model's price of the kernel node)."""
+    from paddle_tpu_torch.analysis.cost import flash_fwd_work
+    flops, moved = flash_fwd_work(b, h, s, s, d, e, causal=True)
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     return flops, moved, max(t_ops, t_bytes), \
@@ -772,12 +778,14 @@ def flash_bwd_routes_timing(fa, flush, b, h, s, d):
         o_lib, (qt, kt, vt), dot, retain_graph=True), flush=flush)
     lib_fwdbwd = time_ms(lambda: torch.autograd.grad(
         sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), flush=flush)
+    from paddle_tpu_torch.analysis.cost import flash_bwd_work
     e = q.element_size()
     tensor = b * s * h * d * e                 # one (B, S, H, D) tensor
     stat = b * h * s * 4                       # lse or delta, float32
     prod = b * h * s * s * d                   # one causal S x S x D product
-    work = {"flash_dq": (3 * prod, 4 * tensor + 2 * stat + tensor),
-            "flash_dkv": (4 * prod, 4 * tensor + 2 * stat + 2 * tensor)}
+    # the cost model's prices of the two kernel nodes: 3 and 4 products
+    work = {"flash_dq": flash_bwd_work("dq", b, h, s, s, d, e),
+            "flash_dkv": flash_bwd_work("dkv", b, h, s, s, d, e)}
     bwd_ms = ms["flash_dq"] + ms["flash_dkv"]
     scalar_bwd = scalar["flash_dq"] + scalar["flash_dkv"]
     # no library call computes dq alone or dk/dv alone: the backward rows
@@ -1001,9 +1009,10 @@ def sm_count():
 
 def _ce_fwd_work(n, h, v, e):
     """The forward's FLOPs and bytes (hid and w read once, lse and tgt
-    written once, labels read once) and its bound on this card."""
-    flops = 2 * n * h * v
-    moved = (n * h + h * v) * e + 3 * n * 4
+    written once, labels read once; ``analysis.cost.ce_fwd_work``) and its
+    bound on this card."""
+    from paddle_tpu_torch.analysis.cost import ce_fwd_work
+    flops, moved = ce_fwd_work(n, h, v, e)
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     return flops, moved, max(t_ops, t_bytes), \
@@ -1121,13 +1130,11 @@ def ce_timing(fc, chunked_ce, flush):
         "chunked_fwd_bwd_ms": time_ms(fwd_bwd(chunk), reps=5, flush=flush),
         "library_fwd_ms": time_ms(lambda: lib(hid, w), flush=flush),
         "library_fwd_bwd_ms": time_ms(fwd_bwd(lib), flush=flush)}
+    from paddle_tpu_torch.analysis.cost import ce_bwd_work
     e = hid.element_size()
-    stats = n * 4                                # one (N,) float32 vector
     work = {"ce_fwd": _ce_fwd_work(n, h, v, e)[:2],
-            "ce_dh": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
-                      n * h * e),
-            "ce_dw": (4 * n * h * v, (n * h + h * v) * e + 3 * stats +
-                      h * v * e)}
+            "ce_dh": ce_bwd_work("dh", n, h, v, e),
+            "ce_dw": ce_bwd_work("dw", n, h, v, e)}
     res = {}
     for name, (flops, moved) in work.items():
         t_ops = flops / H100_BF16_FLOPS * 1e3
@@ -4378,6 +4385,301 @@ def experts_phase(fa, fc, nn, optim, engine):
     return out
 
 
+def op_host_us(fa, fc, pa, calls=2000):
+    """Host microseconds a call of each registered kernel op takes beside
+    its bare launcher (the op's dispatch is the difference), at small
+    shapes whose kernels finish within the launch interval."""
+    rs = np.random.RandomState(5)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.as_tensor(rs.randn(*shape).astype(np.float32),
+                               device="cuda").to(dtype)
+    q, k, v, do = (t(1, 128, 2, 64) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(out, do)
+    scale = 1.0 / 8.0
+    blocks = fa.keying_blocks(q.dtype, 64, 128, 128)
+    hid, w = t(128, 64), t(64, 512)
+    lbl = torch.as_tensor(rs.randint(0, 512, 128).astype(np.int32),
+                          device="cuda")
+    clse, _ = fc.ce_fwd(hid, w, lbl)
+    cscale = torch.full((128,), 1.0 / 128, device="cuda")
+    pq, kp, vp, tab, _ = paged_inputs(rs, 1, torch.float32, [64] * 2, b=2,
+                                      h=2, d=64, w=4, p=16)
+    ln = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    args = (None, None, scale, True, 0.0, *blocks)
+    pairs = {
+        "flash_dq": (lambda: fa.FLASH_DQ_OP(q, k, v, out, do, lse, delta,
+                                            *args),
+                     lambda: fa._launch_dq(q, k, v, do, lse, delta, None, 0,
+                                           scale, True, 0.0, blocks)),
+        "flash_dkv": (lambda: fa.FLASH_DKV_OP(q, k, v, out, do, lse, delta,
+                                              *args),
+                      lambda: fa._launch_dkv(q, k, v, do, lse, delta, None,
+                                             0, scale, True, 0.0, blocks)),
+        "ce_fwd": (lambda: fc.CE_FWD_OP(hid, w, lbl),
+                   lambda: fc.ce_fwd(hid, w, lbl)),
+        "ce_dh": (lambda: fc.CE_DH_OP(hid, w, lbl, clse, cscale),
+                  lambda: fc.ce_dh(hid, w, lbl, clse, cscale)),
+        "ce_dw": (lambda: fc.CE_DW_OP(hid, w, lbl, clse, cscale),
+                  lambda: fc.ce_dw(hid, w, lbl, clse, cscale)),
+        "paged": (lambda: pa.PAGED_OP(pq, kp, vp, tab, ln, scale, None,
+                                      None),
+                  lambda: pa._paged_attention(pq, kp, vp, tab, ln, scale,
+                                              None, None)),
+    }
+    res = {}
+    for name, (op, bare) in pairs.items():
+        row = {}
+        for label, fn in (("op_us", op), ("bare_us", bare)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            row[label] = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+        row["dispatch_us"] = row["op_us"] - row["bare_us"]
+        res[name] = row
+    return res
+
+
+def gpt_params(vocab, h, layers, seq):
+    """GPT's parameter count: embeddings, 12h^2 + 13h a block, the final
+    LayerNorm (bench.py's widths; 124,475,904 at GPT-base)."""
+    return vocab * h + seq * h + layers * (12 * h * h + 13 * h) + 2 * h
+
+
+def _kernel_nodes(walker, graph):
+    return {walker.KERNEL_OPS[k]: n for k, n in
+            walker.count_by_op(graph).items() if k in walker.KERNEL_OPS}
+
+
+def _step_kernels(trainer, batch):
+    """Device kernels of one real step under torch.profiler, and the
+    step's wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+    inputs, lbls = batch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.train_step(inputs, lbls))
+        wall = time.perf_counter() - t0
+    _, rows = _profile_report(prof, wall)
+    return sum(n for _, _, n in rows), wall * 1e3
+
+
+def _timed_ms(trainer, batch, warmup=2, iters=3):
+    """Mean ms of a synced step after ``warmup`` steps."""
+    inputs, lbls = batch
+    for _ in range(warmup):
+        float(trainer.train_step(inputs, lbls))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = trainer.train_step(inputs, lbls)
+    float(loss)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework):
+    """``analysis``: the program analysis of the port on the card.
+    (a) trace GPT-base's fused_b8_pallas_ce step on CUDA fakes: seconds,
+    nodes, kernel nodes against one real step's launches, 0 launches and
+    no allocation during the trace, ATen nodes beside the profiler's
+    kernels; (b) matmul FLOPs beside 6NT + 6LSdT with each term of the
+    difference, the peak live bytes beside the real peak, the overlap
+    model's step at the peak FLOP/s beside the measured step
+    (``step_time`` and ``planner_step_time`` drift ratios); (c) the lint
+    of GPT-base, bench_resnet50 and the decode executors (0 errors); (d)
+    plan_search for GPT-base and gpt_1p3b at 1 and 4 cards of this card's
+    memory, the top 3 one-card plans staged and timed; (e) the schedule
+    and structure fingerprints of the plain and the check step. Also the
+    host cost of each registered kernel op."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.analysis import cost, lint, schedule, walker
+    from paddle_tpu_torch.distributed import auto
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.telemetry import calibration
+    out = {"op_host_us": op_host_us(fa, fc, pa)}
+    mesh_mod.set_mesh(None)
+    mesh_mod.build_mesh({"data": 1})
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    inputs, lbls = batch
+    float(trainer.train_step(inputs, lbls))     # slots made, warm
+    torch.cuda.synchronize()
+
+    # (a) the trace
+    zero_counts(fa, fc)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step, rep = trainer.compile(inputs, lbls, analyze=True)
+    trace_s = time.perf_counter() - t0
+    graph = rep.graph
+    mem1 = torch.cuda.memory_allocated()
+    during = {**fa.LAUNCHES, **fc.LAUNCHES}
+    check(all(n == 0 for n in during.values()),
+          f"analysis: the trace launched {during}")
+    check(mem1 == mem0, f"analysis: the trace allocated {mem1 - mem0} B")
+    nodes = _kernel_nodes(walker, graph)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, fc)
+    float(step())
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    launches = check_path(fa, fc, "analysis", 12, 12, 1)
+    check(nodes == {k: v for k, v in launches.items() if v},
+          f"analysis: kernel nodes {nodes} != one step's launches "
+          f"{launches}")
+    kernels_per_step, _ = _step_kernels(trainer, batch)
+    by_op = walker.count_by_op(graph)
+    aten = sum(n for k, n in by_op.items() if k.startswith("aten."))
+    out["a_trace"] = {
+        "seconds": trace_s, "nodes": walker.count_nodes(graph),
+        "aten_nodes": aten, "kernel_nodes": nodes, "launches": launches,
+        "profiler_kernels_per_step": kernels_per_step,
+        "allocated_during_trace": mem1 - mem0,
+        "launches_during_trace": sum(during.values()),
+        "top_ops": sorted(by_op.items(), key=lambda kv: -kv[1])[:8]}
+
+    # (b) cost
+    b, s = inputs[0].shape
+    tokens, L, d, vocab = b * s, 12, 768, 50304
+    mm = cost.matmul_flops(graph)
+    model = (6 * n_params + 6 * L * s * d) * tokens
+    emb = vocab * d + s * d
+    # the difference from 6NT + 6LSdT, term by term: the embeddings are
+    # lookups, not matmuls; biases and LayerNorms are no matmuls either;
+    # the tied head runs in the CE kernels, hid.W in the forward, dh and
+    # dw (the logits recomputed in each backward kernel: 10VdT); the flash
+    # backward recomputes the scores in dq and in dk/dv (9 products a
+    # layer where 6LSdT counts 6)
+    terms = {
+        "6NT": 6 * n_params * tokens, "6LSdT": 6 * L * s * d * tokens,
+        "embeddings_are_lookups": -6 * emb * tokens,
+        "biases_and_layernorm": -6 * (n_params - emb - L * 12 * d * d)
+        * tokens,
+        "ce_kernels_head_10VdT": 10 * vocab * d * tokens,
+        "flash_bwd_recompute_3LSdT": 3 * L * s * d * tokens}
+    named = sum(terms.values())
+    peak_flops = telemetry.peak_flops_per_sec()
+    plan_ = cost.overlap_plan(graph, trainer.mesh)
+    pred = cost.replay_overlap(plan_, peak_flops=peak_flops)
+    pred_989 = cost.replay_overlap(plan_, peak_flops=H100_BF16_FLOPS)
+    measured = _timed_ms(trainer, batch)
+    drift = calibration.record("planner_step_time",
+                               pred_989["makespan"], measured / 1e3)
+    out["b_cost"] = {
+        "matmul_flops": mm, "model_flops_6NT_6LSdT": model,
+        "terms": terms, "named_sum": named,
+        "matmul_over_named": mm / named,
+        "total_flops": rep.cost.total_flops,
+        "total_bytes": rep.cost.total_bytes,
+        "peak_live_bytes": rep.cost.peak_live_bytes,
+        "max_memory_allocated": real_peak,
+        "peak_over_real": rep.cost.peak_live_bytes / real_peak,
+        "peak_flops_per_sec": peak_flops,
+        "predicted_ms": pred["makespan"] * 1e3,
+        "predicted_ms_at_989_tflops": pred_989["makespan"] * 1e3,
+        "bytes_ms_at_3_35_tbs": rep.cost.total_bytes / H100_BYTES_PER_S * 1e3,
+        "measured_ms": measured,
+        "planner_step_time_drift": drift}
+    check(mm > 0 and abs(mm / named - 1) < 1e-9,
+          f"analysis: matmul FLOPs {mm} against the named terms {named}")
+    findings = {"gpt": rep}
+    del step, graph, rep
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (c) lint
+    t0 = time.perf_counter()
+    for name in ("resnet", "decode"):
+        for prog, (r, _, _) in lint.lint_model(name, False, 5,
+                                               "cuda").items():
+            findings[f"{name}:{prog}"] = r
+    lint_s = time.perf_counter() - t0
+    out["c_lint"] = {
+        "seconds": lint_s,
+        "programs": {k: {"nodes": r.num_eqns, "counts": r.counts(),
+                         "warnings": sorted({f.rule for f in r.warnings}),
+                         "warning_lines": [f.render()[:160]
+                                           for f in r.warnings[:6]]}
+                     for k, r in findings.items()}}
+    check(all(not r.errors for r in findings.values()),
+          "analysis: error findings: " + "; ".join(
+              f.render() for r in findings.values() for f in r.errors))
+    torch.cuda.empty_cache()
+
+    # (d) plans
+    hbm = float(torch.cuda.get_device_properties(0).total_memory)
+    configs = {"gpt_base": dict(n=n_params, layers=12, hidden=768),
+               "gpt_1p3b": dict(n=gpt_params(50304, 2048, 24, 1024),
+                                layers=24, hidden=2048)}
+    plans = {}
+    for name, c in configs.items():
+        for cards in (1, 4):
+            ranked = auto.plan_search(
+                c["n"], cards, layers=c["layers"], hidden=c["hidden"],
+                seq_len=1024, batch_per_device=8, hbm_bytes=hbm,
+                peak_flops=H100_BF16_FLOPS, top_k=3)
+            plans[f"{name}@{cards}"] = [p.to_dict() for p in ranked]
+
+    def builder(p):
+        kw = {k: v for k, v in p.apply().items()
+              if k in ("remat", "accumulate_steps")}
+        tr, bt, _ = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                     head="pallas", layers=PLAN_LAYERS,
+                                     **kw)
+        return tr, bt[0], bt[1]
+    staged = auto.plan_search(
+        gpt_params(50304, 768, PLAN_LAYERS, 1024), 1, layers=PLAN_LAYERS,
+        hidden=768, seq_len=1024, batch_per_device=8, hbm_bytes=hbm,
+        peak_flops=H100_BF16_FLOPS, top_k=3, stage_top_k=3,
+        builder=builder)
+    rows = []
+    for p in staged:
+        tr, inp, lb = builder(p)
+        rows.append({"plan": {k: p.to_dict()[k] for k in (
+            "remat", "micro_batches", "grad_sync")},
+            "tier": p.predicted.tier,
+            "predicted_ms": p.predicted.total * 1e3,
+            "measured_ms": _timed_ms(tr, (inp, lb)),
+            "memory_gb": p.per_device.total / 1e9})
+        del tr
+        torch.cuda.empty_cache()
+    out["d_plans"] = {"analytic": plans, "staged_depth": PLAN_LAYERS,
+                      "staged": rows}
+
+    # (e) fingerprints of the plain and the check step (depth cut)
+    tr, bt, _ = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                 head="pallas", layers=2,
+                                 integrity_check_every=4)
+    fps = {}
+    for name, check_step in (("step", False), ("step-check", True)):
+        g1 = tr.staged_graph(*bt, do_check=check_step)
+        g2 = tr.staged_graph(*bt, do_check=check_step)
+        fps[name] = {
+            "schedule": [schedule.program_fingerprint(g, tr.mesh)
+                         for g in (g1, g2)],
+            "structure": [schedule.program_fingerprint(
+                g, tr.mesh, structure=True) for g in (g1, g2)]}
+    for name, f in fps.items():
+        for kind in ("schedule", "structure"):
+            check(f[kind][0] == f[kind][1],
+                  f"analysis: {name} {kind} fingerprint changed between "
+                  "two traces")
+    check(fps["step"]["structure"][0] != fps["step-check"]["structure"][0],
+          "analysis: the plain and the check step fingerprint alike")
+    out["e_fingerprints"] = {k: {kind: v[kind][0][:16] for kind in v}
+                             for k, v in fps.items()}
+    del tr
+    torch.cuda.empty_cache()
+    zero_counts(fa, fc)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -4800,6 +5102,16 @@ def run(work) -> int:
     rep = experts_phase(fa, fc, nn, optim, engine)
     path_launches["experts"] = rep["launches"]
     emit(phase="experts", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15k. the program analysis: GPT-base's step traced on fakes (every
+    # kernel one node), its cost beside the measured step, the lint of the
+    # three main programs, the planner, the fingerprints
+    t0 = time.perf_counter()
+    rep = analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework)
+    path_launches["analysis"] = rep["launches"]
+    emit(phase="analysis", card=card, seconds=time.perf_counter() - t0,
+         **rep)
     torch.cuda.empty_cache()
 
     # 15b. the same steps with dh and dw on the staged route: how far two

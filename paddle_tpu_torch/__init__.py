@@ -37,12 +37,16 @@ the executor cache and the self-healing serving fleet
 (ZeRO, tensor, pipeline and context parallelism); the mixture of experts
 with expert parallelism (``incubate``), the sharded embedding lookup
 (``ops.sharded_embedding``) and LocalSGD
-(``distributed.meta_parallel.localsgd``); and the ResNet family
+(``distributed.meta_parallel.localsgd``); the ResNet family
 (``vision``) with the convolutions, pooling, batch norm and activations
-of ``nn``.
+of ``nn``; and the program analysis (``analysis``: a step traced on fake
+tensors, every kernel one node, with its cost, lint rules, collective
+schedules and fingerprints, and ``python -m paddle_tpu_torch.analysis.lint``)
+with the planner (``distributed.auto``).
 """
 __version__ = "0.1.0"
 
-__all__ = ["amp", "distributed", "framework", "framework_io", "incubate",
+__all__ = ["amp", "analysis", "distributed", "framework", "framework_io",
+           "incubate",
            "inference", "jit", "nn", "ops", "optimizer", "profiler",
            "regularizer", "resilience", "telemetry", "text", "vision"]

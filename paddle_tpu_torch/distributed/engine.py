@@ -230,6 +230,7 @@ over that time) and, where the exchange moves data (more than one rank),
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from collections import OrderedDict
@@ -238,6 +239,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.fx.traceback as _fx_traceback
 from torch.utils.checkpoint import checkpoint
 
 from .. import profiler as _profiler
@@ -245,8 +247,8 @@ from .. import telemetry as _telemetry
 from .._device import resolve_device
 from ..framework.random import get_generator
 from ..resilience.guard import all_finite
-from ..resilience.integrity import _keystr, _leaves_with_path, \
-    fingerprint_array
+from ..resilience.integrity import FINGERPRINT_TAG, _keystr, \
+    _leaves_with_path, fingerprint_array
 from .checkpoint import Piece, ShardedState
 from .compressed import (QUANTIZED_POLICIES, all_gather_dim,
                          compressed_psum_scatter, div_const,
@@ -493,6 +495,8 @@ class ParallelTrainer:
         self.integrity_check_every = max(0, int(getattr(
             model, "integrity_check_every", integrity_check_every)))
         self._steps_run = 0
+        self._tracing = False
+        self._step_cost = None
         self.last_divergence: list = []
         self.last_fingerprints: Optional[torch.Tensor] = None
         self._setup()
@@ -756,8 +760,12 @@ class ParallelTrainer:
         if group is not None and cmp_idx:
             idx = torch.tensor(cmp_idx, device=fps.device)
             lo, hi = fps[idx], fps[idx]
-            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
-            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+            # the tag marks the two fingerprint collectives in a traced
+            # step (integrity.count_fingerprint_collectives)
+            with (_fx_traceback.annotate(FINGERPRINT_TAG) if self._tracing
+                  else contextlib.nullcontext()):
+                dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+                dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
             div = lo != hi
         else:
             div = torch.zeros(len(cmp_idx), dtype=torch.bool,
@@ -768,6 +776,8 @@ class ParallelTrainer:
             dist.all_reduce(d, op=dist.ReduceOp.MAX,
                             group=self.mesh.group_of(self._flag_axes))
             div = d > 0
+        if self._tracing:
+            return      # the host read of the verdict is no node of a graph
         self._record_integrity(fps, div)
 
     def _record_integrity(self, fps, div):
@@ -948,11 +958,12 @@ class ParallelTrainer:
         k = self.accumulate_steps
         self._steps_run += 1
         ce = self.integrity_check_every
-        tel = _telemetry.enabled()
+        tracing = self._tracing
+        tel = _telemetry.enabled() and not tracing
         t0 = time.perf_counter() if tel else 0.0
         # the host range of the profiler's trace, only while it is on
         ev = (_profiler.RecordEvent("train_step").begin()
-              if _profiler.is_profiler_enabled() else None)
+              if _profiler.is_profiler_enabled() and not tracing else None)
         inputs = _to_device(inputs, self.device)
         labels = _to_device(labels, self.device)
         lead = _lead(inputs)
@@ -1161,11 +1172,178 @@ class ParallelTrainer:
                 "grad_sync_compression_x",
                 "fp32 wire bytes / policy wire bytes").set(
                     self._wire_fp32_per_step / self._wire_bytes_per_step)
+        ov = (self._step_cost or {}).get("overlap") or {}
+        if ov.get("overlap_efficiency") is not None:
+            _telemetry.gauge(
+                "grad_sync_overlap_efficiency",
+                "fraction of the traced step's collective time the "
+                "overlap model predicts is hidden under compute").set(
+                    ov["overlap_efficiency"])
+        if ov.get("makespan") and dt > 0:
+            # the overlap model's step against this step's wall clock
+            from ..telemetry import calibration
+            calibration.record("step_time", ov["makespan"], dt,
+                               step=self._steps_run)
         if self.comm_err:
             _telemetry.gauge(
                 "grad_sync_residual_norm",
                 "L2 norm of the error-feedback residual").set(
                     residual_norm(dict(self.comm_err)))
+
+    # -- staging / analysis -------------------------------------------------
+    # the trainer's state a step reads or replaces, after the model's own
+    # tensors (``_staging.state_leaves``' order)
+    _STATE_ATTRS = ("opt_state", "comm_err", "skipped", "amp", "_shards")
+    _KEEP_ATTRS = ("_steps_run", "integrity_check_every",
+                   "last_fingerprints", "last_divergence", "_tracing")
+
+    def _staged(self, inputs, labels, lr=None, do_check=False):
+        """``(graph, donated)``: ``train_step`` traced on fakes of the state
+        (``distributed/_staging.py``), as a check step or not, and the
+        graph inputs that hold the state it replaces (parameters,
+        optimizer state, residuals, guard, stage-3 slices; not buffers)."""
+        from ..analysis.walker import trace_program
+        from ._staging import bound, state_leaves, tree_leaves
+        lr = self.optimizer.get_lr() if lr is None else lr
+        leaves, n_model = state_leaves(self.model, self, self._STATE_ATTRS)
+
+        def step(state, ins, lbs):
+            with bound(self.model, self, self._STATE_ATTRS, state,
+                       self._KEEP_ATTRS):
+                every = self.integrity_check_every
+                if do_check:
+                    self.integrity_check_every = every or 1
+                    self._steps_run = self.integrity_check_every - 1
+                else:
+                    self.integrity_check_every = 0
+                self._tracing = True
+                loss = self.train_step(ins, lbs, lr)
+                new = (tree_leaves(self.opt_state) +
+                       tree_leaves(self.comm_err) + [self.skipped] +
+                       tree_leaves(self.amp) +
+                       [getattr(m, b) for m, b in self._stat_owners])
+            return loss, new
+
+        graph = trace_program(step, leaves, _to_device(inputs, self.device),
+                              _to_device(labels, self.device))
+        n_params = sum(1 for t in leaves[:n_model]
+                       if isinstance(t, torch.nn.Parameter))
+        donated = set(range(n_params)) | set(range(n_model, len(leaves)))
+        return graph, donated
+
+    def staged_graph(self, inputs, labels, lr=None, do_check=False):
+        """The traced step for this batch (nothing allocated on the card,
+        nothing launched; the trainer left bit for bit as it was): one
+        ``train_step``'s ATen ops, kernel ops and collectives as a
+        ``torch.fx.GraphModule`` (``analysis/walker.py``). Its inputs are
+        the state (``_staging.state_leaves``' order), then the inputs and
+        labels. ``do_check=True`` traces the integrity-check step. The
+        reference's ``staged_jaxpr`` (``engine.py:1227``)."""
+        return self._staged(inputs, labels, lr, do_check)[0]
+
+    def staged_in_specs(self, inputs, labels):
+        """One layout a graph input of :meth:`staged_graph`, in order: a
+        tuple of axis tuples a dim (``analysis.sharding`` reads it) from
+        the trainer's own plan — a parameter's ``pspec`` (its
+        tensor-parallel or pipeline split), a ZeRO slice's ``sharding``
+        dim, a residual row's reduce axes on a leading dim that this rank's
+        row drops — and whole (no axes) for everything else."""
+        from ._staging import state_leaves, tree_leaves
+        leaves, n_model = state_leaves(self.model, self, ())
+        names = {}
+        for k, p in self.params.items():
+            names.setdefault(id(p), k)
+        specs = []
+        for t in leaves:
+            k = names.get(id(t))
+            own = dict(self.own_splits.get(k, ())) if k else {}
+            dims = [()] * t.dim()
+            for ax, d in own.items():
+                if d < len(dims):
+                    dims[d] = (ax,)
+            specs.append(tuple(dims))
+        slot_of = {}
+        for k, d in self.opt_state["slots"].items():
+            for s_, v in d.items():
+                slot_of[id(v)] = (k, s_)
+        for name in self._STATE_ATTRS:
+            for t in tree_leaves(getattr(self, name)):
+                dims = [()] * t.dim()
+                if name == "opt_state" and id(t) in slot_of:
+                    k, s_ = slot_of[id(t)]
+                    d = self.slot_dims.get(k, {}).get(s_)
+                    if d is not None and k in self._update_dims:
+                        dims[d] = ("sharding",)
+                specs.append(tuple(dims))
+        return specs + [None] * (len(_flat_list(inputs)) +
+                                 len(_flat_list(labels)))
+
+    def compile(self, inputs, labels, lr: Optional[float] = None,
+                analyze: bool = False, config=None):
+        """The step for this batch shape, traced and priced without
+        running it (reference ``engine.py:1117``): returns the step
+        callable (``lambda: self.train_step(inputs, labels, lr)``); with
+        ``analyze=True`` also the :class:`~..analysis.Report` of the
+        traced step (findings, cost, the overlap model over the mesh; the
+        graph itself as ``report.graph``).
+        The trace prices the step for the telemetry of the steps that
+        follow (``grad_sync_overlap_efficiency``, the ``step_time``
+        calibration pair)."""
+        import dataclasses
+        t0 = time.perf_counter()
+        graph, donated = self._staged(inputs, labels, lr)
+        self._step_cost = self._trace_step_cost(graph)
+        if _telemetry.enabled():
+            _telemetry.histogram(
+                "compile_time_seconds",
+                "ParallelTrainer.compile wall time").observe(
+                    time.perf_counter() - t0)
+
+        def step():
+            return self.train_step(inputs, labels, lr)
+
+        if not analyze:
+            return step
+        from .. import analysis
+        cfg = config or analysis.AnalysisConfig()
+        if cfg.grad_sync_buckets == 0:
+            cfg = dataclasses.replace(
+                cfg, grad_sync_buckets=(len(self.grad_sync_bucket_keys)
+                                        if self._use_buckets else 1))
+        report = analysis.analyze_graph(
+            graph, mesh=self.mesh, donated=donated, config=cfg,
+            in_specs=self.staged_in_specs(inputs, labels))
+        report.graph = graph        # the traced step the report reads
+        return step, report
+
+    def _trace_step_cost(self, graph):
+        """The traced step's FLOPs, peak live bytes and overlap model, for
+        telemetry; never raises into training."""
+        try:
+            from ..analysis import cost as _cost
+            out = {"flops": _cost.total_flops(graph),
+                   "peak_live_bytes": _cost.peak_live_bytes(graph)}
+            out["overlap"] = _cost.overlap_summary(graph, self.mesh)
+            return out
+        except Exception:
+            return None
+
+    def program_family(self, inputs, labels, lr=None):
+        """The plain and the integrity-check step as a declared
+        :class:`~..analysis.schedule.ProgramFamily`: ``train_step`` picks
+        between them with ``_steps_run % integrity_check_every``, a host
+        counter every rank keeps alike (rank-invariant)."""
+        from ..analysis.schedule import ProgramFamily
+        return ProgramFamily(
+            name="trainer-step",
+            selector="steps_run % integrity_check_every "
+                     "(host-replicated step counter)",
+            rank_invariant=True,
+            members={
+                "step": lambda: self.staged_graph(inputs, labels, lr),
+                "step-check": lambda: self.staged_graph(
+                    inputs, labels, lr, do_check=True)},
+            mesh=self.mesh)
 
     # -- state and checkpoints ----------------------------------------------
     @property
@@ -1323,6 +1501,13 @@ def _copy_state(dst, src, path):
                          f"match the trainer's {dst.dtype} "
                          f"{tuple(dst.shape)}")
     dst.copy_(src)
+
+
+def _flat_list(x) -> list:
+    """The array leaves of an input: a tensor or array, or a tuple/list."""
+    if isinstance(x, (tuple, list)):
+        return [v for e in x for v in _flat_list(e)]
+    return [x] if isinstance(x, (torch.Tensor, np.ndarray)) else []
 
 
 def _keep(finite, new, old):

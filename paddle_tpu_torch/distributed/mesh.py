@@ -35,9 +35,15 @@ host (NVLink on an H100 box) and ``"dcn"`` for an axis that crosses hosts
 every rank shares one host); an axis is ``"dcn"`` when stepping along it
 ever crosses a host. ``set_axis_links`` overrides the inference, as in the
 reference; the compressed exchange reads the map under
-``grad_sync_dcn_only``. The reference's link bandwidths and latencies
-(``link_bandwidth``/``link_latency``) price ``grad_sync_overlap_efficiency``
-and wait with it (ROADMAP.md, Queue 1, item 16).
+``grad_sync_dcn_only``. :func:`link_bandwidth` and :func:`link_latency`
+price a link class for the cost model (``analysis/cost.py``: the overlap
+model behind the trainer's ``grad_sync_overlap_efficiency`` gauge and the
+planner, ``distributed/auto.py``): an environment override first
+(``PADDLE_TPU_TORCH_{ICI,DCN}_BPS``, ``PADDLE_TPU_TORCH_{ICI,DCN}_LAT_S``),
+then the calibration DB's fitted constants for this device kind
+(``telemetry/calibration.py``, fitted by ``calibration.fit_link`` from
+``tests/torch_analysis_cards.py``'s NCCL sweep), then the shipped
+:data:`LINK_BANDWIDTHS`, which are an H100 SXM box's data-sheet figures.
 
 :class:`CommunicateTopology` and :class:`HybridCommunicateGroup` are the
 reference's coordinate math over the hybrid axes (the fleet API's view of
@@ -58,7 +64,9 @@ __all__ = ["AXES_ORDER", "OWN_AXES", "LINK_TYPES", "Mesh", "build_mesh",
            "set_mesh", "own_splits", "local_piece", "split_of",
            "get_mesh", "require_mesh", "axis_size", "set_axis_links",
            "explicit_axis_links", "infer_axis_links", "axis_links",
-           "axis_link", "CommunicateTopology", "HybridCommunicateGroup"]
+           "axis_link", "LINK_BANDWIDTHS", "link_bandwidth", "link_latency",
+           "known_groups",
+           "CommunicateTopology", "HybridCommunicateGroup"]
 
 AXES_ORDER = ("data", "pipe", "sharding", "sep", "model")
 # the axes a parameter's own split may name, by its ``pspec`` (ZeRO's
@@ -174,6 +182,16 @@ def _comm_lists(shape: Dict[str, int], axes: Tuple[str, ...]
     return [sorted(int(r) for r in row) for row in moved.reshape(-1, n)]
 
 
+# every process group a mesh built: id -> (its mesh's shape, its axes)
+_GROUPS: Dict[int, Tuple[Dict[str, int], Tuple[str, ...]]] = {}
+
+
+def known_groups() -> Dict[int, Tuple[Dict[str, int], Tuple[str, ...]]]:
+    """The process groups :func:`build_mesh` made (the analysis rules'
+    membership check): ``id(group) -> (mesh shape, axes)``."""
+    return dict(_GROUPS)
+
+
 class _MeshState(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
@@ -226,6 +244,9 @@ def build_mesh(degrees: Dict[str, int], group=None,
                                     backend=backend)
                 if rank in members:
                     groups[axes] = pg
+                    _GROUPS[id(pg)] = (dict(shape), axes)
+        if group is not None:
+            _GROUPS[id(group)] = (dict(shape), live)
     mesh = Mesh(shape, group=group, hosts=hosts, groups=groups, rank=rank)
     _state.mesh = mesh
     if axis_links is not None:
@@ -366,6 +387,70 @@ def axis_links(mesh: Optional[Mesh] = None) -> Dict[str, str]:
 def axis_link(axis: str, mesh: Optional[Mesh] = None) -> str:
     """Link type of one axis ("ici" when the axis is unknown)."""
     return axis_links(mesh).get(axis, "ici")
+
+
+# ---------------------------------------------------------------------------
+# link bandwidth constants (the overlap model's wire-time denominators)
+# ---------------------------------------------------------------------------
+
+# Bytes/s a rank moves in one direction on each link class, NVIDIA's data
+# sheet for an H100 SXM5 box (not a measurement): "ici", NVLink 4, 900 GB/s
+# a GPU both directions together, so 450 GB/s one way; "dcn", one 400 Gb/s
+# NDR InfiniBand port a GPU (50 GB/s). The calibration DB's fitted
+# constants (measured on four cards) win over these; the environment wins
+# over both. They rank schedules and size overlap windows; they are not a
+# profiler.
+LINK_BANDWIDTHS: Dict[str, float] = {"ici": 4.5e11, "dcn": 5.0e10}
+
+_LINK_BW_ENV = {"ici": "PADDLE_TPU_TORCH_ICI_BPS",
+                "dcn": "PADDLE_TPU_TORCH_DCN_BPS"}
+_LINK_LAT_ENV = {"ici": "PADDLE_TPU_TORCH_ICI_LAT_S",
+                 "dcn": "PADDLE_TPU_TORCH_DCN_LAT_S"}
+
+
+def _calibration():
+    try:
+        from ..telemetry import calibration
+        return calibration
+    except Exception:  # pragma: no cover - pricing must never crash
+        return None
+
+
+def link_bandwidth(link: str) -> float:
+    """Bytes/s of one link class: the environment, then the calibration
+    DB, then :data:`LINK_BANDWIDTHS` (reference ``mesh.py:220``)."""
+    import os
+    env = os.environ.get(_LINK_BW_ENV.get(link, ""), "")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    cal = _calibration()
+    if cal is not None:
+        fitted = cal.link_bandwidth_override(link)
+        if fitted is not None:
+            return fitted
+    return LINK_BANDWIDTHS.get(link, LINK_BANDWIDTHS["ici"])
+
+
+def link_latency(link: str) -> float:
+    """Fixed seconds a collective of one link class: the environment,
+    then the calibration DB, else 0.0 (the pure-bandwidth model;
+    reference ``mesh.py:244``)."""
+    import os
+    env = os.environ.get(_LINK_LAT_ENV.get(link, ""), "")
+    if env:
+        try:
+            return max(0.0, float(env))
+        except ValueError:
+            pass
+    cal = _calibration()
+    if cal is not None:
+        fitted = cal.link_latency_override(link)
+        if fitted is not None:
+            return fitted
+    return 0.0
 
 
 # ---------------------------------------------------------------------------

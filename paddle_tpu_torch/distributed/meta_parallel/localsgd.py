@@ -30,9 +30,10 @@ all-reduce: the reference averages its per-replica losses on the host).
 ``ceil(sqrt(lr0 · loss / (lr · loss0) · init_k))`` clipped to
 ``[1, max_k_steps]`` (one host read of the loss a step).
 ``replica_params(name)`` gathers every replica's copy, ``(n, *shape)``;
-``averaged_state_dict()`` is the replicas' mean. ``step_jaxpr`` and
-``program_family`` walk jaxprs and belong to the analysis layer (ROADMAP
-Queue 1 item 16): they raise.
+``averaged_state_dict()`` is the replicas' mean. ``step_graph(do_sync,
+inputs, labels)`` is the sync or the local step traced on fakes of the
+state (``analysis/walker.py``; the trainer left as it was), the
+reference's ``step_jaxpr``, and ``program_family`` declares the pair.
 """
 from __future__ import annotations
 
@@ -191,12 +192,47 @@ class LocalSGDTrainer:
                                         self.params.items()))
         return dict(out)
 
-    def step_jaxpr(self, do_sync, inputs, labels):
-        raise NotImplementedError(
-            "step_jaxpr walks a jaxpr; the port's program analysis is "
-            "ROADMAP Queue 1 item 16")
+    _STATE_ATTRS = ("opt_state", "anchor", "sync_err")
+    _KEEP_ATTRS = ("_step_no", "k_steps", "adaptive", "_loss0", "_lr0")
+
+    def step_graph(self, do_sync: bool, inputs, labels, lr=None):
+        """``train_step`` as the sync (``do_sync=True``) or the local step,
+        traced on fakes of the state (nothing launched; the trainer left
+        bit for bit as it was): the reference's ``step_jaxpr``
+        (``localsgd.py:245``). The adaptive k's host read of the loss is
+        no node of a graph: it is off while the step is traced."""
+        from ...analysis.walker import trace_program
+        from .._staging import bound, state_leaves, tree_leaves
+        from ..engine import _to_device
+        leaves, _ = state_leaves(self.model, self, self._STATE_ATTRS)
+
+        def step(state, ins, lbs):
+            with bound(self.model, self, self._STATE_ATTRS, state,
+                       self._KEEP_ATTRS):
+                self.adaptive = False
+                self.k_steps = 1 if do_sync else 2
+                self._step_no = 0
+                loss = self.train_step(ins, lbs, lr)
+                new = [tree_leaves(getattr(self, a))
+                       for a in self._STATE_ATTRS]
+            return loss, new
+
+        return trace_program(step, leaves, _to_device(inputs, self.device),
+                             _to_device(labels, self.device))
 
     def program_family(self, inputs, labels):
-        raise NotImplementedError(
-            "program_family declares an analysis.schedule.ProgramFamily; "
-            "the port's program analysis is ROADMAP Queue 1 item 16")
+        """The sync and local steps as a declared
+        :class:`~paddle_tpu_torch.analysis.schedule.ProgramFamily`: the
+        member is picked by ``step_no % k_steps``, a host counter every
+        rank advances alike (the adaptive k derives from the all-reduced
+        loss), so the two schedules may differ safely."""
+        from ...analysis.schedule import ProgramFamily
+        return ProgramFamily(
+            name="localsgd-step",
+            selector="step_no % k_steps (host-replicated step counter; "
+                     "adaptive k derives from the all-reduced loss)",
+            rank_invariant=True,
+            members={
+                "sync": lambda: self.step_graph(True, inputs, labels),
+                "no-sync": lambda: self.step_graph(False, inputs, labels)},
+            mesh=self.mesh)

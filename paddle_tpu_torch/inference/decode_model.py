@@ -26,6 +26,11 @@ paged_decode_attention`, i.e. the Hopper kernel with Tq = 1 or Tq = S;
 everything else takes the ragged plain path
 (:func:`~paddle_tpu_torch.ops.paged_attention.paged_prefill_attention`).
 
+Each path's device side (device tensors in and out, no host read) is
+``step.executors[path]``; :func:`executor_family` traces them as the
+declared family of the router (``analysis/schedule.py``), on example
+arguments from :func:`executor_args`.
+
 PyTorch runs eagerly and has no compile cache. ``step.jit_fns`` keeps the
 JAX package's attribute: one record per path (mixed, decode, verify) whose
 ``_cache_size()`` counts the distinct input shapes that path has run, so
@@ -48,7 +53,7 @@ from .._device import resolve_device
 from ..ops import paged_attention as _pa
 
 __all__ = ["init_decode_model", "params_from_jax", "make_step_fn",
-           "dense_generate"]
+           "executor_args", "executor_family", "dense_generate"]
 
 _MATRICES = ("embed", "pos", "wq", "wk", "wv", "wo", "head")
 
@@ -159,29 +164,54 @@ def make_step_fn(params, cache, device=None):
     def head(y):
         return torch.argmax(y @ p["head"], dim=-1)
 
+    # the device side of each path: device tensors in, device tensors out
+    # (``step.executors``; ``executor_family`` traces them)
     @torch.no_grad()
-    def _mixed(kp, vp, tokens, row_id, positions, valid, tables, ctx_lens):
-        tok, pos_t = dev_i32(tokens).long(), dev_i32(positions).long()
+    def mixed_exec(kp, vp, tok, row_id, pos_t, valid, tables, ctx_lens):
         x = p["embed"][tok] + p["pos"][pos_t]                   # (T, E)
         q, k, v = _qkv(p, x)
         o = _pa.paged_prefill_attention(
-            q, k, v, dev_i32(row_id), pos_t, dev_i32(valid), kp, vp,
-            dev_i32(tables), dev_i32(ctx_lens))
+            q, k, v, row_id, pos_t, valid, kp, vp, tables, ctx_lens)
         y = x + o.reshape(-1, e) @ p["wo"]
-        nxt = head(y).to(torch.int32).cpu().numpy()
-        return nxt, k[None], v[None]
+        return head(y).to(torch.int32), k[None], v[None]
 
     @torch.no_grad()
-    def _decode(kp, vp, tokens, positions, tables, ctx_lens, last_idx):
-        t_b = tokens.shape[0]
-        tok = dev_i32(tokens[last_idx]).long()                  # (R,)
-        x = p["embed"][tok] + p["pos"][dev_i32(positions[last_idx]).long()]
+    def decode_exec(kp, vp, tok, pos_t, tables, ctx_lens):
+        x = p["embed"][tok] + p["pos"][pos_t]                   # (R, E)
         q, k, v = _qkv(p, x)
         o = _pa.paged_decode_attention(
-            q[:, None], kp, vp, dev_i32(tables), dev_i32(ctx_lens),
+            q[:, None], kp, vp, tables, ctx_lens,
             k_new=k[:, None], v_new=v[:, None])                 # (R,1,H,D)
         y = x + o[:, 0].reshape(-1, e) @ p["wo"]
-        nxt = head(y).to(torch.int32).cpu().numpy()
+        return head(y).to(torch.int32), k, v
+
+    @torch.no_grad()
+    def verify_exec(kp, vp, tok2d, posn, tables, ctx_lens):
+        r_b, s_b = tok2d.shape
+        x = p["embed"][tok2d] + p["pos"][posn]
+        q, k, v = _qkv(p, x.reshape(r_b * s_b, e))
+        q4 = q.reshape(r_b, s_b, h, d)
+        k4 = k.reshape(r_b, s_b, h, d)
+        v4 = v.reshape(r_b, s_b, h, d)
+        o = _pa.paged_decode_attention(
+            q4, kp, vp, tables, ctx_lens, k_new=k4, v_new=v4)   # (R,S,H,D)
+        y = x + o.reshape(r_b, s_b, e) @ p["wo"]
+        return head(y).to(torch.int32), k4, v4                  # (R, S)
+
+    def _mixed(kp, vp, tokens, row_id, positions, valid, tables, ctx_lens):
+        nxt, k, v = mixed_exec(
+            kp, vp, dev_i32(tokens).long(), dev_i32(row_id),
+            dev_i32(positions).long(), dev_i32(valid), dev_i32(tables),
+            dev_i32(ctx_lens))
+        return nxt.cpu().numpy(), k, v
+
+    def _decode(kp, vp, tokens, positions, tables, ctx_lens, last_idx):
+        t_b = tokens.shape[0]
+        nxt, k, v = decode_exec(
+            kp, vp, dev_i32(tokens[last_idx]).long(),
+            dev_i32(positions[last_idx]).long(), dev_i32(tables),
+            dev_i32(ctx_lens))
+        nxt = nxt.cpu().numpy()
         # scatter each real row's next token and K/V back to its flattened
         # token slot; padded rows (ctx_lens == 0) are dropped
         rows = np.flatnonzero(ctx_lens > 0)
@@ -189,31 +219,24 @@ def make_step_fn(params, cache, device=None):
         nxt_flat = np.zeros(t_b, np.int32)
         nxt_flat[slots] = nxt[rows]
         rows_t, slots_t = dev_i32(rows).long(), dev_i32(slots).long()
-        k_flat = torch.zeros((t_b, h, d), dtype=k.dtype, device=dev)
-        v_flat = torch.zeros((t_b, h, d), dtype=v.dtype, device=dev)
-        k_flat[slots_t] = k[rows_t]
-        v_flat[slots_t] = v[rows_t]
+        with torch.no_grad():
+            k_flat = torch.zeros((t_b, h, d), dtype=k.dtype, device=dev)
+            v_flat = torch.zeros((t_b, h, d), dtype=v.dtype, device=dev)
+            k_flat[slots_t] = k[rows_t]
+            v_flat[slots_t] = v[rows_t]
         return nxt_flat, k_flat[None], v_flat[None]
 
-    @torch.no_grad()
     def _verify(kp, vp, tok2d, tables, ctx_lens):
         """Rectangular extension batch: row i's chunk tokens sit at
         positions ``ctx_lens[i] + col``; every chunk token gets its own
         next-token argmax."""
-        r_b, s_b = tok2d.shape
+        s_b = tok2d.shape[1]
         posn = np.clip(ctx_lens.astype(np.int64)[:, None] +
                        np.arange(s_b)[None, :], 0, max_len - 1)  # pad cols
-        x = p["embed"][dev_i32(tok2d).long()] + p["pos"][dev_i32(posn).long()]
-        q, k, v = _qkv(p, x.reshape(r_b * s_b, e))
-        q4 = q.reshape(r_b, s_b, h, d)
-        k4 = k.reshape(r_b, s_b, h, d)
-        v4 = v.reshape(r_b, s_b, h, d)
-        o = _pa.paged_decode_attention(
-            q4, kp, vp, dev_i32(tables), dev_i32(ctx_lens), k_new=k4,
-            v_new=v4)                                           # (R,S,H,D)
-        y = x + o.reshape(r_b, s_b, e) @ p["wo"]
-        nxt = head(y).to(torch.int32).cpu().numpy()             # (R, S)
-        return nxt, k4, v4
+        nxt, k4, v4 = verify_exec(kp, vp, dev_i32(tok2d).long(),
+                                  dev_i32(posn).long(), dev_i32(tables),
+                                  dev_i32(ctx_lens))
+        return nxt.cpu().numpy(), k4, v4
 
     def step(arrays: List[np.ndarray]) -> list:
         tokens, row_id, positions, valid, tables, ctx_lens, last_idx = \
@@ -252,17 +275,70 @@ def make_step_fn(params, cache, device=None):
             nxt = np.zeros(t_b, np.int32)
             nxt[dst] = nxt2d[src_r, src_c]
             sr, sc, ds = (dev_i32(a).long() for a in (src_r, src_c, dst))
-            k_new = torch.zeros((t_b, h, d), dtype=k2d.dtype, device=dev)
-            v_new = torch.zeros((t_b, h, d), dtype=v2d.dtype, device=dev)
-            k_new[ds] = k2d[sr, sc]
-            v_new[ds] = v2d[sr, sc]
+            with torch.no_grad():
+                k_new = torch.zeros((t_b, h, d), dtype=k2d.dtype,
+                                    device=dev)
+                v_new = torch.zeros((t_b, h, d), dtype=v2d.dtype,
+                                    device=dev)
+                k_new[ds] = k2d[sr, sc]
+                v_new[ds] = v2d[sr, sc]
             return [nxt, k_new[None], v_new[None]]
         paths["mixed"].note(*arrays)
         return list(_mixed(kp, vp, tokens, row_id, positions, valid, tables,
                            ctx_lens))
 
     step.jit_fns = (paths["mixed"], paths["decode"], paths["verify"])
+    step.executors = {"mixed": mixed_exec, "decode": decode_exec,
+                      "verify": verify_exec}
     return step
+
+
+def executor_args(cache, rows: int, tokens: int = 1, width: int = 4,
+                  device=None) -> dict:
+    """Example device arguments of each executor of ``make_step_fn``
+    (``step.executors``), for :func:`executor_family`: ``rows`` rows of
+    ``tokens`` tokens (the verify window; mixed: ``rows * tokens`` ragged
+    tokens), block tables ``width`` pages wide."""
+    dev = cache.device if device is None else torch.device(device)
+    kp, vp = cache.pools(0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.long, device=dev)
+    t = rows * tokens
+    tables = torch.zeros((rows, width), **i32)
+    lens = torch.ones((rows,), **i32)
+    return {
+        "mixed": (kp, vp, torch.zeros(t, **i64), torch.zeros(t, **i32),
+                  torch.zeros(t, **i64), torch.ones(t, **i32), tables, lens),
+        "decode": (kp, vp, torch.zeros(rows, **i64),
+                   torch.zeros(rows, **i64), tables, lens),
+        "verify": (kp, vp, torch.zeros((rows, tokens), **i64),
+                   torch.zeros((rows, tokens), **i64), tables, lens),
+    }
+
+
+def executor_family(step, arg_specs, mesh=None, name="decode-executor"):
+    """The mixed/decode/verify executor router as a declared
+    :class:`~paddle_tpu_torch.analysis.schedule.ProgramFamily` (reference
+    ``decode_model.py:217``). The server picks the executor from the batch
+    composition (prefill rows present / pure decode / verify windows), a
+    host decision every rank makes alike for a dispatched batch, so the
+    members' schedules may differ. ``arg_specs`` maps a member to the
+    device arguments its executor (``step.executors``) is traced with
+    (:func:`executor_args`; fakes of them, nothing read); members absent
+    from it are skipped."""
+    from ..analysis.schedule import ProgramFamily
+    from ..analysis.walker import trace_program
+    members = {}
+    for member, fn in step.executors.items():
+        if member not in arg_specs:
+            continue
+        args = tuple(arg_specs[member])
+        members[member] = (lambda f=fn, a=args: trace_program(f, *a))
+    return ProgramFamily(
+        name=name,
+        selector="batch composition bucket (has-prefill / pure-decode / "
+                 "has-verify rows), host-uniform per dispatched batch",
+        rank_invariant=True, members=members, mesh=mesh)
 
 
 @torch.no_grad()

@@ -32,14 +32,19 @@ q/k/v ``(batch, seq, heads, head_dim)``, as the JAX package has it.
   :func:`flash_supported` (:func:`flash_gate` on device type, dtype and
   shape) admits only what the kernels take, so a caller can send the rest
   to its plain path.
-- **The registered op.** The forward is also the custom op
-  ``paddle_tpu_torch::flash_attention_fwd`` (:data:`FLASH_FWD_OP`), so that
-  ``torch.export`` carries it into an exported program: its fake
-  implementation gives out and lse shapes from q alone (a symbolic batch
-  stays symbolic), and its body is :func:`flash_attention_fwd`, which
-  launches (and counts) at call time, never at trace time.
-  :func:`flash_attention` reaches the kernel through the op alone: its
-  registered autograd runs the backward kernels on the saved (q, k, v,
+- **The registered ops.** Each kernel is a registered op:
+  ``paddle_tpu_torch::flash_attention_fwd`` (:data:`FLASH_FWD_OP`, a
+  ``custom_op`` with its autograd), ``flash_attention_dq``
+  (:data:`FLASH_DQ_OP`) and ``flash_attention_dkv`` (:data:`FLASH_DKV_OP`,
+  library ops its backward calls). So ``torch.export`` carries the forward into an
+  exported program, and ``make_fx`` under a fake mode (the analysis
+  layer's tracer, ``analysis/walker.py``) records each kernel as one node
+  on a CUDA or a CPU fake tensor, reading no ``data_ptr``: each fake
+  implementation gives the shapes from the inputs alone (a symbolic batch
+  stays symbolic), and each body launches (and counts) at call time,
+  never at trace time. :func:`flash_attention` reaches the kernels
+  through the ops alone: the forward op's registered autograd computes
+  delta in PyTorch and calls the two backward ops on the saved (q, k, v,
   out, lse), so one call serves training, inference and export.
   Under :func:`exporting` the gate takes CPU tensors as the card's, so a
   program exported on the CPU holds the same op as one exported on the
@@ -70,7 +75,7 @@ __all__ = ["NEG_INF", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "LANES",
            "flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_plain_fwd", "flash_attention_plain_bwd",
            "dropout_mask", "keying_blocks", "load_kernel", "FLASH_FWD_OP",
-           "exporting"]
+           "FLASH_DQ_OP", "FLASH_DKV_OP", "exporting"]
 
 # the reference's swept defaults (a miss in the tuning DB resolves to them)
 DEFAULT_BLOCK_Q = 256
@@ -625,16 +630,94 @@ def _op_seed(seed, dropout_rate):
 def _flash_setup_context(ctx, inputs, output):
     q, k, v, lens, seed, sm_scale, causal, dropout_rate, bq, bk = inputs
     ctx.save_for_backward(q, k, v, *output)
-    ctx.extra = (lens, 0 if seed is None else seed, sm_scale, causal,
-                 dropout_rate, (bq, bk))
+    ctx.extra = (lens, seed, sm_scale, causal, dropout_rate, bq, bk)
 
 
 def _flash_backward(ctx, dout, dlse):
-    """The dq and dk/dv kernels on the saved (q, k, v, out, lse); lse has
-    no gradient (no caller differentiates it)."""
+    """delta = rowsum(do*out) in float32, then the dq and the dk/dv
+    kernels (each its own registered op) on the saved (q, k, v, out, lse);
+    lse has no gradient (no caller differentiates it)."""
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.extra)
+    do = dout.to(q.dtype)
+    delta = _delta(out, do)
+    dq = FLASH_DQ_OP(q, k, v, out, do, lse, delta, *ctx.extra)
+    dk, dv = FLASH_DKV_OP(q, k, v, out, do, lse, delta, *ctx.extra)
     return dq, dk, dv, None, None, None, None, None, None, None
+
+
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor out, Tensor do, "
+               "Tensor lse, Tensor delta, Tensor? lens, Tensor? seed, "
+               "float sm_scale, bool causal, float dropout_rate, "
+               "int block_q, int block_k) -> ")
+
+
+def _bwd_op_args(q, k, v, do, lens, seed):
+    """The launch arguments of a backward op: inputs through
+    :func:`_check`, and the seed as the launchers take it."""
+    q, k, v, do = _check(q, k, v, do)
+    return q, k, v, do, lens, 0 if seed is None else seed
+
+
+def _flash_dq_impl(q, k, v, out, do, lse, delta, lens, seed, sm_scale,
+                   causal, dropout_rate, block_q, block_k):
+    """The registered dq kernel: :func:`_launch_dq` on a CUDA tensor (given
+    delta), the plain version on a CPU one (which recomputes delta from
+    out)."""
+    blocks = (block_q, block_k)
+    if q.device.type == "cpu":
+        ds, _, scale = _plain_ds(q, k, v, out, lse, do, lens,
+                                 0 if seed is None else seed, sm_scale,
+                                 causal, dropout_rate, blocks)
+        return _plain_dq(ds, q, k, scale)
+    q, k, v, do, lens, seed = _bwd_op_args(q, k, v, do, lens, seed)
+    return _launch_dq(q, k, v, do, lse, delta, lens, seed, sm_scale, causal,
+                      dropout_rate, blocks)
+
+
+def _flash_dkv_impl(q, k, v, out, do, lse, delta, lens, seed, sm_scale,
+                    causal, dropout_rate, block_q, block_k):
+    """The registered dk/dv kernel, as :func:`_flash_dq_impl`."""
+    blocks = (block_q, block_k)
+    if q.device.type == "cpu":
+        ds, p_drop, scale = _plain_ds(q, k, v, out, lse, do, lens,
+                                      0 if seed is None else seed, sm_scale,
+                                      causal, dropout_rate, blocks)
+        dk, dv = _plain_dkv(ds, p_drop, q, k, v, do, scale)
+        return dk.contiguous(), dv.contiguous()
+    q, k, v, do, lens, seed = _bwd_op_args(q, k, v, do, lens, seed)
+    return _launch_dkv(q, k, v, do, lse, delta, lens, seed, sm_scale, causal,
+                       dropout_rate, blocks)
+
+
+# The backward ops are reached from the forward op's autograd only (grad
+# mode off), so they are plain library ops: the dispatcher calls the body
+# directly, at a fraction of a ``custom_op``'s host cost a call
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention_dq" + _BWD_SCHEMA + "Tensor")
+_LIB.define("flash_attention_dkv" + _BWD_SCHEMA + "(Tensor, Tensor)")
+_LIB.impl("flash_attention_dq", _flash_dq_impl, "CompositeExplicitAutograd")
+_LIB.impl("flash_attention_dkv", _flash_dkv_impl,
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_dq",
+                             lib=_LIB)
+def _(q, k, v, out, do, lse, delta, lens, seed, sm_scale, causal,
+      dropout_rate, block_q, block_k):
+    return q.new_empty(q.shape)
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_dkv",
+                             lib=_LIB)
+def _(q, k, v, out, do, lse, delta, lens, seed, sm_scale, causal,
+      dropout_rate, block_q, block_k):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+#: ``torch.ops.paddle_tpu_torch.flash_attention_dq``
+FLASH_DQ_OP = torch.ops.paddle_tpu_torch.flash_attention_dq
+#: ``torch.ops.paddle_tpu_torch.flash_attention_dkv``
+FLASH_DKV_OP = torch.ops.paddle_tpu_torch.flash_attention_dkv
 
 
 _flash_fwd_op.register_autograd(_flash_backward,

@@ -44,6 +44,15 @@ device memory.
   :func:`fused_ce_supported` (:func:`fused_ce_gate` on device type, dtypes
   and H) admits only what the kernels take, so a caller can send the rest
   to the chunked path.
+- **The registered ops.** Each kernel is also a library op
+  (``paddle_tpu_torch::fused_ce_fwd``, ``fused_ce_dh``, ``fused_ce_dw``:
+  :data:`CE_FWD_OP`, :data:`CE_DH_OP`, :data:`CE_DW_OP`) whose body is its
+  wrapper and whose fake implementation gives the shapes alone, so
+  ``make_fx`` under a fake mode records each as one node, on a CUDA or a
+  CPU fake tensor; ``_FusedCE`` (the autograd) reaches the kernels
+  through them. The ops' autograd stays in ``_FusedCE``: the backward
+  kernels take the loss's one scale for lse and the target logit alike,
+  which no per-output gradient of the forward op could state.
 - **Host epilogue**, as the reference's ``_ce_fwd``: ``valid = labels !=
   ignore_index``, ``loss = sum(valid * (lse - tgt)) / max(sum(valid), 1)``;
   the backward scale ``g * valid / denom`` makes ignored rows exact zeros.
@@ -71,7 +80,7 @@ __all__ = ["DEFAULT_BLOCK_TOKENS", "DEFAULT_BLOCK_VOCAB", "LANES", "LAUNCHES",
            "fused_ce_supported", "resolve_blocks", "ce_fwd",
            "ce_dh", "ce_dw", "fused_ce_plain_fwd", "fused_ce_plain_fwd_split",
            "fused_ce_plain_dh", "fused_ce_plain_dw", "load_kernel",
-           "max_hidden"]
+           "max_hidden", "CE_FWD_OP", "CE_DH_OP", "CE_DW_OP"]
 
 # the reference's interpret-validated defaults (a DB miss resolves to them)
 DEFAULT_BLOCK_TOKENS = 256
@@ -458,13 +467,54 @@ def ce_dw(hid, w, labels, lse, scale):
                 lse, scale)
 
 
+# Plain library ops (reached inside ``_FusedCE``'s forward and backward,
+# grad mode off): the dispatcher calls each wrapper directly, at a
+# fraction of a ``custom_op``'s host cost a call
+_CE_BWD_SCHEMA = ("(Tensor hid, Tensor w, Tensor labels, Tensor lse, "
+                  "Tensor scale) -> Tensor")
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("fused_ce_fwd(Tensor hid, Tensor w, Tensor labels) -> "
+            "(Tensor, Tensor)")
+_LIB.define("fused_ce_dh" + _CE_BWD_SCHEMA)
+_LIB.define("fused_ce_dw" + _CE_BWD_SCHEMA)
+for _name, _fn in (("fused_ce_fwd", ce_fwd), ("fused_ce_dh", ce_dh),
+                   ("fused_ce_dw", ce_dw)):
+    _LIB.impl(_name, _fn, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("paddle_tpu_torch::fused_ce_fwd", lib=_LIB)
+def _(hid, w, labels):
+    n = hid.shape[0]
+    return (hid.new_empty((n,), dtype=torch.float32),
+            hid.new_empty((n,), dtype=torch.float32))
+
+
+@torch.library.register_fake("paddle_tpu_torch::fused_ce_dh", lib=_LIB)
+def _(hid, w, labels, lse, scale):
+    return hid.new_empty(hid.shape)
+
+
+@torch.library.register_fake("paddle_tpu_torch::fused_ce_dw", lib=_LIB)
+def _(hid, w, labels, lse, scale):
+    # on the card the .T view of a (V, H) buffer, as the kernel writes it
+    return w.new_empty((w.shape[1], w.shape[0])).T
+
+
+#: ``torch.ops.paddle_tpu_torch.fused_ce_fwd`` / ``fused_ce_dh`` /
+#: ``fused_ce_dw``
+CE_FWD_OP = torch.ops.paddle_tpu_torch.fused_ce_fwd
+CE_DH_OP = torch.ops.paddle_tpu_torch.fused_ce_dh
+CE_DW_OP = torch.ops.paddle_tpu_torch.fused_ce_dw
+
+
 class _FusedCE(torch.autograd.Function):
     """loss = mean CE over valid labels; the backward runs the dh and dw
-    kernels on the saved (hid, w, labels, lse)."""
+    kernels on the saved (hid, w, labels, lse). Each kernel is reached
+    through its registered op, so a traced step holds it as one node."""
 
     @staticmethod
     def forward(ctx, hid, w, lbl, ignore_index):
-        lse, tgt = ce_fwd(hid, w, lbl)
+        lse, tgt = CE_FWD_OP(hid, w, lbl)
         valid = (lbl != ignore_index).float()
         denom = valid.sum().clamp(min=1.0)
         loss = (valid * (lse - tgt)).sum() / denom
@@ -475,9 +525,9 @@ class _FusedCE(torch.autograd.Function):
     def backward(ctx, g):
         hid, w, lbl, lse, valid, denom = ctx.saved_tensors
         scale = (g.float() / denom) * valid
-        dh = ce_dh(hid, w, lbl, lse, scale) \
+        dh = CE_DH_OP(hid, w, lbl, lse, scale) \
             if ctx.needs_input_grad[0] else None
-        dw = ce_dw(hid, w, lbl, lse, scale) \
+        dw = CE_DW_OP(hid, w, lbl, lse, scale) \
             if ctx.needs_input_grad[1] else None
         return dh, dw, None, None
 

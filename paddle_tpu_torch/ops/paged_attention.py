@@ -60,7 +60,8 @@ __all__ = ["NEG_INF", "MAX_VERIFY_TQ", "LAUNCHES", "ROUTES",
            "paged_route", "paged_splits", "route_splits", "SPLITS",
            "paged_attention",
            "paged_attention_plain", "paged_attention_split_plain",
-           "load_kernel", "paged_decode_attention", "paged_prefill_attention"]
+           "load_kernel", "paged_decode_attention", "paged_prefill_attention",
+           "PAGED_OP"]
 
 NEG_INF = -1e30          # finite mask value, as the JAX package's kernels use
 MAX_VERIFY_TQ = 32       # widest multi-query chunk the kernel takes
@@ -265,13 +266,46 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernels' wrapper: ``(acc, m, l)`` as :func:`paged_attention_plain`
     defines them. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/paged_attention.cu`` on the current stream, or raise.
+    ``csrc/paged_attention.cu`` on the current stream, or raise. The call
+    goes through the registered op :data:`PAGED_OP`, so a traced step holds
+    it as one node.
 
     route: None (the route :func:`paged_route` names), ``"split"`` (raises
     where q or a pool is off a 16-byte boundary) or ``"simple"``. splits:
     the split route's splits a row, None for :func:`route_splits`."""
     if route not in (None, "split", "simple"):
         raise ValueError(f"paged_attention: unknown route {route!r}")
+    return PAGED_OP(q, k_pool, v_pool, tables, lens,
+                    _scale(q.shape[-1], sm_scale), route,
+                    None if splits is None else int(splits))
+
+
+# a plain library op (no autograd: the kernel's callers run under no_grad):
+# the dispatcher calls the body directly, at a fraction of a
+# ``custom_op``'s host cost a call
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("paged_attention(Tensor q, Tensor k_pool, Tensor v_pool, "
+            "Tensor tables, Tensor lens, float sm_scale, str? route, "
+            "int? splits) -> (Tensor, Tensor, Tensor)")
+
+
+@torch.library.register_fake("paddle_tpu_torch::paged_attention", lib=_LIB)
+def _(q, k_pool, v_pool, tables, lens, sm_scale, route, splits):
+    b, tq, h, d = q.shape
+    f32 = torch.float32
+    return (q.new_empty((b, h, tq, d), dtype=f32),
+            q.new_empty((b, h, tq), dtype=f32),
+            q.new_empty((b, h, tq), dtype=f32))
+
+
+#: ``torch.ops.paddle_tpu_torch.paged_attention``
+PAGED_OP = torch.ops.paddle_tpu_torch.paged_attention
+
+
+def _paged_attention(q, k_pool, v_pool, tables, lens, sm_scale, route,
+                     splits):
+    """The body of :data:`PAGED_OP` (the route checked by
+    :func:`paged_attention`; ``sm_scale`` resolved)."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, tables, lens,
                                      sm_scale)
@@ -351,6 +385,9 @@ def paged_attention(q, k_pool, v_pool, tables, lens,
         if route == "split":
             SPLITS[(key, n_split)] += 1
     return acc, m, l
+
+
+_LIB.impl("paged_attention", _paged_attention, "CompositeExplicitAutograd")
 
 
 # ---------------------------------------------------------------------------

@@ -41,10 +41,12 @@ A remesh is a new process group. ``reshard_trainer`` takes the new mesh
 as a factory and calls it after the last collective on the old group, so
 the factory may destroy the old group (or the default group) and form one
 over the survivors (``destroy_process_group``, then
-``init_process_group`` over a fresh store). Supplied
-``schedule_fingerprints`` are cross-checked through the coordinator on
-each entry, as a plain comparison of dicts; computing them from a
-program waits for ROADMAP.md Queue 1, item 16.
+``init_process_group`` over a fresh store). ``schedule_fingerprints``
+(``{program: fingerprint}``, or a callable giving it, e.g. from
+``analysis.schedule.program_fingerprint`` of ``ParallelTrainer.
+staged_graph``) are cross-checked on each entry through
+``analysis.schedule.crossrank_verify``, which raises
+:class:`ScheduleMismatch` with a per-host diff.
 
 Retention caveat: the min-reduce can only roll back as far as every
 host's retention window (``CheckpointManager(max_to_keep=...)``) still
@@ -60,6 +62,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+# the schedule cross-check is the analysis layer's (re-exported here)
+from ..analysis.schedule import ScheduleMismatch, crossrank_verify
+
 __all__ = ["CoordinatorTimeout", "FileCoordinator", "coordinated_restore",
            "gather_comm_err", "remap_comm_err", "reshard_trainer",
            "ElasticRuntime", "data_parallel_remesh_fn", "ScheduleMismatch",
@@ -73,13 +78,7 @@ class CoordinatorTimeout(RuntimeError):
     (a participant died mid-round or never arrived)."""
 
 
-class ScheduleMismatch(RuntimeError):
-    """Hosts disagree on a program's schedule fingerprint. ``diff`` maps
-    program -> {host: fingerprint} for each program that diverged."""
 
-    def __init__(self, message: str, diff: Optional[dict] = None):
-        super().__init__(message)
-        self.diff = dict(diff or {})
 
 
 class FileCoordinator:
@@ -181,47 +180,6 @@ class FileCoordinator:
     def barrier(self, name: str, hosts_fn: Callable[[], List[str]],
                 timeout: float = 120.0):
         self.allgather(name, 1, hosts_fn, timeout=timeout)
-
-
-def crossrank_verify(coordinator, fingerprints: Dict[str, str], hosts_fn,
-                     timeout: float = 60.0,
-                     name: str = "schedule_fp") -> dict:
-    """Allgather every host's ``{program: fingerprint}`` through the
-    coordinator and raise :class:`ScheduleMismatch` (with a per-host diff)
-    on any disagreement. Counts ``schedule_verify_total`` and
-    ``collective_schedule_mismatch_total``."""
-    from .. import telemetry
-    # the participants are fixed up front: a peer that sees the mismatch
-    # first aborts and deregisters, and a live hosts_fn would then hide
-    # its fingerprint from the slower host
-    expected = sorted(set(hosts_fn()) | {coordinator.host})
-    got = coordinator.allgather(name, dict(fingerprints),
-                                lambda: expected, timeout=timeout)
-    if telemetry.enabled():
-        telemetry.counter(
-            "schedule_verify_total",
-            "cross-rank schedule-fingerprint verifications").inc()
-    programs = set()
-    for fps in got.values():
-        programs |= set((fps or {}).keys())
-    diff = {}
-    for prog in sorted(programs):
-        vals = {h: (got[h] or {}).get(prog) for h in sorted(got)}
-        if len(set(vals.values())) > 1:
-            diff[prog] = vals
-    if diff:
-        if telemetry.enabled():
-            telemetry.counter(
-                "collective_schedule_mismatch_total",
-                "programs whose schedule fingerprints diverged "
-                "across hosts").inc(len(diff))
-        lines = ["%s: %s" % (prog, ", ".join(f"{h}={str(v)[:12]}"
-                                              for h, v in vals.items()))
-                 for prog, vals in diff.items()]
-        raise ScheduleMismatch(
-            "collective schedule fingerprints diverge across hosts; "
-            "refusing to start: " + "; ".join(lines), diff)
-    return got
 
 
 def coordinated_restore(manager, template, coordinator: FileCoordinator,

@@ -227,10 +227,18 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
                             stale_after=max(5.0, 4 * args.hb_timeout))
     mgr = CheckpointManager(os.path.join(args.root, "ckpt", args.host),
                             max_to_keep=4)
-    # the schedule each host is about to run, supplied (computing it from
-    # the program waits for item 16); a desync host names the check variant
-    fps = {"train-step": "integrity-check" if args.desync_schedule
-           else "plain"}
+    # the bootstrap schedule fingerprint: every host hashes the program it
+    # is about to run (its traced step) and cross-checks it before the
+    # first step and after each remesh; a --desync-schedule host hashes the
+    # integrity-check step instead, as if it thought this a check step.
+    # The hosts are replicas at data degree 1, whose steps issue no
+    # collective, so the whole program is hashed (structure=True), not
+    # only its collective schedule
+    from ..analysis.schedule import program_fingerprint
+    x0, y0 = _tiny_batches()[0]
+    fps = {"train-step": program_fingerprint(
+        trainer.staged_graph(x0, y0, do_check=args.desync_schedule),
+        trainer.mesh, structure=True)}
     runtime = ElasticRuntime(
         em, coordinator=coord,
         remesh_fn=data_parallel_remesh_fn(

@@ -43,11 +43,13 @@ Port of ``paddle_tpu/resilience/integrity.py``.
   XLA either); it stops the heartbeat, so peers see the host as lost, and
   with ``exit_code`` ends the process.
 
-:func:`count_fingerprint_collectives` walks a jaxpr in the reference; the
-port has no program to walk, and the function waits for ROADMAP.md Queue
-1, item 16. Tests count the port's fingerprint collectives by recording
-the ``torch.distributed`` calls (``all_reduce`` of ``int64`` tensors with
-``MIN``/``MAX``, :data:`FINGERPRINT_COLLECTIVES`).
+:func:`count_fingerprint_collectives` counts the fingerprint collectives
+of a traced step (``ParallelTrainer.staged_graph``, ``analysis/walker.py``):
+the check step's ``all_reduce`` of the stacked ``int64`` fingerprints with
+``MIN`` and with ``MAX`` (:data:`FINGERPRINT_COLLECTIVES`), which the
+trainer tags while it is traced (:data:`FINGERPRINT_TAG`, a node's
+``meta["custom"]``), since a traced c10d node does not show its reduce
+op. The reference counts the uint32 pmin/pmax of a jaxpr.
 """
 from __future__ import annotations
 
@@ -62,9 +64,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = [
-    "FINGERPRINT_COLLECTIVES", "fingerprint_array", "fingerprint_tree",
+    "FINGERPRINT_COLLECTIVES", "FINGERPRINT_TAG", "fingerprint_array",
+    "fingerprint_tree",
     "count_fingerprint_collectives", "array_digest", "tree_digests",
     "compare_digests", "replica_coords", "vote_outliers",
     "quarantine_outliers", "inject_param_flip", "HangWatchdog",
@@ -75,6 +79,9 @@ __all__ = [
 # int8/int4 exchange reduces float scales with MAX, so the dtype tells them
 # apart, as the reference tells them apart by uint32)
 FINGERPRINT_COLLECTIVES = ("min", "max")
+#: the annotation a traced check step carries on its fingerprint
+#: collectives (``torch.fx.traceback.annotate``)
+FINGERPRINT_TAG = {"integrity": "fingerprint"}
 
 # odd 32-bit mixing constants (Knuth / xxhash primes), as the reference's
 _P1 = 2654435761
@@ -130,15 +137,19 @@ def _mulmod(a: torch.Tensor, b: Tuple[torch.Tensor, torch.Tensor]
 _WEIGHTS: Dict[Tuple[str, int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _weights(kind: str, n: int, device: torch.device):
+def _weights(kind: str, n: int, device: torch.device, cache: bool = True):
+    """The weights, from the cache unless ``cache`` is False (a traced
+    step computes them in its graph, neither reading nor filling the
+    cache, so its graph does not depend on what ran before)."""
     key = (kind, n, str(device))
-    w = _WEIGHTS.get(key)
+    w = _WEIGHTS.get(key) if cache else None
     if w is None:
         mul = _P1 if kind == "lane" else _P3
         full = ((torch.arange(n, dtype=torch.int64) * mul + _P2)
                 & _MASK) | 1
-        w = _WEIGHTS[key] = ((full & 0xFFFF).to(device),
-                             (full >> 16).to(device))
+        w = ((full & 0xFFFF).to(device), (full >> 16).to(device))
+        if cache:
+            _WEIGHTS[key] = w
     return w
 
 
@@ -147,6 +158,7 @@ def fingerprint_array(x, chunk: int = 1024) -> torch.Tensor:
     ``int64`` tensor in [0, 2**32) on the array's device (module
     docstring)."""
     t = _as_tensor(x)
+    cache = not is_fake(t)
     dt_mix = zlib.crc32(_dtype_name(t.dtype).encode()) & _MASK
     u = _as_uint32(t)
     n = int(u.numel())
@@ -157,10 +169,10 @@ def fingerprint_array(x, chunk: int = 1024) -> torch.Tensor:
     if pad:
         u = torch.cat([u, u.new_zeros(pad)])
     m = u.view(-1, chunk)
-    rows = _mulmod(m, _weights("lane", chunk, t.device)).sum(1)
+    rows = _mulmod(m, _weights("lane", chunk, t.device, cache)).sum(1)
     if chunk > 1024:
         rows = rows & _MASK   # else a row's sum stays below 2**42
-    rw = _weights("row", rows.numel(), t.device)
+    rw = _weights("row", rows.numel(), t.device, cache)
     return (_mulmod(rows, rw).sum() + meta) & _MASK
 
 
@@ -186,13 +198,19 @@ def fingerprint_tree(tree, chunk: int = 1024) -> Dict[str, torch.Tensor]:
             for p, v in _leaves_with_path(tree)}
 
 
-def count_fingerprint_collectives(closed) -> int:
-    """The reference counts the fingerprint collectives of a jaxpr; the
-    port has no jaxpr to walk."""
-    raise NotImplementedError(
-        "count_fingerprint_collectives walks a jaxpr; the port's program "
-        "analysis waits in ROADMAP.md (Queue 1, item 16). Count the "
-        "engine's all_reduce calls on int64 tensors with MIN/MAX instead.")
+def count_fingerprint_collectives(graph) -> int:
+    """How many fingerprint collectives (the ``MIN``/``MAX``
+    ``all_reduce`` of the int64 fingerprints, tagged
+    :data:`FINGERPRINT_TAG`) a traced step holds: 2 in a check step over
+    replicas, 0 in a plain step (reference ``integrity.py:141``)."""
+    from ..analysis.walker import walk
+    n = 0
+    for site in walk(graph):
+        custom = site.node.meta.get("custom") or {}
+        if site.is_collective and all(custom.get(k) == v for k, v in
+                                      FINGERPRINT_TAG.items()):
+            n += 1
+    return n
 
 
 # -- host content digests (the checkpoint's deep tier) ------------------------

@@ -4,11 +4,14 @@ rule, and the fitted constants' DB.
 Port of ``paddle_tpu/telemetry/calibration.py``.
 
 **Pair registry** — instrumentation sites call ``record(key, predicted,
-measured)`` with a stable key per model. The port's one site today is
-``tuner:<kernel>``: the tuning DB's ``mean_us`` for a key against a fresh
-timing of the same key on the card (``ops.tuner.tune``). The reference's
-other keys (``step_time``, ``serving_queue_wait``, ``collective_<link>``,
-``planner_step_time``) arrive with the modules that predict them.
+measured)`` with a stable key per model. The port's sites:
+``tuner:<kernel>`` (the tuning DB's ``mean_us`` for a key against a fresh
+timing of the same key on the card, ``ops.tuner.tune``), ``step_time``
+(the trainer: the overlap model's makespan of its traced step against the
+measured step, once ``compile`` has priced it) and ``planner_step_time``
+(``chip_smoke.py``'s ``analysis`` phase: the planner's prediction against
+the measured step). The reference's ``serving_queue_wait`` and
+``collective_<link>`` keys arrive with the modules that predict them.
 
 Every record exports ``calibration_drift_ratio{key}`` (= measured /
 predicted) and ``calibration_samples_total{key}`` when telemetry is
@@ -31,10 +34,10 @@ conventions: the seed shipped beside this module under the overlay
 ``~/.cache/paddle_tpu_torch/calibration_db.json``), the overlay winning
 per device kind (``ops.tuner.device_kind``), an atomic save, a corrupt
 file read as empty with one warning. ``telemetry.peak_flops_per_sec()``
-reads the fitted rate. Nothing in the port reads
-:func:`link_bandwidth_override` or :func:`link_latency_override` until
-``mesh.link_bandwidth`` and the cost model are ported (ROADMAP item 16),
-and :func:`serving_rates` seeds ``DecodeServer``'s admission EWMA only
+reads the fitted rate; ``distributed.mesh.link_bandwidth`` and
+``link_latency`` read :func:`link_bandwidth_override` and
+:func:`link_latency_override` (the cost model's and the planner's link
+prices), and :func:`serving_rates` seeds ``DecodeServer``'s admission EWMA only
 with ROADMAP item 13. Precedence everywhere: an explicit environment
 override, then the calibration DB, then the shipped defaults.
 """
@@ -360,8 +363,7 @@ def _positive(v) -> Optional[float]:
 
 def link_bandwidth_override(link: str) -> Optional[float]:
     """Calibrated bytes/sec for one link class, or None to use the
-    shipped link constant (read by nothing in the port until ROADMAP item
-    16)."""
+    shipped link constant (``distributed.mesh.link_bandwidth`` reads it)."""
     return _positive(constants().get("links", {})
                      .get(link, {}).get("bandwidth_bps"))
 

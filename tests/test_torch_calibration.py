@@ -215,8 +215,19 @@ def test_db_precedence_serving_rates_and_peak(tmp_path, monkeypatch):
 
 
 def test_shipped_seed_is_empty_as_the_reference():
+    """The reference ships an empty seed; the port's holds one entry: the
+    H100's NVLink constants that tests/torch_analysis_cards.py fitted on
+    four cards (``links.ici`` only). Off the card (device kind "cpu") it
+    answers nothing, as the reference's."""
     with open(cal.default_db_path()) as f:
         port = json.load(f)
     with open(ref_cal.default_db_path()) as f:
         ref = json.load(f)
-    assert port == ref == {"entries": {}, "version": 1}
+    assert ref == {"entries": {}, "version": 1}
+    assert port["version"] == 1
+    assert set(port["entries"]) == {"nvidia-h100-80gb-hbm3"}
+    entry = port["entries"]["nvidia-h100-80gb-hbm3"]
+    assert set(entry["links"]) == {"ici"}
+    assert entry["links"]["ici"]["bandwidth_bps"] > 0
+    assert "peak_flops_per_sec" not in entry and "serving" not in entry
+    assert cal.constants("cpu") == {}

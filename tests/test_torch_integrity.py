@@ -184,8 +184,13 @@ def test_fingerprint_tree_keys_are_the_references_keystr():
 
 
 def test_count_fingerprint_collectives_waits_for_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        integrity.count_fingerprint_collectives(None)
+    """Item 16 (the program analysis) is in: the count walks a traced
+    graph; a graph without the tagged collectives counts 0 (the gloo
+    worlds of tests/test_torch_schedule.py count a check step's 2)."""
+    from paddle_tpu_torch.analysis import trace_program
+    g = trace_program(lambda t: integrity.fingerprint_array(t * 2),
+                      torch.ones(64))
+    assert integrity.count_fingerprint_collectives(g) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -134,15 +134,23 @@ def test_adaptive_k_shrinks_and_adam_trains(n, tmp_path_factory):
 
 
 def test_program_analysis_hooks_name_their_item():
+    """step_graph (the reference's step_jaxpr) and program_family: both
+    members trace without touching the trainer, and the family verifies."""
     import torch
     from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.analysis import schedule, walker
     from paddle_tpu_torch.distributed import mesh as mesh_mod
     from paddle_tpu_torch.distributed.meta_parallel import LocalSGDTrainer
     tr = LocalSGDTrainer(nn.Linear(8, 4), optimizer.SGD(0.1),
                          lambda o, y: ((o - y) ** 2).mean(),
                          mesh=mesh_mod.build_mesh({"data": 1}), device="cpu")
     x = torch.zeros(4, 8)
-    for call in (lambda: tr.step_jaxpr(True, x, x),
-                 lambda: tr.program_family(x, x)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    for do_sync in (True, False):
+        g = tr.step_graph(do_sync, x, x[:, :4])
+        assert walker.count_by_op(g).get("aten.mm", 0) >= 2
+    assert tr._step_no == 0
+    for k, v in tr.model.state_dict().items():
+        assert torch.equal(v, before[k])
+    out = schedule.verify_family(tr.program_family(x, x[:, :4]))
+    assert out["ok"] and set(out["members"]) == {"sync", "no-sync"}

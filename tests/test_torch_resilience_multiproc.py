@@ -235,8 +235,13 @@ def test_hostsim_schedule_mismatch_exits_11(tmp_path):
     for h in ("host0", "host1"):
         assert out["exit_codes"][h] == hostsim.SCHEDULE_MISMATCH_EXIT, out
         diff = out["results"][h]["schedule_diff"]
-        assert diff == {"train-step": {"host0": "plain",
-                                       "host1": "integrity-check"}}
+        # each host's fingerprint of its traced step: host1 hashes the
+        # integrity-check step, host0 the plain one
+        assert set(diff) == {"train-step"}
+        fps = diff["train-step"]
+        assert set(fps) == {"host0", "host1"}
+        assert fps["host0"] != fps["host1"]
+        assert all(len(v) == 64 for v in fps.values())
 
 
 @pytest.mark.multihost(timeout=200)
