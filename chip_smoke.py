@@ -100,6 +100,19 @@ per source, all started together), then:
   steps over four chunks of a 4096-row sequence against the flash kernels
   over the whole sequence, with their device times and launches.
 
+- BERT/ERNIE, after ``analysis`` (``text``): the golden at BERT-base
+  widths, depth 2, float32 (``bert_golden.json``); bench.py's
+  ``bert_base_amp`` (BERT-base, bf16, 16 x 128: every attention refused
+  by the flash gate, counted) and the same model at 16 x 512 (each flash
+  kernel 12 times a step, non-causal, on the mma route); the flash
+  kernels at BERT's shape against their plain versions, timed;
+- recommendation and the parameter server (``rec``): bench.py's
+  ``widedeep_ctr`` and ``heter_ctr`` (the host table against the hot
+  tier on the card, its overlapped loop bit for bit the serial one), and
+  a server process driven through the fleet lifecycle, Wide&Deep training
+  over it, its rows bit for bit a local table's given the same pulls and
+  pushes. The analysis phase lints BERT's step at S 128 and 512.
+
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and never
@@ -696,25 +709,25 @@ def _qkv_views(b, s, h, d, seed=0):
     return (*torch.split(qkv, d, dim=-1), do)
 
 
-def _fwd_bound(b, h, s, d, e=2):
-    """The causal forward's least time on this card: 2 products of
-    B*H*S*S*D/2 multiply-adds (2 FLOPs each) against q, k, v read and out
-    written once plus lse (``analysis.cost.flash_fwd_work``, the cost
-    model's price of the kernel node)."""
+def _fwd_bound(b, h, s, d, e=2, causal=True):
+    """The forward's least time on this card: 2 products of B*H*S*S*D
+    multiply-adds (2 FLOPs each; half of them causal) against q, k, v read
+    and out written once plus lse (``analysis.cost.flash_fwd_work``, the
+    cost model's price of the kernel node)."""
     from paddle_tpu_torch.analysis.cost import flash_fwd_work
-    flops, moved = flash_fwd_work(b, h, s, s, d, e, causal=True)
+    flops, moved = flash_fwd_work(b, h, s, s, d, e, causal=causal)
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = moved / H100_BYTES_PER_S * 1e3
     return flops, moved, max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def flash_fwd_routes_timing(fa, flush, b, h, s, d):
-    """The forward at one shape (bf16, causal, QKV split views): its plain
+def flash_fwd_routes_timing(fa, flush, b, h, s, d, causal=True):
+    """The forward at one shape (bf16, QKV split views): its plain
     version, the tensor-core kernel, the scalar kernel and SDPA's forward,
     one after another in this run, with the bound."""
     q, k, v, _ = _qkv_views(b, s, h, d)
-    rest = (None, 0, None, True, 0.0, fa.keying_blocks(q.dtype, d, s, s))
+    rest = (None, 0, None, causal, 0.0, fa.keying_blocks(q.dtype, d, s, s))
     plain = time_ms(lambda: fa.flash_attention_plain_fwd(q, k, v, *rest),
                     reps=5, flush=flush)
     ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, *rest, route="mma"),
@@ -723,8 +736,8 @@ def flash_fwd_routes_timing(fa, flush, b, h, s, d):
         q, k, v, *rest, route="scalar"), flush=flush)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
-    lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush=flush)
-    flops, moved, bound, bound_by = _fwd_bound(b, h, s, d)
+    lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), flush=flush)
+    flops, moved, bound, bound_by = _fwd_bound(b, h, s, d, causal=causal)
     return {"shape": [b, s, h, d], "fwd_route": "mma", "ms": ms,
             "scalar_ms": scalar, "plain_ms": plain, "library_ms": lib,
             "bound_ms": bound,
@@ -733,8 +746,8 @@ def flash_fwd_routes_timing(fa, flush, b, h, s, d):
             "mma_over_library": ms / lib}
 
 
-def flash_bwd_routes_timing(fa, flush, b, h, s, d):
-    """dq and dk/dv at one shape (bf16, causal; q, k, v the QKV split's
+def flash_bwd_routes_timing(fa, flush, b, h, s, d, causal=True):
+    """dq and dk/dv at one shape (bf16; q, k, v the QKV split's
     strided views, as the main path gives them), each on the mma and the
     scalar route, beside each kernel's plain version and the library's
     whole backward (SDPA's; no library call computes dq or dk/dv alone),
@@ -743,10 +756,10 @@ def flash_bwd_routes_timing(fa, flush, b, h, s, d):
     numbers)."""
     q, k, v, do = _qkv_views(b, s, h, d)
     blocks = fa.keying_blocks(q.dtype, d, s, s)
-    out, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, True, 0.0,
+    out, lse = fa.flash_attention_fwd(q, k, v, None, 0, None, causal, 0.0,
                                       blocks)
     delta = fa._delta(out, do)
-    rest = (None, 0, None, True, 0.0, blocks)
+    rest = (None, 0, None, causal, 0.0, blocks)
     launch = {"flash_dq": fa._launch_dq, "flash_dkv": fa._launch_dkv}
     ms = {name: time_ms(lambda fn=fn: fn(q, k, v, do, lse, delta, *rest,
                                          route="mma"), flush=flush)
@@ -773,19 +786,20 @@ def flash_bwd_routes_timing(fa, flush, b, h, s, d):
     qt, kt, vt = [x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v)]
     dot = do.transpose(1, 2).contiguous()
-    o_lib = sdpa(qt, kt, vt, is_causal=True)
+    o_lib = sdpa(qt, kt, vt, is_causal=causal)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), dot, retain_graph=True), flush=flush)
     lib_fwdbwd = time_ms(lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), flush=flush)
+        sdpa(qt, kt, vt, is_causal=causal), (qt, kt, vt), dot), flush=flush)
     from paddle_tpu_torch.analysis.cost import flash_bwd_work
     e = q.element_size()
     tensor = b * s * h * d * e                 # one (B, S, H, D) tensor
     stat = b * h * s * 4                       # lse or delta, float32
-    prod = b * h * s * s * d                   # one causal S x S x D product
+    # FLOPs of one S x S x D product (its causal half when causal)
+    prod = b * h * s * s * d * (1 if causal else 2)
     # the cost model's prices of the two kernel nodes: 3 and 4 products
-    work = {"flash_dq": flash_bwd_work("dq", b, h, s, s, d, e),
-            "flash_dkv": flash_bwd_work("dkv", b, h, s, s, d, e)}
+    work = {"flash_dq": flash_bwd_work("dq", b, h, s, s, d, e, causal),
+            "flash_dkv": flash_bwd_work("dkv", b, h, s, s, d, e, causal)}
     bwd_ms = ms["flash_dq"] + ms["flash_dkv"]
     scalar_bwd = scalar["flash_dq"] + scalar["flash_dkv"]
     # no library call computes dq alone or dk/dv alone: the backward rows
@@ -4592,12 +4606,37 @@ def analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework):
     del trainer, batch
     torch.cuda.empty_cache()
 
-    # (c) lint
+    # (c) lint: bench_resnet50, BERT at S 128 and 512, the decode
+    # executors; BERT's kernel nodes against its steps' launches (text
+    # phase: none at 128, 12 of each at 512) and its matmul FLOPs against
+    # 6NT + 6LSdT and the named differences
     t0 = time.perf_counter()
-    for name in ("resnet", "decode"):
-        for prog, (r, _, _) in lint.lint_model(name, False, 5,
+    bert = {}
+    for name in ("resnet", "bert", "decode"):
+        for prog, (r, g, _) in lint.lint_model(name, False, 5,
                                                "cuda").items():
             findings[f"{name}:{prog}"] = r
+            if name == "bert":
+                seq = int(prog.split("-s")[1])
+                want = ({"flash_fwd": 12, "flash_dq": 12, "flash_dkv": 12}
+                        if seq >= 512 else {})
+                nodes = _kernel_nodes(walker, g)
+                check(nodes == want, f"analysis: {prog} kernel nodes "
+                      f"{nodes} != {want}")
+                n_bert = lint.bert_params(lint.bert_config(False))
+                terms = lint.bert_matmul_terms(
+                    lint.bert_config(False), n_bert, 16, seq, seq >= 512)
+                mm = cost.matmul_flops(g)
+                named = sum(terms.values())
+                check(abs(mm / named - 1) < 1e-9, f"analysis: {prog} "
+                      f"matmul FLOPs {mm} against the named terms {named}")
+                bert[prog] = {"params": n_bert, "kernel_nodes": nodes,
+                              "matmul_flops": mm, "terms": terms,
+                              "named_sum": named,
+                              "model_flops_6NT_6LSdT": terms["6NT"] +
+                              terms["6LSdT"]}
+                del g
+                torch.cuda.empty_cache()
     lint_s = time.perf_counter() - t0
     out["c_lint"] = {
         "seconds": lint_s,
@@ -4606,6 +4645,7 @@ def analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework):
                          "warning_lines": [f.render()[:160]
                                            for f in r.warnings[:6]]}
                      for k, r in findings.items()}}
+    out["c_lint"]["bert"] = bert
     check(all(not r.errors for r in findings.values()),
           "analysis: error findings: " + "; ".join(
               f.render() for r in findings.values() for f in r.errors))
@@ -4677,6 +4717,536 @@ def analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework):
     torch.cuda.empty_cache()
     zero_counts(fa, fc)
     out["launches"] = launches
+    return out
+
+
+# -- text: BERT/ERNIE pretraining ----------------------------------------------
+
+BERT_LOSS_RTOL = (1e-4, 1e-3)       # step 0, later steps (train_golden's)
+BERT_GRAD_NORM_RTOL = 1e-4
+
+
+def _bert_loss(model):
+    return lambda outputs, labels: model.loss(*outputs, *labels)
+
+
+def bert_golden(optim, engine, mesh_mod, models):
+    """(t1) BERT-base widths at depth 2, float32 (TF32 off), dropout 0,
+    against ``bert_golden.json``: the step-0 loss and gradient norm (rtol
+    1e-4), three ``train_step``s' losses (1e-4, then 1e-3)."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "bert_golden.json")) as f:
+        gold = json.load(f)
+    cfg = {k: v for k, v in gold["config"].items()
+           if k not in ("dtype", "batch", "seq")}
+    check(gold["config"]["dtype"] == "float32" and
+          cfg["hidden_size"] == 768 and cfg["vocab_size"] == 30528,
+          f"golden config {gold['config']}")
+    model = models.BertForPretraining(tensor_parallel=False, **cfg)
+    names_shapes = [(n, tuple(t.shape)) for n, t in
+                    model.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port state names/shapes differ from the BERT golden")
+    rw = gold["recipe"]["weights"]
+    model.set_state_dict_from_numpy(recipes.bert_weights(
+        names_shapes, rw["seed"], rw["std"]))
+    model.cuda()
+    ids, mlm, nsp = (torch.from_numpy(a).cuda() for a in recipes.bert_data(
+        gold["recipe"]["data"]["seed"], gold["config"]["batch"],
+        gold["config"]["seq"], cfg["vocab_size"]))
+    loss0 = model.loss(*model(ids), mlm, nsp)
+    grads = torch.autograd.grad(loss0, list(model.parameters()))
+    gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
+    loss0 = loss0.item()
+    del grads
+    trainer = engine.ParallelTrainer(
+        model, optim.AdamW(gold["optimizer"]["learning_rate"]),
+        _bert_loss(model), mesh=mesh_mod.build_mesh({"data": 1}))
+    losses = [trainer.train_step(ids, (mlm, nsp)).item()
+              for _ in gold["losses"]]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    check(rel(loss0, gold["losses"][0]) <= BERT_LOSS_RTOL[0],
+          f"t1 step-0 loss {loss0} vs golden {gold['losses'][0]}")
+    check(rel(gnorm, gold["step0_grad_norm"]) <= BERT_GRAD_NORM_RTOL,
+          f"t1 step-0 grad norm {gnorm} vs {gold['step0_grad_norm']}")
+    check(rel(losses[0], gold["losses"][0]) <= BERT_LOSS_RTOL[0],
+          f"t1 train_step 0 loss {losses[0]} vs {gold['losses'][0]}")
+    for i in range(1, len(losses)):
+        check(rel(losses[i], gold["losses"][i]) <= BERT_LOSS_RTOL[1],
+              f"t1 loss after {i} updates {losses[i]} vs "
+              f"{gold['losses'][i]}")
+    check(trainer.skipped_steps() == 0, "t1: a step skipped")
+    return {"loss0": loss0, "grad_norm": gnorm, "losses": losses,
+            "golden_losses": gold["losses"],
+            "golden_grad_norm": gold["step0_grad_norm"],
+            "loss_rel_err": [rel(a, b) for a, b in
+                             zip([loss0] + losses, gold["losses"][:1]
+                                 + gold["losses"])],
+            "grad_norm_rel_err": rel(gnorm, gold["step0_grad_norm"])}
+
+
+def _group_text(name):
+    low = name.lower()
+    if "flash_" in low:
+        return "flash kernels"
+    if "gemm" in low or low.startswith("nvjet") or "cutlass" in low:
+        return "GEMMs"
+    if "softmax" in low:
+        return "softmax (plain attention)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "LayerNorm"
+    if "reduce" in low or "logsumexp" in low:
+        return "reductions (loss, norms)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    return "elementwise and the rest"
+
+
+def bert_steps(fa, fc, tuner, trainer, batch, seq, warmup, iters, flash):
+    """bench_bert_amp's timed loop at ``seq``: ``warmup`` + ``iters`` steps
+    with the counts set to 0 just before, then three profiled steps. The
+    flash kernels launch 12 times a step at S >= 512 on the mma route
+    (``flash``), else never, each attention counted as a fallback."""
+    ids, labels = batch
+    n_steps = warmup + iters
+    fb0 = tuner.FALLBACKS["flash_attention"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, fc)
+    losses = [trainer.train_step(ids, labels).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step(ids, labels) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    launches = dict(fa.LAUNCHES)
+    routes = dict(fa.ROUTES)
+    fallbacks = tuner.FALLBACKS["flash_attention"] - fb0
+    check(all(n == 0 for n in fc.LAUNCHES.values()),
+          f"BERT S={seq}: CE kernel launches {fc.LAUNCHES}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per = 12 * n_steps if flash else 0
+    check(launches == {"flash_fwd": per, "flash_dq": per, "flash_dkv": per},
+          f"BERT S={seq}: flash launches {launches}, want {per} each")
+    check(all(n == 0 for k, n in routes.items() if k.endswith("_scalar")),
+          f"BERT S={seq}: routes {routes}")
+    check(fallbacks == (0 if flash else 12 * n_steps),
+          f"BERT S={seq}: {fallbacks} flash fallbacks over {n_steps} steps")
+    check(all(np.isfinite(losses)), f"BERT S={seq}: losses {losses}")
+    check(losses[-1] < losses[0], f"BERT S={seq}: losses did not fall "
+          f"{losses[0]} -> {losses[-1]}")
+    check(trainer.skipped_steps() == 0, f"BERT S={seq}: a step skipped")
+    prof = profile_steps(trainer, batch, _group_text)
+    # the launch counts above are exact; the profiler may drop an event
+    # (it saw 107 of 108 flash launches once), so it is held to seeing them
+    seen = prof["by_group"].get("flash kernels", {}).get("launches_per_step",
+                                                          0)
+    check(seen > 0 if flash else seen == 0,
+          f"BERT S={seq}: the profiler saw {seen} flash launches a step")
+    b = ids.shape[0]
+    return {"batch": b, "seq": seq, "dtype": "bfloat16", "warmup": warmup,
+            "iters": iters, "losses": losses, "samples_per_s": b * iters / dt,
+            "ms_per_step": dt / iters * 1e3, "max_memory_allocated_gb": peak,
+            "launches": launches, "routes": routes,
+            "flash_fallbacks": fallbacks, "profile": prof}
+
+
+def bert_flash_t4(fa, fc, rs, b=16, h=12, s=512, d=64):
+    """(t4) the three flash kernels at BERT's call (bf16, non-causal, q, k,
+    v the QKV split's views): held against their plain versions, then
+    timed (median of 25, L2 flushed) beside the bound, the plain version
+    and SDPA. These launches compare and time; the path's counts are
+    t3's."""
+    zero_counts(fa, fc)
+    errs, route, broute = flash_parity_case(fa, rs, s, d, False, None,
+                                            torch.bfloat16, b=b, h=h,
+                                            split_qkv=True)
+    check(route == "mma" and broute == "mma",
+          f"t4: routes {route}/{broute}")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fwd = flash_fwd_routes_timing(fa, flush, b, h, s, d, causal=False)
+    bwd, whole = flash_bwd_routes_timing(fa, flush, b, h, s, d, causal=False)
+    del flush
+    timing = {"flash_fwd": fwd, **bwd}
+    return {"max_abs_err": errs, "fwd_route": route, "bwd_route": broute,
+            "timing": timing, "whole_bwd": whole,
+            "comparison_launches": dict(fa.LAUNCHES)}
+
+
+def text_phase(fa, fc, tuner, optim, engine, framework, rs):
+    """``text``: (t1) the BERT golden; (t2) bench.py's ``bert_base_amp``
+    (full BERT-base, whole-model bf16, batch 16 x 128, AdamW(1e-4), 8 + 20
+    steps): the gate refuses every attention (S < 512), counted as
+    fallbacks; (t3) the same model at 16 x 512: 12 launches a step of each
+    flash kernel, non-causal, on the mma route; (t4) the flash kernels at
+    BERT's shape against their plain versions, timed. Returns t3's launch
+    counts as the path's."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.testdata import recipes
+    from paddle_tpu_torch.text import models
+    mesh_mod.set_mesh(None)
+    out = {"t1_golden": bert_golden(optim, engine, mesh_mod, models)}
+    torch.cuda.empty_cache()
+    framework.seed(0)
+    cfg = models.bert_base(vocab_size=30528)      # bench.py's bert_base_amp
+    model = models.BertForPretraining(tensor_parallel=False, attn_dropout=0.0,
+                                      hidden_dropout=0.0, **cfg)
+    model.bfloat16()
+    trainer = engine.ParallelTrainer(model, optim.AdamW(1e-4),
+                                     _bert_loss(model),
+                                     mesh=mesh_mod.build_mesh({"data": 1}))
+    check(trainer.param_name_of(model.cls.decoder_weight) ==
+          "bert.embeddings.word_embeddings.weight",
+          "the tied decoder weight is not the word embedding's")
+    n_params = sum(p.numel() for p in trainer.params.values())
+    for key, seq, warmup, iters in (("t2_bert_base_amp", 128, 8, 20),
+                                    ("t3_seq512", 512, 2, 6)):
+        ids, mlm, nsp = (torch.from_numpy(a).cuda() for a in
+                         recipes.bert_data(0, 16, seq, cfg["vocab_size"]))
+        out[key] = bert_steps(fa, fc, tuner, trainer, (ids, (mlm, nsp)), seq,
+                              warmup, iters, flash=seq >= 512)
+        out[key]["params"] = n_params
+    launches = out["t3_seq512"]["launches"]
+    del trainer, model
+    torch.cuda.empty_cache()
+    out["t4_flash"] = bert_flash_t4(fa, fc, rs)
+    zero_counts(fa, fc)
+    out["launches"] = {**launches, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+    return out
+
+
+# -- rec: Wide&Deep, DeepFM's tiers, the parameter server ------------------------
+
+CTR_FIELDS = [100_000] * 26
+CTR_BATCH = 4096
+CTR_HIDDEN = (400, 400, 400)
+
+
+def _ctr_bce(logit, y):
+    return (logit.clamp(min=0) - logit * y
+            + torch.log1p(torch.exp(-logit.abs()))).mean()
+
+
+def widedeep_r1(optim, engine, mesh_mod, rec, framework, warmup=8,
+                iters=20):
+    """(r1) bench.py's ``widedeep_ctr``: WideDeep over 26 x 100,000
+    fields (dense ``nn.Embedding``), 13 dense features, hidden 400-400-400,
+    Adam(1e-3), batch 4096, one fixed batch from RandomState(0)."""
+    framework.seed(0)
+    mesh_mod.set_mesh(None)
+    model = rec.WideDeep(CTR_FIELDS, dense_dim=13, embedding_dim=16,
+                         hidden_sizes=CTR_HIDDEN)
+    trainer = engine.ParallelTrainer(model, optim.Adam(1e-3), _ctr_bce,
+                                     mesh=mesh_mod.build_mesh({"data": 1}))
+    rng = np.random.RandomState(0)
+    ids = np.stack([rng.randint(0, d, CTR_BATCH) for d in CTR_FIELDS], 1)
+    dense = rng.randn(CTR_BATCH, 13).astype(np.float32)
+    label = rng.randint(0, 2, CTR_BATCH).astype(np.float32)
+    inputs = (torch.from_numpy(ids.astype(np.int64)).cuda(),
+              torch.from_numpy(dense).cuda())
+    y = torch.from_numpy(label).cuda()
+    losses = [trainer.train_step(inputs, y).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step(inputs, y) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"r1 losses {losses}")
+    prof = profile_steps(trainer, (inputs, y), _group_text)
+    return {"batch": CTR_BATCH, "fields": len(CTR_FIELDS),
+            "samples_per_s": CTR_BATCH * iters / dt,
+            "ms_per_step": dt / iters * 1e3, "final_loss": losses[-1],
+            "losses": losses, "profile": prof}
+
+
+def _heter_state(model, trainer):
+    emb = model.ctr_table
+    name = emb._pname
+    return ([trainer.get_param(name).clone()] +
+            [trainer.get_opt_slot(name, sn).clone()
+             for sn in trainer.opt_slot_names(name)])
+
+
+def heter_r2(optim, engine, mesh_mod, rec, framework, warmup=4, steps=12,
+             cap=1_000_000):
+    """(r2) bench.py's ``heter_ctr``: WideDeep over 26 x 100,000 fields
+    with zipf(1.3) ids, batch 4096, Adagrad(0.05, eps 1e-8), the host table
+    path (``sparse=True``: ``host_ps``) and the hot tier of capacity
+    1,000,000 with ``prepare_batch_async`` one batch ahead
+    (``heter_overlapped``), 4 + 12 steps each; then the hot tier again
+    with ``prepare_batch`` between the steps, held bit for bit against the
+    overlapped run (losses, the hot rows, their accumulators, the tier's
+    decisions)."""
+    rng = np.random.RandomState(0)
+
+    def draw_ids():
+        u = rng.zipf(1.3, size=(CTR_BATCH, len(CTR_FIELDS)))
+        return (u % np.asarray(CTR_FIELDS)[None, :]).astype(np.int64)
+
+    batches = [(draw_ids(), rng.randn(CTR_BATCH, 13).astype(np.float32),
+                rng.randint(0, 2, CTR_BATCH).astype(np.float32))
+               for _ in range(steps + warmup)]
+    out, runs = {}, {}
+    for name, mode in (("host_ps", True), ("heter_overlapped", "heter"),
+                       ("heter_serial", "heter")):
+        framework.seed(0)
+        mesh_mod.set_mesh(None)
+        model = rec.WideDeep(CTR_FIELDS, dense_dim=13, embedding_dim=16,
+                             hidden_sizes=CTR_HIDDEN, sparse=mode,
+                             heter_capacity=cap)
+        tr = engine.ParallelTrainer(model, optim.Adagrad(0.05, epsilon=1e-8),
+                                    _ctr_bce,
+                                    mesh=mesh_mod.build_mesh({"data": 1}))
+
+        def run(bs):
+            losses = []
+            if name == "host_ps":
+                for ids, dense, y in bs:
+                    losses.append(tr.train_step((ids, dense), y))
+            elif name == "heter_serial":
+                for ids, dense, y in bs:
+                    losses.append(tr.train_step(
+                        (model.prepare_batch(ids), dense), y))
+            else:
+                fut = model.prepare_batch_async(bs[0][0])
+                for i, (ids, dense, y) in enumerate(bs):
+                    slots = fut.result()
+                    losses.append(tr.train_step((slots, dense), y))
+                    if i + 1 < len(bs):
+                        fut = model.prepare_batch_async(bs[i + 1][0])
+            return [float(x) for x in losses]
+
+        losses = run(batches[:warmup])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += run(batches[warmup:])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(all(np.isfinite(losses)), f"r2 {name} losses {losses}")
+        emit(phase="rec_part", part=f"r2_{name}", seconds=dt,
+             ms_per_step=dt / steps * 1e3)
+        row = {"samples_per_s": CTR_BATCH * steps / dt,
+               "ms_per_step": dt / steps * 1e3, "losses": losses}
+        if mode == "heter":
+            st = model.ctr_table.stats
+            row.update(hot_hit_rate=model.ctr_table.hit_rate,
+                       stats=dict(st))
+            runs[name] = (losses, _heter_state(model, tr),
+                          model.ctr_table._slot2key.copy(), dict(st))
+        else:
+            row["table_rows"] = len(model.embedding.table)
+        out[name] = row
+        del model, tr
+        torch.cuda.empty_cache()
+    (ol, os_, ok, ost), (sl, ss, sk, sst) = (runs["heter_overlapped"],
+                                            runs["heter_serial"])
+    check(ol == sl, f"r2: overlapped losses {ol} != serial {sl}")
+    check(all(torch.equal(a, b) for a, b in zip(os_, ss)),
+          "r2: overlapped hot rows or accumulators != serial, bit for bit")
+    check(np.array_equal(ok, sk) and all(
+        ost[k] == sst[k] for k in ("lookups", "hits", "misses", "evicts")),
+        "r2: the tier's decisions differ between overlapped and serial")
+    out["overlapped_equals_serial"] = True
+    out["hot_hit_rate"] = out["heter_overlapped"]["hot_hit_rate"]
+    out["speedup_x"] = (out["heter_overlapped"]["samples_per_s"] /
+                        out["host_ps"]["samples_per_s"])
+    return out
+
+
+# the child process of r3: two Adagrad tables (dims 16 and 1, the
+# DistributedEmbedding's defaults), the first on its entry of
+# PADDLE_PSERVER_ENDPOINTS through fleet.init_server, the second on a free
+# port; serves through run_server until a stop file appears
+PS_SERVER_CHILD = r'''
+import faulthandler, os, sys, threading, time
+faulthandler.dump_traceback_later(60)      # where a slow start stands
+from paddle_tpu_torch.distributed import fleet
+rdv = sys.argv[1]
+served = []
+for i, dim in enumerate((16, 1)):
+    f = fleet.Fleet()
+    assert f.is_server()
+    srv = f.init_server(dim=dim, optimizer="adagrad",
+                        port=None if i == 0 else 0, seed=0, init_range=0.01)
+    served.append((f, srv))
+with open(os.path.join(rdv, ".ep"), "w") as fh:
+    fh.write("\n".join(s.endpoint for _, s in served))
+os.replace(os.path.join(rdv, ".ep"), os.path.join(rdv, "ep"))
+faulthandler.cancel_dump_traceback_later()
+threads = [threading.Thread(target=f.run_server) for f, _ in served]
+for t in threads:
+    t.start()
+deadline = time.time() + 300
+while not os.path.exists(os.path.join(rdv, "stop")) and \
+        time.time() < deadline:
+    time.sleep(0.02)
+for f, _ in served:
+    f.stop_server()
+for t in threads:
+    t.join(timeout=30)
+print("ps server stopped", flush=True)
+'''
+
+
+class _Recorded:
+    """A table view that records every pull and push, in order."""
+
+    def __init__(self, table):
+        self.table, self.log = table, []
+        self.dim = table.dim
+
+    def pull(self, keys, create_missing=True):
+        self.log.append(("pull", np.array(keys, np.int64), create_missing))
+        return self.table.pull(keys, create_missing)
+
+    def push(self, keys, grads, lr):
+        self.log.append(("push", np.array(keys, np.int64),
+                         np.array(grads, np.float32), float(lr)))
+        self.table.push(keys, grads, lr)
+
+
+def ps_service_r3(optim, engine, mesh_mod, rec, framework, steps=3,
+                  batch=512):
+    """(r3) the parameter server on the card's host: a server process
+    through ``fleet.init_server``/``run_server`` on 127.0.0.1
+    (``TRAINING_ROLE=PSERVER``, ``PADDLE_PSERVER_ENDPOINTS``,
+    ``PADDLE_PSERVER_ID``), this process a worker through ``init_worker``;
+    ``WideDeep(sparse=True)`` (26 x 100,000 fields) takes ``steps`` steps on
+    the card over the served tables. The rows read back over RPC equal a
+    local ``SparseTable`` given the same pulls and pushes, bit for bit;
+    ``stop_worker``/``stop_server`` end cleanly."""
+    import socket
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import (DistributedEmbedding,
+                                                 DistributedSparseTable,
+                                                 SparseTable)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    endpoint = f"127.0.0.1:{port}"
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    env = dict(os.environ, TRAINING_ROLE="PSERVER",
+               PADDLE_PSERVER_ENDPOINTS=endpoint, PADDLE_PSERVER_ID="0",
+               CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", PS_SERVER_CHILD, rdv],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        while not os.path.exists(os.path.join(rdv, "ep")):
+            if child.poll() is not None or time.perf_counter() - t0 > 120:
+                child.kill()
+                log, _ = child.communicate()
+                raise AssertionError(
+                    f"r3: no PS server after {time.perf_counter() - t0:.1f}"
+                    f" s (exit {child.returncode}): {log[-3000:]}")
+            time.sleep(0.05)
+        with open(os.path.join(rdv, "ep")) as f:
+            ep16, ep1 = f.read().split("\n")
+        check(ep16 == endpoint, f"r3: served on {ep16}, not {endpoint}")
+        startup = time.perf_counter() - t0
+        old = {k: os.environ.get(k) for k in ("TRAINING_ROLE",
+                                               "PADDLE_PSERVER_ENDPOINTS")}
+        os.environ.update(TRAINING_ROLE="TRAINER",
+                          PADDLE_PSERVER_ENDPOINTS=ep16)
+        worker = fleet.Fleet()
+        try:
+            check(not worker.is_server() and worker.server_num() == 1,
+                  "r3: the worker's role")
+            t16 = worker.init_worker()
+            t1 = DistributedSparseTable([ep1])
+            framework.seed(0)
+            mesh_mod.set_mesh(None)
+            model = rec.WideDeep(CTR_FIELDS, dense_dim=13, embedding_dim=16,
+                                 hidden_sizes=CTR_HIDDEN, sparse=True)
+            rec16, rec1 = _Recorded(t16), _Recorded(t1)
+            model.embedding = DistributedEmbedding(16, lr=0.05, table=rec16)
+            model.linear_emb = DistributedEmbedding(1, lr=0.05, table=rec1)
+            tr = engine.ParallelTrainer(model, optim.Adam(1e-3), _ctr_bce,
+                                        mesh=mesh_mod.build_mesh({"data": 1}))
+            rng = np.random.RandomState(1)
+            ms, losses = [], []
+            for _ in range(steps):
+                ids = np.stack([rng.randint(0, d, batch)
+                                for d in CTR_FIELDS], 1).astype(np.int64)
+                ids[rng.rand(batch, len(CTR_FIELDS)) < 0.05] = -1
+                dense = rng.randn(batch, 13).astype(np.float32)
+                y = rng.randint(0, 2, batch).astype(np.float32)
+                s0 = time.perf_counter()
+                losses.append(tr.train_step(
+                    (torch.from_numpy(ids).cuda(),
+                     torch.from_numpy(dense).cuda()),
+                    torch.from_numpy(y).cuda()).item())
+                ms.append((time.perf_counter() - s0) * 1e3)
+            check(all(np.isfinite(losses)), f"r3 losses {losses}")
+            rows = {}
+            for dim, rtab in ((16, rec16), (1, rec1)):
+                local = SparseTable(dim, "adagrad", seed=0, init_range=0.01)
+                for entry in rtab.log:
+                    if entry[0] == "pull":
+                        local.pull(entry[1], entry[2])
+                    else:
+                        local.push(entry[1], entry[2], entry[3])
+                keys = np.unique(np.concatenate(
+                    [e[1] for e in rtab.log if e[0] == "pull"]))
+                got = rtab.table.pull(keys, create_missing=False)
+                check(np.array_equal(got, local.pull(keys, False)),
+                      f"r3: dim-{dim} rows over RPC != the local table's")
+                check(len(local) == keys.size and
+                      sum(rtab.table.shard_sizes()) == keys.size,
+                      f"r3: dim-{dim} row counts")
+                rows[dim] = {"rows": int(keys.size),
+                             "pushes": sum(e[0] == "push" for e in rtab.log)}
+            t1.close()
+            worker.stop_worker()
+            check(worker._ps_client is None, "r3: stop_worker kept a client")
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    finally:
+        open(os.path.join(rdv, "stop"), "w").close()
+        try:
+            log, _ = child.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.communicate()
+            raise
+    check(child.returncode == 0 and "ps server stopped" in log,
+          f"r3: the server process ended {child.returncode}: {log[-2000:]}")
+    return {"endpoint": endpoint, "server_startup_s": startup,
+            "batch": batch, "steps": steps, "losses": losses,
+            "ms_per_step": ms, "tables": rows, "rows_equal_local": True,
+            "server_exit": child.returncode}
+
+
+def rec_phase(fa, fc, optim, engine, framework):
+    """``rec``: (r1) ``widedeep_ctr``, (r2) ``heter_ctr`` with the
+    overlapped hot tier held bit for bit against the serial one, (r3) the
+    PS service through the fleet lifecycle. No kernel of the port runs on
+    these paths (the reference's have no Pallas kernel): the counts stay
+    0."""
+    from paddle_tpu_torch import rec
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    zero_counts(fa, fc)
+    out = {}
+    for key, part in (("r1_widedeep_ctr", widedeep_r1),
+                      ("r2_heter_ctr", heter_r2),
+                      ("r3_ps_service", ps_service_r3)):
+        t0 = time.perf_counter()
+        out[key] = part(optim, engine, mesh_mod, rec, framework)
+        out[key]["seconds"] = time.perf_counter() - t0
+        emit(phase="rec_part", part=key, seconds=out[key]["seconds"])
+        torch.cuda.empty_cache()
+    out["launches"] = check_path(fa, fc, "rec", 0, 0, 0)
     return out
 
 
@@ -5114,6 +5684,24 @@ def run(work) -> int:
          **rep)
     torch.cuda.empty_cache()
 
+    # 15l. BERT/ERNIE: the golden, bench.py's bert_base_amp at S 128 (the
+    # gate refuses) and at S 512 (the flash kernels, non-causal), the
+    # kernels at BERT's shape
+    t0 = time.perf_counter()
+    rep = text_phase(fa, fc, tuner, optim, engine, framework, rs)
+    path_launches["text"] = rep["launches"]
+    bert_timing = rep["t4_flash"]["timing"]
+    emit(phase="text", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15m. Wide&Deep on the card, the heter hot tier against the host
+    # table, the parameter server through the fleet lifecycle
+    t0 = time.perf_counter()
+    rep = rec_phase(fa, fc, optim, engine, framework)
+    path_launches["rec"] = rep["launches"]
+    emit(phase="rec", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
     # 15b. the same steps with dh and dw on the staged route: how far two
     # summation orders of the same gradients drift apart in bf16 training
     with staged_route(fc):
@@ -5231,7 +5819,11 @@ def run(work) -> int:
             "d128": {key: d128[name][key] for key in (
                 "shape", "ms", "scalar_ms", "plain_ms", "library_ms",
                 "library_bwd_ms", "bound_ms", "bound_by")
-                if key in d128[name]}})
+                if key in d128[name]},
+            "bert": {key: bert_timing[name][key] for key in (
+                "shape", "ms", "scalar_ms", "plain_ms", "library_ms",
+                "library_bwd_ms", "bound_ms", "bound_by")
+                if key in bert_timing[name]}})
     for name, t in ctiming.items():
         kernels.append({
             "name": name, "route": "cuda", "source": CE_SRC,

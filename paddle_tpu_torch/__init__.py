@@ -42,11 +42,16 @@ with expert parallelism (``incubate``), the sharded embedding lookup
 of ``nn``; and the program analysis (``analysis``: a step traced on fake
 tensors, every kernel one node, with its cost, lint rules, collective
 schedules and fingerprints, and ``python -m paddle_tpu_torch.analysis.lint``)
-with the planner (``distributed.auto``).
+with the planner (``distributed.auto``); BERT/ERNIE pretraining
+(``text.models.bert``); and the parameter-server tier
+(``distributed.ps``: the native host tables, their TCP service, the
+Hogwild/Downpour trainers, the host-table embedding and the hot tier on
+the card) with Wide&Deep and DeepFM (``rec``).
 """
 __version__ = "0.1.0"
 
 __all__ = ["amp", "analysis", "distributed", "framework", "framework_io",
            "incubate",
            "inference", "jit", "nn", "ops", "optimizer", "profiler",
-           "regularizer", "resilience", "telemetry", "text", "vision"]
+           "rec", "regularizer", "resilience", "telemetry", "text",
+           "vision"]

@@ -11,6 +11,11 @@ the reference's ``tools/lint_program.py``:
   1 layer, hidden 64, 2 heads, vocab 256, batch 4 x 32;
 - ``resnet``: bench_resnet50's step (batch 128, 224 x 224, bf16,
   ``Momentum(0.1, 0.9)``); ``--smoke``: resnet18 at batch 4, 32 x 32;
+- ``bert``: bench.py's ``bert_base_amp`` step (BERT-base, bf16, AdamW(1e-4),
+  MLM + NSP through ``BertForPretraining.loss``) at batch 16 x 128 and
+  16 x 512 (``bert-s128``, ``bert-s512``: the flash gate refuses the
+  first and takes the second, non-causal); ``--smoke``: 1 layer, hidden
+  64, 2 heads, vocab 256, batch 2 at both lengths;
 - ``decode``: the decode server's mixed, decode and verify executors
   (``inference/decode_model.py``) at the serving cell's widths (12 heads
   of 64, 2048 pages of 16, 8 rows, 1024-token block tables, a verify
@@ -41,8 +46,10 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-__all__ = ["MODELS", "build_gpt", "build_resnet", "decode_programs",
-           "lint_model", "verify_families", "main"]
+__all__ = ["MODELS", "build_gpt", "build_resnet", "build_bert",
+           "bert_config", "bert_params", "bert_matmul_terms",
+           "decode_programs", "lint_model",
+           "verify_families", "main"]
 
 
 def _device(name=None) -> torch.device:
@@ -111,6 +118,91 @@ def build_resnet(smoke: bool, device=None):
     return trainer, x, y
 
 
+BERT_SEQS = (128, 512)
+
+
+def bert_config(smoke: bool) -> dict:
+    """bench.py's BERT-base (vocab 30528), or the smoke widths."""
+    from ..text.models import bert_base
+    if smoke:
+        return bert_base(vocab_size=256, hidden_size=64, num_layers=1,
+                         num_heads=2)
+    return bert_base(vocab_size=30528)
+
+
+def build_bert(smoke: bool, device=None, seq: int = 128):
+    """(trainer, ids, (mlm labels, nsp labels)) of bench.py's
+    ``bert_base_amp`` step at ``seq`` positions."""
+    from .. import framework, optimizer
+    from ..distributed.engine import ParallelTrainer
+    from ..distributed.mesh import build_mesh, get_mesh
+    from ..testdata import recipes
+    from ..text.models import BertForPretraining
+    dev = _device(device)
+    cfg = bert_config(smoke)
+    batch = 2 if smoke else 16
+    framework.seed(0)
+    model = BertForPretraining(tensor_parallel=False, attn_dropout=0.0,
+                               hidden_dropout=0.0, **cfg).bfloat16()
+    mesh = get_mesh() or build_mesh({"data": 1})
+    trainer = ParallelTrainer(model, optimizer.AdamW(1e-4),
+                              lambda o, lb: model.loss(*o, *lb), mesh=mesh,
+                              device=dev)
+    ids, mlm, nsp = (torch.from_numpy(a).to(dev) for a in recipes.bert_data(
+        0, batch, seq, cfg["vocab_size"]))
+    return trainer, ids, (mlm, nsp)
+
+
+def bert_params(cfg: dict) -> int:
+    """``BertForPretraining``'s parameter count (the tied weight once):
+    the embeddings and their LayerNorm, 12d^2 + 13d a layer, the pooler,
+    the MLM transform and its LayerNorm, the decoder bias and the NSP
+    head."""
+    v, d, L = cfg["vocab_size"], cfg["hidden_size"], cfg["num_layers"]
+    p = cfg["max_position_embeddings"]
+    return (v * d + p * d + 2 * d + 2 * d + L * (12 * d * d + 13 * d)
+            + 2 * (d * d + d) + 2 * d + v + 2 * d + 2)
+
+
+def bert_matmul_terms(cfg: dict, n_params: int, batch: int, seq: int,
+                      flash: bool) -> Dict[str, float]:
+    """BERT pretraining's matmul FLOPs a step as 6NT + 6LSdT and the
+    differences from it, term by term (their sum is what the traced step's
+    ``cost.matmul_flops`` must give): the embeddings are lookups, the tied
+    head multiplies every position by the (vocab, d) weight, biases and
+    LayerNorms are no matmuls, the pooler and NSP head see one row a
+    sequence, attention is bidirectional (12LSdT, where 6LSdT counts the
+    causal half), and the flash backward recomputes the scores in dq and
+    in dk/dv (6LSdT more)."""
+    v, d, L = cfg["vocab_size"], cfg["hidden_size"], cfg["num_layers"]
+    p, tokens = cfg["max_position_embeddings"], batch * seq
+    emb = v * d + p * d + 2 * d
+    matmul_w = L * 12 * d * d + d * d + d * d + 2 * d
+    terms = {"6NT": 6 * n_params * tokens,
+             "6LSdT": 6 * L * seq * d * tokens,
+             "embeddings_are_lookups": -6 * emb * tokens,
+             "tied_head_6VdT": 6 * v * d * tokens,
+             "biases_and_layernorm": -6 * (n_params - emb - matmul_w)
+             * tokens,
+             "pooler_and_nsp_on_one_row": -6 * (d * d + 2 * d)
+             * (tokens - batch),
+             "bidirectional_6LSdT": 6 * L * seq * d * tokens}
+    if flash:
+        terms["flash_bwd_recompute_6LSdT"] = 6 * L * seq * d * tokens
+    return terms
+
+
+def _bert_run(smoke, device, top):
+    from . import AnalysisConfig
+    out = {}
+    for seq in BERT_SEQS:
+        trainer, ids, labels = build_bert(smoke, device, seq)
+        _, rep = trainer.compile(ids, labels, analyze=True,
+                                 config=AnalysisConfig(top_k=top))
+        out[f"bert-s{seq}"] = (rep, rep.graph, trainer.mesh)
+    return out
+
+
 def _decode_step(smoke: bool, device=None):
     from ..inference import decode_model
     from ..inference.kv_cache import PagedKVCache
@@ -175,6 +267,7 @@ def _decode_run(smoke, device, top):
 MODELS: Dict[str, Callable] = {
     "gpt": _trainer_program(build_gpt),
     "resnet": _trainer_program(build_resnet),
+    "bert": _bert_run,
     "decode": _decode_run,
 }
 

@@ -231,6 +231,7 @@ over that time) and, where the exchange moves data (more than one rank),
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -499,7 +500,16 @@ class ParallelTrainer:
         self._step_cost = None
         self.last_divergence: list = []
         self.last_fingerprints: Optional[torch.Tensor] = None
+        # held while a step is issued: layers that write live state between
+        # steps from another thread (the heter hot tier) take it too
+        self._state_lock = threading.RLock()
         self._setup()
+        # layers that manage live training state between steps bind
+        # themselves here (reference engine.py:219-226)
+        for sub in model.modules():
+            hook = getattr(sub, "_on_trainer_built", None)
+            if hook is not None:
+                hook(self)
 
     def _check_mesh(self, mesh):
         """The mesh's process group must be of this trainer's device's
@@ -953,7 +963,12 @@ class ParallelTrainer:
     def train_step(self, inputs, labels, lr: Optional[float] = None,
                    grad_taint: Optional[float] = None) -> torch.Tensor:
         """One step; returns the 0-d loss (the mean over every data rank)
-        on the device (no host sync unless telemetry is on)."""
+        on the device (no host sync unless telemetry is on). Issued under
+        the trainer's state lock."""
+        with self._state_lock:
+            return self._train_step(inputs, labels, lr, grad_taint)
+
+    def _train_step(self, inputs, labels, lr, grad_taint):
         lr = self.optimizer.get_lr() if lr is None else lr
         k = self.accumulate_steps
         self._steps_run += 1
@@ -1483,6 +1498,25 @@ class ParallelTrainer:
 
     def get_opt_slot(self, name, slot) -> Optional[torch.Tensor]:
         return self.opt_state["slots"].get(name, {}).get(slot)
+
+    # -- live-state access (the heter hot tier between steps) -----------------
+    def param_name_of(self, param) -> Optional[str]:
+        """The model's name for ``param`` (by identity), or None."""
+        for n, p in self.model.named_parameters():
+            if p is param:
+                return n
+        return None
+
+    def opt_slot_names(self, name) -> list:
+        """Names of the optimizer's tensor slots kept for a parameter."""
+        d = self.opt_state["slots"].get(name, {})
+        return [k for k, v in d.items() if isinstance(v, torch.Tensor)]
+
+    def set_opt_slot(self, name, slot, value):
+        """Copy ``value`` into a parameter's optimizer slot, in place."""
+        with torch.no_grad():
+            dst = self.opt_state["slots"][name][slot]
+            dst.copy_(torch.as_tensor(value).to(dst.device, dst.dtype))
 
 
 @torch.no_grad()

@@ -14,8 +14,10 @@ objects; ``distributed_model`` wraps the network by the live degrees
 through ``jit.save`` and ``save_persistables(model=)`` pickles the
 model's state through ``framework_io.save``.
 
-The parameter-server lifecycle (``init_server`` ... ``stop_worker``)
-raises, naming item 20; ``save_persistables`` without a model (the static
+The parameter-server lifecycle (``init_server``, ``run_server``,
+``stop_server``, ``init_worker``, ``stop_worker``) drives ``distributed.ps``
+from ``TRAINING_ROLE``, ``PADDLE_PSERVER_ENDPOINTS`` and
+``PADDLE_PSERVER_ID``; ``save_persistables`` without a model (the static
 scope) raises, naming item 21. ``utils``, ``fs`` and ``elastic`` are the
 modules they were.
 """
@@ -86,6 +88,11 @@ class DistributedStrategy:
         return dict(self.__dict__)
 
 
+def _pserver_endpoints():
+    return [e for e in os.environ.get("PADDLE_PSERVER_ENDPOINTS",
+                                      "").split(",") if e.strip()]
+
+
 def _waits(what: str, item: str):
     raise NotImplementedError(
         f"fleet.{what} is not ported yet; it waits in ROADMAP.md (Queue 1, "
@@ -154,8 +161,7 @@ class Fleet:
         return ",".join(eps) if to_string else eps
 
     def server_num(self):
-        eps = os.environ.get("PADDLE_PSERVER_ENDPOINTS", "")
-        return len([e for e in eps.split(",") if e.strip()])
+        return len(_pserver_endpoints())
 
     def is_server(self):
         return os.environ.get("TRAINING_ROLE", "").upper() == "PSERVER"
@@ -165,20 +171,63 @@ class Fleet:
         barrier()
 
     # -- the parameter-server lifecycle (reference fleet_base.py:533-632) --
-    def init_server(self, *args, **kwargs):
-        _waits("init_server", "item 20: the parameter-server tier")
+    # the tier it drives is distributed/ps: native sparse tables behind the
+    # csrc/ps TCP service, key-hash-routed clients
+    def init_server(self, dim: int = None, optimizer: str = "adagrad",
+                    port: int = None, **table_kwargs):
+        """Start this rank's PS shard (reference ``init_server``). The
+        listening port is this server's entry of
+        ``PADDLE_PSERVER_ENDPOINTS`` (its index ``PADDLE_PSERVER_ID``, else
+        ``PADDLE_TRAINER_ID``) unless given; none there: a free port.
+        Returns the ``PsServer`` (its ``.table`` saves and loads)."""
+        import threading
+        from ..ps.service import PsServer
+        if dim is None:
+            raise ValueError("init_server needs the embedding dim "
+                             "(the PS table schema)")
+        if port is None:
+            eps = _pserver_endpoints()
+            idx = int(os.environ.get(
+                "PADDLE_PSERVER_ID", os.environ.get("PADDLE_TRAINER_ID",
+                                                    "0")))
+            port = int(eps[idx].rsplit(":", 1)[1]) if idx < len(eps) else 0
+        self._ps_server = PsServer(dim, optimizer, port=port, **table_kwargs)
+        self._ps_stop = threading.Event()
+        return self._ps_server
 
     def run_server(self):
-        _waits("run_server", "item 20: the parameter-server tier")
+        """Serve until :meth:`stop_server` (reference ``run_server``): the
+        service's threads run in the background; this parks the caller,
+        then stops the server."""
+        if getattr(self, "_ps_server", None) is None:
+            raise RuntimeError("call fleet.init_server(...) first")
+        self._ps_stop.wait()
+        self._ps_server.stop()
 
     def stop_server(self):
-        _waits("stop_server", "item 20: the parameter-server tier")
+        """Release :meth:`run_server` (a no-op before ``init_server``)."""
+        if getattr(self, "_ps_stop", None) is not None:
+            self._ps_stop.set()
 
-    def init_worker(self, *args, **kwargs):
-        _waits("init_worker", "item 20: the parameter-server tier")
+    def init_worker(self, async_mode: bool = False):
+        """Connect this trainer to every PS shard of
+        ``PADDLE_PSERVER_ENDPOINTS`` (reference ``init_worker``); returns the
+        key-hash-routed ``DistributedSparseTable`` (``async_mode``: geo-style
+        buffered pushes). Raises without endpoints."""
+        from ..ps.service import DistributedSparseTable
+        eps = _pserver_endpoints()
+        if not eps:
+            raise RuntimeError("PADDLE_PSERVER_ENDPOINTS is empty: no "
+                               "parameter servers to connect to")
+        self._ps_client = DistributedSparseTable(eps, async_mode=async_mode)
+        return self._ps_client
 
     def stop_worker(self):
-        _waits("stop_worker", "item 20: the parameter-server tier")
+        """Flush and close the client (a no-op before ``init_worker``)."""
+        if getattr(self, "_ps_client", None) is not None:
+            self._ps_client.flush()
+            self._ps_client.close()
+            self._ps_client = None
 
     # -- model/optimizer wrapping -----------------------------------------
     def distributed_model(self, model):

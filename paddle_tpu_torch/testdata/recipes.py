@@ -1,7 +1,8 @@
 """The numpy recipes that rebuild the golden files' weights and inputs.
 
 One definition for every caller: the golden writers
-(``tests/torch_resnet_golden.py``, ``tests/torch_moe_golden.py``, which
+(``tests/torch_resnet_golden.py``, ``tests/torch_moe_golden.py``,
+``tests/torch_bert_golden.py``, which
 run the JAX package on the CPU), the tests, and ``chip_smoke.py`` on the
 card. Each golden file records the arguments (seeds, scales) it was made
 with. Imports numpy only.
@@ -10,7 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["resnet_weights", "resnet_data", "moe_weights", "moe_tokens"]
+__all__ = ["resnet_weights", "resnet_data", "moe_weights", "moe_tokens",
+           "bert_weights", "bert_data"]
 
 
 def resnet_weights(names_shapes, seed, conv_std, linear_std) -> dict:
@@ -64,3 +66,34 @@ def moe_weights(names_shapes, seed) -> dict:
 def moe_tokens(seed, shape):
     """``randn(*shape)`` float32 from ``RandomState(seed)``."""
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def bert_weights(names_shapes, seed, std) -> dict:
+    """{name: float32 array} in the given (``state_dict``) order from one
+    ``RandomState(seed)``: ``.bias`` (and ``decoder_bias``) zeros, other
+    1-d parameters (the LayerNorms' weights) ones, every 2-d weight
+    normal(0, std)."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for name, shape in names_shapes:
+        shape = tuple(shape)
+        if name.endswith("bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif len(shape) == 1:
+            out[name] = np.ones(shape, np.float32)
+        else:
+            out[name] = rs.normal(0.0, std, shape).astype(np.float32)
+    return out
+
+
+def bert_data(seed, batch, seq, vocab):
+    """bench.py's pretraining batch from ``RandomState(seed)``: ids
+    ``randint(0, vocab, (batch, seq))`` int32; MLM labels -100 except every
+    8th position, ``randint(0, vocab, (batch, seq // 8))``; NSP labels
+    ``randint(0, 2, (batch,))`` int32."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+    mlm = np.full((batch, seq), -100, dtype=np.int32)
+    mlm[:, ::8] = rs.randint(0, vocab, (batch, seq // 8))
+    nsp = rs.randint(0, 2, (batch,)).astype(np.int32)
+    return ids, mlm, nsp

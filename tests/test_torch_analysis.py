@@ -487,3 +487,28 @@ def test_lint_planted_fp64_leak_exits_1(monkeypatch, capsys):
     monkeypatch.setitem(lint.MODELS, "gpt", lint._trainer_program(leaky))
     assert lint.main(["--smoke", "--model", "gpt", "--device", "cpu"]) == 1
     assert "fp64-leak" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# BERT in the lint
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seq", lint.BERT_SEQS)
+def test_bert_step_lints_clean_with_the_named_matmul_flops(seq):
+    """bench.py's bert_base_amp step at smoke widths, traced on the CPU:
+    no finding, no kernel node (the flash gate takes CUDA tensors only),
+    and the matmul FLOPs equal to 6NT + 6LSdT and its named differences
+    (``lint.bert_matmul_terms``) to a relative 1e-9: sums of products of
+    integer dims."""
+    mesh_mod.set_mesh(None)
+    progs = lint.lint_model("bert", True, 3, "cpu")
+    rep, graph, _ = progs[f"bert-s{seq}"]
+    assert rep.counts() == {"error": 0, "warning": 0, "info": 0}
+    assert not set(walker.count_by_op(graph)) & set(walker.KERNEL_OPS)
+    tr, ids, _ = lint.build_bert(True, "cpu", seq)
+    n = sum(p.numel() for p in tr.params.values())
+    assert lint.bert_params(lint.bert_config(True)) == n
+    terms = lint.bert_matmul_terms(lint.bert_config(True), n, *ids.shape,
+                                   flash=False)
+    mm = cost.matmul_flops(graph)
+    assert mm > 0 and abs(mm / sum(terms.values()) - 1) < 1e-9

@@ -219,7 +219,7 @@ def test_zero_bytes_per_rank_follows_the_split():
         sharding.zero_bytes_per_rank(m, opt, 0, 1)
 
 
-def test_saves_and_the_raising_paths(tmp_path):
+def test_saves_and_the_raising_paths(tmp_path, monkeypatch):
     m = _M()
     f = fleet.Fleet()
     d = f.save_persistables(dirname=str(tmp_path / "p"), model=m)
@@ -239,10 +239,17 @@ def test_saves_and_the_raising_paths(tmp_path):
         f.save_inference_model(dirname=str(tmp_path / "x"), model=m)
     with pytest.raises(NotImplementedError, match="item 21"):
         f.save_persistables(dirname=str(tmp_path / "s"))
-    for name in ("init_server", "run_server", "stop_server", "init_worker",
-                 "stop_worker"):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            getattr(f, name)()
+    # the parameter-server lifecycle, as the reference's: no endpoints to
+    # connect to raises; stopping what never started does nothing; serving
+    # needs a server first
+    monkeypatch.delenv("PADDLE_PSERVER_ENDPOINTS", raising=False)
+    with pytest.raises(RuntimeError, match="PADDLE_PSERVER_ENDPOINTS"):
+        f.init_worker()
+    assert f.stop_worker() is None and f.stop_server() is None
+    with pytest.raises(RuntimeError, match="init_server"):
+        f.run_server()
+    with pytest.raises(ValueError, match="dim"):
+        f.init_server()
     assert callable(fleet.save) and callable(fleet.distributed_model)
 
 

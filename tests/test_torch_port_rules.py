@@ -61,6 +61,8 @@ def test_every_module_imports_with_jax_blocked():
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from paddle_tpu_torch.distributed.ps import native\n"
+            "assert native._dll is None, 'the PS library loaded at import'\n"
             "print('imported', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
