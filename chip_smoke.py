@@ -111,7 +111,15 @@ per source, all started together), then:
   tier on the card, its overlapped loop bit for bit the serial one), and
   a server process driven through the fleet lifecycle, Wide&Deep training
   over it, its rows bit for bit a local table's given the same pulls and
-  pushes. The analysis phase lints BERT's step at S 128 and 512.
+  pushes. The analysis phase lints BERT's step at S 128 and 512;
+- the declarative mode (``static``, after ``amp``): GPT-base's forward
+  staged by ``jit.to_static`` (12 flash-forward nodes and launches a
+  call, logits against the eager forward), a ``static.Program`` of
+  ``fused_head_loss(ce_kernel="pallas")``'s loss and parameter gradients
+  run 10 steps by ``Executor.run`` with AdamW (36 flash and 3 CE launches
+  a step, losses against ``fused_b8_pallas_ce``'s trainer, both steps
+  timed, its analysis), and converted ``if``/``while``/``for`` functions
+  and a converted layer's ``jit.save``/``jit.load`` on the card.
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -539,7 +547,9 @@ def _device_time(prof):
     from torch.autograd import DeviceType
     by_name, spans = {}, []
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # a range on the device's timeline (ProfilerStep#) is no kernel
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         start, end = e.time_range.start, e.time_range.end
         us, n = by_name.get(e.name, (0.0, 0))
@@ -1426,19 +1436,38 @@ def staged_route(fc):
         fc.bwd_route = route
 
 
-def profile_train(trainer, batch, steps=3):
-    """Device busy share and the top device kernels over ``steps`` steps
-    of a GPT-base run (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+LEAD_S = 0.01   # host wait between a profiler window's start and its work
+
+
+def _profiled_steps(trainer, batch, steps):
+    """One warm-up step, then ``steps`` steps under torch.profiler; returns
+    (profiler, wall seconds of the ``steps`` steps). The warm-up step runs
+    in the profiler's warm-up cycle, so CUPTI is collecting before the
+    window opens and that step's events are discarded; the window then
+    opens ``LEAD_S`` before the first launch. A window opened cold drops
+    the first kernels of its first step, more of them the more windows
+    the process has opened (one flash forward of 36 on the card)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     inputs, lbls = batch
-    float(trainer.train_step(inputs, lbls))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        float(trainer.train_step(inputs, lbls))
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(LEAD_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             loss = trainer.train_step(inputs, lbls)
         float(loss)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def profile_train(trainer, batch, steps=3):
+    """Device busy share and the top device kernels over ``steps`` steps
+    of a GPT-base run (torch.profiler)."""
+    prof, wall = _profiled_steps(trainer, batch, steps)
     report, rows = _profile_report(prof, wall)
     check(rows, "the profiler saw no kernel on the card")
     groups = {}
@@ -4112,16 +4141,7 @@ def _group_vision(name):
 def profile_steps(trainer, batch, group, steps=3):
     """Device busy share and kernel time by ``group(name)`` over ``steps``
     steps (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    inputs, lbls = batch
-    float(trainer.train_step(inputs, lbls))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            loss = trainer.train_step(inputs, lbls)
-        float(loss)
-        wall = time.perf_counter() - t0
+    prof, wall = _profiled_steps(trainer, batch, steps)
     report, rows = _profile_report(prof, wall)
     check(rows, "the profiler saw no kernel on the card")
     groups = {}
@@ -4496,6 +4516,255 @@ def _timed_ms(trainer, batch, warmup=2, iters=3):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+# -- the declarative mode: staged graphs on the card -----------------------------
+STATIC_STEPS = 10
+STATIC_LOSS_RTOL = 1e-5
+
+
+def _dy_if(x):
+    if x.sum() > 0:
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    return y
+
+
+def _dy_while(x):
+    s = x.sum() * 0.0
+    while s < 10.0:
+        s = s + x.abs().sum()
+    return s
+
+
+def _dy_for(x, n):
+    acc = x * 0.0
+    for i in range(n):
+        acc = acc + x * i
+    return acc
+
+
+def _graph_ops(graph):
+    """Call-node op names of a graph and of its control-flow subgraphs."""
+    out = []
+    for gm in [graph] + [m for m in graph.modules()
+                         if isinstance(m, torch.fx.GraphModule)]:
+        out += [getattr(n.target, "__name__", str(n.target))
+                for n in gm.graph.nodes if n.op == "call_function"]
+    return out
+
+
+def static_dy2static(nn, jit):
+    """(c) converted functions with a tensor-dependent ``if``, ``while``
+    and ``for range``, staged by ``to_static`` on the card: their graphs
+    hold ``cond`` / ``while_loop`` nodes, and each output equals the
+    converted function's eager run on the card and its staged run on the
+    CPU; a converted layer through ``jit.save`` / ``jit.load`` on the
+    card."""
+    from paddle_tpu_torch.jit.dy2static import convert_function
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(64, 64).astype(np.float32))
+    n = torch.tensor(5, dtype=torch.int32)
+    rows = {}
+    for name, fn, args, op in (
+            ("if", _dy_if, (x,), "cond"), ("if_neg", _dy_if, (-x.abs(),),
+                                           "cond"),
+            ("while", _dy_while, (x,), "while_loop"),
+            ("for_range", _dy_for, (x, n), "while_loop")):
+        card_args = [a.cuda() for a in args]
+        staged = jit.to_static(fn)
+        out = staged(*card_args)
+        torch.cuda.synchronize()
+        ops = _graph_ops(staged.graph(*card_args))
+        check(any(op in o for o in ops), f"static (c) {name}: no {op} node "
+              f"in the staged graph: {sorted(set(ops))}")
+        eager = convert_function(fn)(*card_args)
+        cpu = jit.to_static(fn)(*args)
+        same_eager = _same_bits(out, eager)
+        check(same_eager, f"static (c) {name}: staged {out} != eager "
+              f"{eager} on the card")
+        check(torch.allclose(out.cpu(), cpu, rtol=1e-5, atol=1e-5),
+              f"static (c) {name}: card {out} vs CPU {cpu}")
+        rows[name] = {"node": op, "bit_equal_to_eager": same_eager,
+                      "max_abs_vs_cpu": (out.cpu() - cpu).abs().max().item()}
+
+    class Gate(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(64, 32)
+
+        def forward(self, h):
+            out = nn.functional.relu(self.fc(h))
+            if h.mean() > 1e9:
+                out = out * 0.0
+            return out
+
+    layer = Gate().cuda()
+    layer.eval()
+    converted = jit.to_static(layer).layer
+    with tempfile.TemporaryDirectory(prefix="static_save_") as d:
+        path = os.path.join(d, "gate")
+        jit.save(converted, path, input_spec=[jit.InputSpec([8, 64])])
+        loaded = jit.load(path)
+        xb = x[:8].cuda()
+        got = loaded(xb)
+        with torch.no_grad():
+            want = converted(xb)
+        check(loaded.device.type == "cuda" and _same_bits(got, want),
+              "static (c): the converted layer's jit.load differs")
+    rows["jit_save_load"] = {"device": str(loaded.device),
+                             "bit_equal": True}
+    return rows
+
+
+def static_phase(fa, fc, nn, gpt, engine, optim, framework, card,
+                 layers=12, batch=8, seq=1024):
+    """``static``: the declarative mode on the existing kernels.
+
+    (a) ``jit.to_static(GPTForPretraining)`` at GPT-base widths: the
+        staged forward's graph holds 12 flash-forward nodes; a call
+        launches 12 flash forwards on the mma route, its logits held
+        against the layer's eager forward (bit equality printed; the
+        largest gap within ``FLASH_TOL[bf16]``).
+    (b) a ``static.Program`` of ``fused_head_loss(ce_kernel="pallas")``'s
+        value and parameter gradients (``append_backward``), the
+        parameters graph inputs, run for ``STATIC_STEPS`` steps by
+        ``Executor.run(return_numpy=False)`` with the port's AdamW applying
+        the fetched gradients: each step launches 36 flash kernels and
+        the CE forward, dh and dw once; its losses within
+        ``STATIC_LOSS_RTOL`` of ``fused_b8_pallas_ce``'s trainer on the
+        same init and batch, step times beside the trainer's; the
+        program's analysis summary (traced on fakes).
+    (c) :func:`static_dy2static`."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.analysis.walker import count_by_op
+    rep = {"card": card}
+    ids, lbl = gpt_base_batch(batch, seq)
+
+    # (a) the staged forward
+    model = gpt_base_model(gpt, framework, seq, layers).cuda()
+    model.eval()
+    t0 = time.perf_counter()
+    staged = jit.to_static(model)
+    with torch.no_grad():
+        graph = staged.graph(ids)
+    trace_s = time.perf_counter() - t0
+    nodes = count_by_op(graph)
+    check(nodes.get("paddle_tpu_torch.flash_attention_fwd") == layers,
+          f"static (a): {nodes.get('paddle_tpu_torch.flash_attention_fwd')} "
+          f"flash-forward nodes, want {layers}")
+    with torch.no_grad():
+        eager = model(ids)
+        zero_counts(fa, fc)
+        logits = staged(ids)
+        torch.cuda.synchronize()
+        launches_a = check_path(fa, fc, "static (a)", layers, 0, 0)
+        call_ms = time_ms(lambda: staged(ids), reps=10, warmup=2)
+        eager_ms = time_ms(lambda: model(ids), reps=10, warmup=2)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    gap = (logits.float() - eager.float()).abs().max().item()
+    check(torch.allclose(logits.float(), eager.float(), rtol=rtol,
+                         atol=atol), f"static (a): logits gap {gap}")
+    rep["a"] = {"graph_nodes": sum(nodes.values()),
+                "flash_fwd_nodes": layers, "trace_s": trace_s,
+                "launches": launches_a,
+                "bit_equal_to_eager": _same_bits(logits, eager),
+                "max_abs_gap": gap, "tol": [rtol, atol],
+                "call_ms": call_ms, "eager_forward_ms": eager_ms}
+    del model, staged, graph, eager, logits
+    torch.cuda.empty_cache()
+
+    # (b) the yardstick: fused_b8_pallas_ce's trainer, same init and batch
+    trainer, tbatch, n_params = gpt_base_trainer(
+        nn, gpt, engine, optim, framework, batch, seq, head="pallas",
+        layers=layers)
+    inputs, lbls = tbatch
+    t_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STATIC_STEPS):
+        t_losses.append(trainer.train_step(inputs, lbls))
+    torch.cuda.synchronize()
+    trainer_ms = (time.perf_counter() - t0) / STATIC_STEPS * 1e3
+    t_losses = [x.item() for x in t_losses]
+    trainer_prof = profile_calls(lambda: trainer.train_step(inputs, lbls))
+    del trainer, tbatch
+    torch.cuda.empty_cache()
+
+    model = gpt_base_model(gpt, framework, seq, layers).cuda()
+    names = [n for n, _ in model.named_parameters()]
+    grad_fn = static.append_backward(
+        lambda i, t: model.fused_head_loss(i, t, chunk=8192,
+                                           ce_kernel="pallas"),
+        parameter_list=model)
+
+    def step_fn(i, t):
+        loss, grads = grad_fn(i, t)
+        return (loss, *grads)
+
+    t0 = time.perf_counter()
+    prog = static.Program.trace(
+        step_fn, static.data("ids", [batch, seq], "int32"),
+        static.data("lbl", [batch, seq], "int32"), parameters=model,
+        fetch_names=["loss"] + [n + "@GRAD" for n in names])
+    prog_trace_s = time.perf_counter() - t0
+    pnodes = count_by_op(prog.graph)
+    for op, want in (("flash_attention_fwd", layers),
+                     ("flash_attention_dq", layers),
+                     ("flash_attention_dkv", layers), ("fused_ce_fwd", 1),
+                     ("fused_ce_dh", 1), ("fused_ce_dw", 1)):
+        got = pnodes.get("paddle_tpu_torch." + op, 0)
+        check(got == want, f"static (b): {got} {op} nodes, want {want}")
+    t0 = time.perf_counter()
+    summary = prog.analyze().summary()
+    analyze_s = time.perf_counter() - t0
+    exe = static.Executor()
+    opt = optim.AdamW(3e-4, parameters=model.named_parameters())
+    params = dict(model.named_parameters())
+    feed = {"ids": ids, "lbl": lbl}
+
+    def one():
+        outs = exe.run(prog, feed=feed, fetch_list=prog.fetch_names,
+                       return_numpy=False)
+        for n, g in zip(names, outs[1:]):
+            params[n].grad = g
+        opt.step()
+        opt.clear_grad()
+        return outs[0]
+
+    zero_counts(fa, fc)
+    s_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STATIC_STEPS):
+        s_losses.append(one())
+    torch.cuda.synchronize()
+    static_ms = (time.perf_counter() - t0) / STATIC_STEPS * 1e3
+    launches_b = check_path(fa, fc, "static (b)", layers * STATIC_STEPS,
+                            layers * STATIC_STEPS, STATIC_STEPS)
+    s_losses = [x.item() for x in s_losses]
+    rel = [abs(a - b) / abs(b) for a, b in zip(s_losses, t_losses)]
+    check(all(r <= STATIC_LOSS_RTOL for r in rel),
+          f"static (b): losses {s_losses} vs the trainer's {t_losses}")
+    check(len(prog._compiled) == 1, "static (b): traced more than once")
+    static_prof = profile_calls(one)
+    rep["b"] = {"params": n_params, "steps": STATIC_STEPS,
+                "losses": s_losses, "trainer_losses": t_losses,
+                "rel_gap": rel, "rtol": STATIC_LOSS_RTOL,
+                "bit_equal_to_trainer": s_losses == t_losses,
+                "launches": launches_b, "graph_nodes": sum(pnodes.values()),
+                "trace_s": prog_trace_s, "analyze_s": analyze_s,
+                "analysis": summary,
+                "ms_per_step": static_ms, "trainer_ms_per_step": trainer_ms,
+                "profile": static_prof, "trainer_profile": trainer_prof}
+    del model, opt, prog, params
+    torch.cuda.empty_cache()
+
+    # (c) dy2static
+    rep["c"] = static_dy2static(nn, jit)
+    rep["launches"] = {k: launches_a[k] + launches_b[k] for k in launches_b}
+    return rep
+
+
 def analysis_phase(fa, fc, pa, nn, gpt, engine, optim, framework):
     """``analysis``: the program analysis of the port on the card.
     (a) trace GPT-base's fused_b8_pallas_ce step on CUDA fakes: seconds,
@@ -4839,11 +5108,9 @@ def bert_steps(fa, fc, tuner, trainer, batch, seq, warmup, iters, flash):
           f"{losses[0]} -> {losses[-1]}")
     check(trainer.skipped_steps() == 0, f"BERT S={seq}: a step skipped")
     prof = profile_steps(trainer, batch, _group_text)
-    # the launch counts above are exact; the profiler may drop an event
-    # (it saw 107 of 108 flash launches once), so it is held to seeing them
     seen = prof["by_group"].get("flash kernels", {}).get("launches_per_step",
                                                           0)
-    check(seen > 0 if flash else seen == 0,
+    check(seen == (36 if flash else 0),
           f"BERT S={seq}: the profiler saw {seen} flash launches a step")
     b = ids.shape[0]
     return {"batch": b, "seq": seq, "dtype": "bfloat16", "warmup": warmup,
@@ -5782,6 +6049,15 @@ def run(work) -> int:
              **amp_phase(amp, fa, nn, gpt, engine, optim, framework))
     finally:
         dist.destroy_process_group()
+
+    # 18b. the declarative mode: GPT-base's forward staged by to_static,
+    # its loss and gradients as a static.Program under Executor.run, and
+    # converted control flow on the card
+    t0 = time.perf_counter()
+    rep = static_phase(fa, fc, nn, gpt, engine, optim, framework, card)
+    path_launches["static"] = rep["launches"]
+    emit(phase="static", seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
 
     # 19. kernels
     kernels = []

@@ -46,12 +46,72 @@ with the planner (``distributed.auto``); BERT/ERNIE pretraining
 (``text.models.bert``); and the parameter-server tier
 (``distributed.ps``: the native host tables, their TCP service, the
 Hogwild/Downpour trainers, the host-table embedding and the hot tier on
-the card) with Wide&Deep and DeepFM (``rec``).
+the card) with Wide&Deep and DeepFM (``rec``); and the declarative
+mode: the tensor API at the top level (``paddle_tpu_torch.add``,
+``.reshape``, ``.matmul`` ... from ``tensor``), ``autograd``, dy2static
+with ``jit.to_static``/``TracedLayer`` and ``static`` (``Program``,
+``Executor``, ``static.nn``, ``static.amp``), whose programs are
+``torch.fx`` graphs traced once and executed.
+
+The tensor API's star import shadows Python's ``abs``, ``max``, ``min``,
+``sum``, ``round``, ``all``, ``any``, ``pow`` and ``slice`` in this
+module's namespace only, as ``paddle`` does.
 """
 __version__ = "0.1.0"
 
-__all__ = ["amp", "analysis", "distributed", "framework", "framework_io",
-           "incubate",
+import torch as _torch
+
+from .framework.dtype import (  # noqa: F401,E402
+    bfloat16, bool_, complex64, complex128, float16, float32, float64,
+    get_default_dtype, int8, int16, int32, int64, set_default_dtype, uint8)
+from .framework.random import get_rng_state_tracker, seed  # noqa: F401,E402
+
+# -- tensor ops at top level (paddle.add, paddle.reshape, ...) ---------------
+from .tensor import *  # noqa: F401,F403,E402
+from .tensor import linalg, logic, manipulation, math, random, stat  # noqa: F401,E402
+from . import tensor  # noqa: F401,E402
+from . import autograd  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from .autograd import grad, no_grad, set_grad_enabled  # noqa: F401,E402
+
+__all__ = ["amp", "analysis", "autograd", "distributed", "framework",
+           "framework_io", "incubate",
            "inference", "jit", "nn", "ops", "optimizer", "profiler",
-           "rec", "regularizer", "resilience", "telemetry", "text",
-           "vision"]
+           "rec", "regularizer", "resilience", "static", "telemetry",
+           "tensor", "text", "vision", "grad", "no_grad",
+           "set_grad_enabled", "in_dynamic_mode", "enable_static",
+           "disable_static", "in_dygraph_mode", "seed"]
+
+_static_mode = False
+
+
+def in_dynamic_mode() -> bool:
+    """True outside a trace and outside the ``enable_static()`` mode (the
+    reference's dygraph/static switch, fluid/framework.py:185)."""
+    if _static_mode:
+        return False
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+    return get_proxy_mode() is None
+
+
+def disable_static(place=None):
+    global _static_mode
+    _static_mode = False
+
+
+def enable_static():
+    """reference paddle.enable_static. There is no global graph mode:
+    ``static.Program.trace`` stages a function; this flips the flag that
+    ``in_dynamic_mode`` reads."""
+    global _static_mode
+    _static_mode = True
+
+
+def in_dygraph_mode() -> bool:
+    return not _static_mode
+
+
+enable_dygraph = disable_static
+disable_dygraph = enable_static
+Tensor = _torch.Tensor

@@ -17,9 +17,9 @@ model's state through ``framework_io.save``.
 The parameter-server lifecycle (``init_server``, ``run_server``,
 ``stop_server``, ``init_worker``, ``stop_worker``) drives ``distributed.ps``
 from ``TRAINING_ROLE``, ``PADDLE_PSERVER_ENDPOINTS`` and
-``PADDLE_PSERVER_ID``; ``save_persistables`` without a model (the static
-scope) raises, naming item 21. ``utils``, ``fs`` and ``elastic`` are the
-modules they were.
+``PADDLE_PSERVER_ID``; ``save_persistables`` without a model writes the
+static scope (``static.global_scope()``). ``utils``, ``fs`` and
+``elastic`` are the modules they were.
 """
 from __future__ import annotations
 
@@ -91,12 +91,6 @@ class DistributedStrategy:
 def _pserver_endpoints():
     return [e for e in os.environ.get("PADDLE_PSERVER_ENDPOINTS",
                                       "").split(",") if e.strip()]
-
-
-def _waits(what: str, item: str):
-    raise NotImplementedError(
-        f"fleet.{what} is not ported yet; it waits in ROADMAP.md (Queue 1, "
-        f"{item})")
 
 
 class Fleet:
@@ -286,18 +280,27 @@ class Fleet:
 
     def save_persistables(self, executor=None, dirname=None,
                           main_program=None, model=None):
-        """The model's state to ``<dirname>/model.pdparams`` (the
-        reference's pickle); without a model (the static scope) it
-        raises, naming item 21."""
+        """reference fleet_base.py save_persistables: the persistable
+        state, in the reference's format — (a) a Layer's state_dict at
+        ``<dirname>/model.pdparams`` when ``model`` is given, else (b) the
+        static scope's values (``static.global_scope()``: programs hold
+        their parameters there) at ``<dirname>/scope.pdparams``, plus (c)
+        this rank's parameter-server shard at ``sparse_shard.bin`` when
+        one is hosted (``init_server``)."""
         if dirname is None:
             raise ValueError("save_persistables needs dirname")
-        if model is None:
-            _waits("save_persistables of the static scope",
-                   "item 21: static")
         from ... import framework_io
         os.makedirs(dirname, exist_ok=True)
-        framework_io.save(model.state_dict(),
-                          os.path.join(dirname, "model.pdparams"))
+        if model is not None:
+            framework_io.save(model.state_dict(),
+                              os.path.join(dirname, "model.pdparams"))
+        else:
+            from ...static import _scope_state, global_scope
+            framework_io.save(dict(_scope_state(global_scope())),
+                              os.path.join(dirname, "scope.pdparams"))
+        server = getattr(self, "_ps_server", None)
+        if server is not None:
+            server.table.save(os.path.join(dirname, "sparse_shard.bin"))
         return dirname
 
 

@@ -30,30 +30,45 @@ reference exports StableHLO through ``jax.export``; the port exports a
 :func:`read_pdiparams` reads a ``.pdiparams`` file, the reference's too,
 into ``{name: array}`` for ``Layer.set_state_dict_from_numpy``: that is
 how a model saved by the JAX package is saved again by the port.
-``to_static`` and ``TracedLayer`` (dy2static) wait for ROADMAP Queue 1
-item 21 and raise.
+
+Staging (``to_static``, ``TracedLayer``): the reference runs the
+dy2static AST pass (:mod:`.dy2static`) and stages with ``jax.jit``. The
+port runs the same pass and stages with ``torch.fx``: the converted
+function is traced once per input signature (shapes, dtypes, devices,
+the grad mode) by ``make_fx(tracing_mode="fake")`` into a
+``torch.fx.GraphModule`` (:func:`trace_graph`), which is then executed
+on the real tensors. Nothing is generated: the graph's nodes are ATen
+ops, the port's kernel ops (one node each) and the ``cond`` /
+``while_loop`` higher-order ops of converted control flow. A layer's
+parameters and buffers are graph inputs, read at every call, so an
+update of the weights is seen without a new trace.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import pickle
 import threading
+import types
+import warnings
 from collections import namedtuple
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from .._device import resolve_device
 from ..framework_io import _from_saved, _to_saveable
 from .functionalization import (functional_call, state_of,  # noqa: F401
                                 trainable_mask)
 
-__all__ = ["InputSpec", "TracedLayer", "TranslatedLayer", "to_static",
-           "save", "load", "read_pdiparams", "poly_arg_specs",
-           "not_to_static", "set_verbosity", "set_code_level",
-           "ProgramTranslator", "EXAMPLE_BATCH", "MAX_DYNAMIC_DIM"]
+__all__ = ["InputSpec", "TracedLayer", "TranslatedLayer", "StaticFunction",
+           "to_static", "trace_graph", "save", "load", "read_pdiparams",
+           "poly_arg_specs", "not_to_static", "set_verbosity",
+           "set_code_level", "ProgramTranslator", "EXAMPLE_BATCH",
+           "MAX_DYNAMIC_DIM"]
 
 # rows of the example inputs a dynamic dim is traced with (1 specialises)
 EXAMPLE_BATCH = 2
@@ -305,20 +320,234 @@ def load(path, device=None, **configs) -> TranslatedLayer:
                            _to_device(buffers, home), device=home)
 
 
-# -- dy2static: not ported (ROADMAP Queue 1 item 21) --------------------------
+# -- staging: dy2static + torch.fx ---------------------------------------------
 
-_NO_DY2STATIC = ("{} needs the dy2static pass (paddle_tpu/jit/dy2static.py), "
-                 "which waits for ROADMAP Queue 1 item 21; export with "
-                 "jit.save(layer, path, input_spec)")
+class LostGradientError(RuntimeError):
+    """A staged graph would drop a gradient the eager call has."""
+
+
+def _function_spy():
+    """A context that records the ``torch.autograd.Function`` classes the
+    traced code applies to tensors that need a gradient. ``make_fx``
+    inlines such a Function's forward, so a replay of the graph has no
+    way to its ``backward``. Functions of torch itself are left out: a
+    registered op's autograd (the flash kernels') is one of them, and its
+    node keeps it."""
+    import contextlib
+    seen = []
+    fn_cls = torch.autograd.Function
+    orig = fn_cls.__dict__["apply"]
+
+    def apply(cls, *args, **kwargs):
+        if torch.is_grad_enabled() and not cls.__module__.startswith(
+                "torch.") and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in list(args) + list(kwargs.values())):
+            if cls.__name__ not in seen:
+                seen.append(cls.__name__)
+        return orig.__func__(cls, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def spying():
+        fn_cls.apply = classmethod(apply)
+        try:
+            yield seen
+        finally:
+            fn_cls.apply = orig
+
+    return spying()
+
+
+def trace_graph(fn, *args):
+    """``fn(*args)`` traced once on fakes of ``args`` into a
+    ``torch.fx.GraphModule`` of ATen ops, kernel ops and control-flow
+    ops; returns ``(graph, lost)`` where ``lost`` names the
+    ``autograd.Function``s whose backward a replay of the graph would
+    lose (:func:`_function_spy`). Tensors ``fn`` closes over are taken as
+    they are (constants of the graph); nothing is allocated or launched."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from .dy2static import _Substitute
+
+    def traced(*a):
+        # a staged loop's counter may index a tensor (``x[i]``)
+        with _Substitute({}):
+            return fn(*a)
+
+    with _function_spy() as lost:
+        graph = make_fx(traced, tracing_mode="fake",
+                        _allow_non_fake_inputs=True)(*args)
+    return graph, list(lost)
+
+
+def _signature(values) -> tuple:
+    sig = [torch.is_grad_enabled()]
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            sig.append((tuple(v.shape), v.dtype, v.device.type,
+                        v.device.index, v.requires_grad))
+        else:
+            sig.append(("py", repr(v)))
+    return tuple(sig)
+
+
+class StaticFunction:
+    """A function after the dy2static pass, staged once per input
+    signature and executed as its graph (reference:
+    program_translator.py:232 StaticFunction)."""
+
+    def __init__(self, fn, input_spec=None):
+        from .dy2static import convert_function
+        self._dygraph_function = fn
+        self._converted = convert_function(fn)
+        self.input_spec = input_spec
+        self._graphs = {}
+        functools.update_wrapper(self, fn, updated=())
+
+    def _entry(self, args, kwargs):
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        key = (_signature(leaves), str(spec))
+        entry = self._graphs.get(key)
+        if entry is None:
+            tensors = [i for i, v in enumerate(leaves)
+                       if isinstance(v, torch.Tensor)]
+            conv = self._converted
+
+            def pure(*ts):
+                full = list(leaves)
+                for j, i in enumerate(tensors):
+                    full[i] = ts[j]
+                a, k = pytree.tree_unflatten(full, spec)
+                return conv(*a, **k)
+
+            graph, lost = trace_graph(pure, *[leaves[i] for i in tensors])
+            entry = (graph, tensors, lost)
+            self._graphs[key] = entry
+        return entry, leaves
+
+    def graph(self, *args, **kwargs) -> "torch.fx.GraphModule":
+        """The staged graph for these inputs (traced on first use)."""
+        return self._entry(args, kwargs)[0][0]
+
+    def __call__(self, *args, **kwargs):
+        (graph, tensors, lost), leaves = self._entry(args, kwargs)
+        if lost:
+            raise LostGradientError(
+                f"to_static({self._dygraph_function.__name__}): the staged "
+                f"graph would lose the backward of {lost}; trace the value "
+                "and its gradients together (static.append_backward in a "
+                "static.Program) or call it under torch.no_grad()")
+        return graph(*[leaves[i] for i in tensors])
+
+    @property
+    def dygraph_function(self):
+        return self._dygraph_function
 
 
 class TracedLayer:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NO_DY2STATIC.format("TracedLayer"))
+    """A Layer staged through ``torch.fx``: callable with the layer's
+    signature, traced once per input signature and then executed as its
+    graph. The parameters and buffers are inputs of the graph, read from
+    the layer at every call (``refresh_state`` re-reads which tensors
+    they are, after a parameter is replaced), never constants of the
+    trace. Buffers the forward updates in place (running statistics) are
+    updated in place by the graph too.
+
+    Called with gradients enabled, the result carries the autograd of the
+    graph's ATen ops and of the kernel ops; a graph that would drop a
+    gradient the eager layer has (an ``autograd.Function`` whose forward
+    the trace inlined) raises :class:`LostGradientError` naming it."""
+
+    def __init__(self, layer, input_spec=None):
+        self.layer = layer
+        self.input_spec = input_spec
+        self._graphs = {}
+        self.refresh_state()
+
+    def refresh_state(self):
+        self._params, self._buffers = state_of(self.layer)
+
+    def _entry(self, args, kwargs):
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        pnames, bnames = list(self._params), list(self._buffers)
+        state = list(self._params.values()) + list(self._buffers.values())
+        key = (_signature(state + leaves), str(spec), self.layer.training,
+               tuple(pnames), tuple(bnames))
+        entry = self._graphs.get(key)
+        if entry is None:
+            tensors = [i for i, v in enumerate(leaves)
+                       if isinstance(v, torch.Tensor)]
+            layer, n_p, n_s = self.layer, len(pnames), len(state)
+
+            def pure(*ts):
+                params = dict(zip(pnames, ts[:n_p]))
+                buffers = dict(zip(bnames, ts[n_p:n_s]))
+                full = list(leaves)
+                for j, i in enumerate(tensors):
+                    full[i] = ts[n_s + j]
+                a, k = pytree.tree_unflatten(full, spec)
+                return functional_call(layer, params, buffers, *a, **k)[0]
+
+            graph, lost = trace_graph(
+                pure, *state, *[leaves[i] for i in tensors])
+            entry = (graph, tensors, lost)
+            self._graphs[key] = entry
+        return entry, state, leaves
+
+    def graph(self, *args, **kwargs) -> "torch.fx.GraphModule":
+        """The staged graph for these inputs (traced on first use). Its
+        inputs are the parameters, the buffers, then the tensor inputs."""
+        return self._entry(args, kwargs)[0][0]
+
+    def __call__(self, *args, **kwargs):
+        (graph, tensors, lost), state, leaves = self._entry(args, kwargs)
+        if lost:
+            raise LostGradientError(
+                f"TracedLayer({type(self.layer).__name__}): the staged graph "
+                f"would lose the backward of {lost} (its forward is inlined "
+                "in the trace); trace the loss and its gradients together "
+                "(static.append_backward in a static.Program) or call the "
+                "layer under torch.no_grad()")
+        return graph(*state, *[leaves[i] for i in tensors])
+
+    @property
+    def forward(self):
+        return self.__call__
 
 
 def to_static(layer_or_fn=None, input_spec=None, **kwargs):
-    raise NotImplementedError(_NO_DY2STATIC.format("jit.to_static"))
+    """Decorator/wrapper: the dy2static AST pass, then staging (reference:
+    paddle.jit.to_static -> program_translator.py:232 StaticFunction).
+    Python if/while/for-range over traced tensors become ``cond`` /
+    ``while_loop`` nodes of the staged graph. A Layer's ``forward`` is
+    replaced by its converted form (so the layer itself runs the converted
+    code eagerly, and ``jit.save`` exports it) and a :class:`TracedLayer`
+    of it is returned; a function gives a :class:`StaticFunction`. With
+    ``ProgramTranslator().enable(False)`` the object comes back as it
+    was. ``kwargs`` (the reference's ``jax.jit`` keywords) are accepted
+    and unused."""
+
+    def wrap(obj):
+        from ..nn.layer import Layer
+        if not ProgramTranslator.enable_to_static:
+            return obj
+        if isinstance(obj, (Layer, torch.nn.Module)):
+            from .dy2static import convert_function
+            try:
+                converted = convert_function(type(obj).forward)
+                obj.forward = types.MethodType(converted, obj)
+            except Exception as e:  # uncovered shape: stage the original
+                warnings.warn(
+                    f"dy2static: AST conversion of "
+                    f"{type(obj).__name__}.forward failed ({e}); staging "
+                    "the original forward (tensor-dependent Python control "
+                    "flow will fail to trace)")
+            return TracedLayer(obj, input_spec)
+        return StaticFunction(obj, input_spec)
+
+    if layer_or_fn is None:
+        return wrap
+    return wrap(layer_or_fn)
 
 
 def not_to_static(fn):
@@ -342,8 +571,9 @@ def set_code_level(level: int = 100, also_to_stdout: bool = False):
 
 
 class ProgramTranslator:
-    """Singleton compat shim (reference dygraph_to_static/program_translator
-    .py:232); ``enable`` records the flag."""
+    """Singleton (reference dygraph_to_static/program_translator.py:232).
+    ``enable(False)`` turns staging off: ``to_static`` then returns the
+    original callable unchanged."""
 
     _instance = None
     enable_to_static = True

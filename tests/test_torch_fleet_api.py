@@ -237,8 +237,15 @@ def test_saves_and_the_raising_paths(tmp_path, monkeypatch):
     assert torch.equal(loaded(x), m(x))
     with pytest.raises(ValueError):
         f.save_inference_model(dirname=str(tmp_path / "x"), model=m)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        f.save_persistables(dirname=str(tmp_path / "s"))
+    # without a model: the static scope, in the reference's format
+    from paddle_tpu_torch import static
+    scope = static.Scope()
+    scope.var("w", torch.arange(6.0).reshape(2, 3))
+    with static.scope_guard(scope):
+        d = f.save_persistables(dirname=str(tmp_path / "s"))
+    ref_state = paddle.load(os.path.join(d, "scope.pdparams"))
+    np.testing.assert_array_equal(np.asarray(ref_state["w"]),
+                                  np.arange(6.0).reshape(2, 3))
     # the parameter-server lifecycle, as the reference's: no endpoints to
     # connect to raises; stopping what never started does nothing; serving
     # needs a server first

@@ -287,10 +287,13 @@ def test_a_program_runs_only_on_its_device(tmp_path):
 
 
 def test_to_static_waits_for_dy2static():
-    with pytest.raises(NotImplementedError, match="item 21"):
-        jit.to_static(nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        jit.TracedLayer(nn.Linear(2, 2))
+    # dy2static is ported: to_static stages, TracedLayer traces
+    layer = nn.Linear(2, 2)
+    staged = jit.to_static(layer)
+    assert isinstance(staged, jit.TracedLayer) and staged.layer is layer
+    x = torch.ones(3, 2)
+    assert torch.equal(staged(x), layer(x))
+    assert torch.equal(jit.TracedLayer(layer)(x), layer(x))
     jit.set_verbosity(3)
     jit.set_code_level(2)
     assert jit._verbosity == 3 and jit._code_level == 2
