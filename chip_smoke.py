@@ -4634,6 +4634,10 @@ def static_phase(fa, fc, nn, gpt, engine, optim, framework, card,
         ``STATIC_LOSS_RTOL`` of ``fused_b8_pallas_ce``'s trainer on the
         same init and batch, step times beside the trainer's; the
         program's analysis summary (traced on fakes).
+    (s) ``jit.to_static`` of the same loss, trained ``STATIC_STEPS``
+        steps through autograd over the staged graph with the port's
+        AdamW: 12 flash launches of each kernel and one of each CE kernel
+        a step, losses within ``STATIC_LOSS_RTOL`` of the trainer's.
     (c) :func:`static_dy2static`."""
     from paddle_tpu_torch import jit, static
     from paddle_tpu_torch.analysis.walker import count_by_op
@@ -4759,9 +4763,60 @@ def static_phase(fa, fc, nn, gpt, engine, optim, framework, card,
     del model, opt, prog, params
     torch.cuda.empty_cache()
 
+    # (s) the same loss staged by to_static, trained through autograd over
+    # the staged graph (the CE and flash ops keep their backward)
+    model = gpt_base_model(gpt, framework, seq, layers).cuda()
+
+    def head_loss(i, t):
+        return model.fused_head_loss(i, t, chunk=8192, ce_kernel="pallas")
+
+    staged_loss = jit.to_static(head_loss)
+    t0 = time.perf_counter()
+    sgraph = staged_loss.graph(ids, lbl)
+    s_trace_s = time.perf_counter() - t0
+    snodes = count_by_op(sgraph)
+    for op, want in (("flash_attention_fwd", layers), ("fused_ce_fwd", 1)):
+        got = snodes.get("paddle_tpu_torch." + op, 0)
+        check(got == want, f"static (s): {got} {op} nodes, want {want}")
+    opt = optim.AdamW(3e-4, parameters=model.named_parameters())
+
+    def s_step():
+        loss = staged_loss(ids, lbl)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    zero_counts(fa, fc)
+    g_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STATIC_STEPS):
+        g_losses.append(s_step())
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t0) / STATIC_STEPS * 1e3
+    launches_s = check_path(fa, fc, "static (s)", layers * STATIC_STEPS,
+                            layers * STATIC_STEPS, STATIC_STEPS)
+    g_losses = [x.item() for x in g_losses]
+    rel_s = [abs(a - b) / abs(b) for a, b in zip(g_losses, t_losses)]
+    check(all(r <= STATIC_LOSS_RTOL for r in rel_s),
+          f"static (s): losses {g_losses} vs the trainer's {t_losses}")
+    staged_prof = profile_calls(s_step)
+    rep["s"] = {"steps": STATIC_STEPS, "losses": g_losses,
+                "trainer_losses": t_losses, "rel_gap": rel_s,
+                "rtol": STATIC_LOSS_RTOL,
+                "bit_equal_to_trainer": g_losses == t_losses,
+                "launches": launches_s, "graph_nodes": sum(snodes.values()),
+                "trace_s": s_trace_s, "ms_per_step": staged_ms,
+                "program_ms_per_step": static_ms,
+                "trainer_ms_per_step": trainer_ms, "profile": staged_prof}
+    del model, opt, staged_loss, sgraph
+    torch.cuda.empty_cache()
+
     # (c) dy2static
     rep["c"] = static_dy2static(nn, jit)
-    rep["launches"] = {k: launches_a[k] + launches_b[k] for k in launches_b}
+    rep["launches"] = {k: launches_a[k] + launches_b[k] + launches_s[k]
+                       for k in launches_b}
     return rep
 
 
@@ -5181,6 +5236,529 @@ def text_phase(fa, fc, tuner, optim, engine, framework, rs):
     out["t4_flash"] = bert_flash_t4(fa, fc, rs)
     zero_counts(fa, fc)
     out["launches"] = {**launches, "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0}
+    return out
+
+
+# -- mt: the MT Transformer and the PTB LSTM on the card --------------------------
+
+MT_LOSS_RTOL = BERT_LOSS_RTOL           # step 0, later steps
+MT_GRAD_NORM_RTOL = BERT_GRAD_NORM_RTOL
+MT_DROP_RTOL = 1e-2     # each later loss's drop from step 0, against the
+#                        golden's (the PTB steps move the loss by 3e-4 of
+#                        itself, below the 1e-3 bar on the losses)
+MT_BEAM_SCORE_TOL = 1e-4
+SEQ2SEQ_RTOL = 1e-5
+MT_BASE = dict(src_vocab_size=37000, trg_vocab_size=37000, max_length=256,
+               num_encoder_layers=6, num_decoder_layers=6, n_head=8,
+               d_model=512, d_inner_hid=2048, dropout=0.1,
+               weight_sharing=True, bos_id=0, eos_id=1)
+
+
+def mt_loss(F, logits, label, vocab, eps=0.1, pad=0):
+    """Label-smoothed (``eps``) soft-label cross entropy, the mean over the
+    target tokens that are not ``pad``: ``tests/torch_mt_golden.py``'s."""
+    soft = F.label_smooth(F.one_hot(label, vocab), epsilon=eps)
+    ce = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+    w = (label != pad).float()
+    return (ce * w).sum() / w.sum()
+
+
+def _golden_file():
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "mt_golden.json")) as f:
+        return json.load(f)
+
+
+def _hold_golden(what, loss0, gnorm, losses, gold):
+    """The golden bars: the step-0 loss and gradient norm (rtol 1e-4), the
+    later losses (1e-3) and their drops from step 0 (``MT_DROP_RTOL``)."""
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    g = gold["losses"]
+    check(rel(loss0, g[0]) <= MT_LOSS_RTOL[0],
+          f"{what}: step-0 loss {loss0} vs golden {g[0]}")
+    check(rel(gnorm, gold["step0_grad_norm"]) <= MT_GRAD_NORM_RTOL,
+          f"{what}: step-0 grad norm {gnorm} vs {gold['step0_grad_norm']}")
+    check(rel(losses[0], g[0]) <= MT_LOSS_RTOL[0],
+          f"{what}: train_step 0 loss {losses[0]} vs {g[0]}")
+    for i in range(1, len(losses)):
+        check(rel(losses[i], g[i]) <= MT_LOSS_RTOL[1],
+              f"{what}: loss after {i} updates {losses[i]} vs {g[i]}")
+        check(rel(losses[0] - losses[i], g[0] - g[i]) <= MT_DROP_RTOL,
+              f"{what}: loss drop after {i} updates "
+              f"{losses[0] - losses[i]} vs {g[0] - g[i]}")
+    return {"loss0": loss0, "grad_norm": gnorm, "losses": losses,
+            "golden_losses": g, "golden_grad_norm": gold["step0_grad_norm"],
+            "loss_rel_err": [rel(a, b) for a, b in zip([loss0] + losses,
+                                                       g[:1] + g)],
+            "grad_norm_rel_err": rel(gnorm, gold["step0_grad_norm"])}
+
+
+def _golden_train(model, opt, loss_fn, inputs, labels, engine, mesh_mod,
+                  device):
+    """Step-0 loss and gradient norm, then ``train_step`` per golden loss."""
+    model.to(device)
+    loss0 = loss_fn(model(inputs), labels)
+    grads = torch.autograd.grad(loss0, list(model.parameters()))
+    gnorm = torch.sqrt(sum(g.double().square().sum() for g in grads)).item()
+    loss0 = loss0.item()
+    del grads
+    trainer = engine.ParallelTrainer(model, opt, loss_fn,
+                                     mesh=mesh_mod.build_mesh({"data": 1}),
+                                     device=device)
+    return loss0, gnorm, trainer
+
+
+def _pair_input(nn, model):
+    """``model`` behind a layer taking ``(src, trg)`` as one input, as the
+    trainer hands its model one input."""
+    class Wrap(nn.Layer):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, batch):
+            return self.m(*batch)
+    return Wrap(model)
+
+
+def mt_golden(optim, engine, mesh_mod, models, nn, device="cuda"):
+    """(m1) ``TransformerModel`` at Transformer-base widths and vocabulary,
+    depth 2 + 2, float32 (TF32 off), dropout 0, batch 2 x 32, against
+    ``mt_golden.json``: the step-0 loss and gradient norm, three AdamW
+    ``train_step``s, then ``InferTransformerModel`` (beam 4, 16 steps) at
+    the trained weights: ids equal to the golden's, scores within
+    ``MT_BEAM_SCORE_TOL``; each step's smallest top-candidate gap
+    printed (a near tie, where two implementations may part, is told from
+    a fault by it)."""
+    from paddle_tpu_torch.testdata import recipes
+    gold = _golden_file()["mt"]
+    cfg = {k: v for k, v in gold["config"].items()
+           if k not in ("dtype", "batch", "seq", "min_len")}
+    check(gold["config"]["dtype"] == "float32" and cfg["d_model"] == 512 and
+          cfg["trg_vocab_size"] == 37000, f"golden config {gold['config']}")
+    model = models.TransformerModel(**cfg)
+    names_shapes = [(n, tuple(t.shape)) for n, t in
+                    model.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port state names/shapes differ from the MT golden")
+    rw = gold["recipe"]["weights"]
+    model.set_state_dict_from_numpy(recipes.bert_weights(
+        names_shapes, rw["seed"], rw["std"]))
+    c = gold["config"]
+    src, trg, lbl = (torch.from_numpy(a).to(device) for a in recipes.mt_data(
+        gold["recipe"]["data"]["seed"], c["batch"], c["seq"],
+        cfg["src_vocab_size"], c["min_len"]))
+    vocab = cfg["trg_vocab_size"]
+
+    def loss_fn(out, y):
+        return mt_loss(nn.functional, out, y, vocab)
+
+    o = gold["optimizer"]
+    opt = optim.AdamW(o["learning_rate"], beta1=o["beta1"], beta2=o["beta2"],
+                      epsilon=o["epsilon"])
+    loss0, gnorm, trainer = _golden_train(_pair_input(nn, model), opt, loss_fn, (src, trg),
+                                          lbl, engine, mesh_mod, device)
+    losses = [trainer.train_step((src, trg), lbl).item()
+              for _ in gold["losses"]]
+    check(trainer.skipped_steps() == 0, "m1: a step skipped")
+    trainer.sync_to_model()
+    out = _hold_golden("m1", loss0, gnorm, losses, gold)
+    beam = gold["beam"]
+    infer = models.InferTransformerModel(
+        **cfg, beam_size=beam["beam_size"], max_out_len=beam["max_out_len"],
+        alpha=beam["alpha"]).to(device)
+    infer.set_state_dict(model.state_dict(True))
+    infer.eval()
+    with torch.no_grad():
+        ids, scores = infer(src)
+    margins = infer.last_margins.tolist()
+    score_err = float(np.abs(scores.cpu().numpy() -
+                             np.asarray(beam["scores"])).max())
+    out["beam"] = {"ids_equal": ids.tolist() == beam["ids"],
+                   "max_score_abs_err": score_err,
+                   "step_min_margins": margins, "min_margin": min(margins)}
+    print(f"m1 beam step margins {margins}", flush=True)
+    check(ids.tolist() == beam["ids"], f"m1: beam ids {ids.tolist()} vs "
+          f"golden {beam['ids']} (smallest step margin {min(margins)})")
+    check(score_err <= MT_BEAM_SCORE_TOL, f"m1: beam scores off by "
+          f"{score_err}")
+    return out
+
+
+def ptb_golden(optim, engine, mesh_mod, nn, port, device="cuda"):
+    """(m5) the medium PTB LM at full width, float32, against
+    ``mt_golden.json``'s ``ptb``: the step-0 loss and gradient norm, three
+    ``SGD(1.0)`` steps under ``ClipGradByGlobalNorm(5.0)``."""
+    from paddle_tpu_torch.testdata import recipes
+    gold = _golden_file()["ptb"]
+    c = gold["config"]
+    check(c["dtype"] == "float32" and c["hidden"] == 650 and
+          c["vocab"] == 10000, f"golden config {c}")
+    model = recipes.ptb_lm(port, c["vocab"], c["hidden"], c["layers"])
+    names_shapes = [(n, tuple(t.shape)) for n, t in
+                    model.named_state().items()]
+    check([[n, list(s)] for n, s in names_shapes] == gold["names_shapes"],
+          "port state names/shapes differ from the PTB golden")
+    rw = gold["recipe"]["weights"]
+    model.set_state_dict_from_numpy(recipes.ptb_weights(
+        names_shapes, rw["seed"], rw["scale"]))
+    ids, nxt = (torch.from_numpy(a).to(device) for a in recipes.ptb_data(
+        gold["recipe"]["data"]["seed"], c["batch"], c["steps"], c["vocab"]))
+    o = gold["optimizer"]
+    opt = optim.SGD(o["learning_rate"], grad_clip=nn.ClipGradByGlobalNorm(
+        o["clip_global_norm"]))
+    loss0, gnorm, trainer = _golden_train(model, opt, _ptb_loss(nn), ids,
+                                          nxt, engine, mesh_mod, device)
+    losses = [trainer.train_step(ids, nxt).item() for _ in gold["losses"]]
+    check(trainer.skipped_steps() == 0, "m5: a step skipped")
+    return _hold_golden("m5", loss0, gnorm, losses, gold)
+
+
+def _ptb_loss(nn):
+    def loss(logits, y):
+        return nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), y.reshape(-1))
+    return loss
+
+
+def _group_mt(name):
+    low = name.lower()
+    if "flash_" in low:
+        return "flash kernels"
+    if "gemm" in low or low.startswith("nvjet") or "cutlass" in low:
+        return "GEMMs"
+    if "softmax" in low:
+        return "softmax (attention, loss)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "LayerNorm"
+    if "reduce" in low:
+        return "reductions"
+    return "elementwise and the rest"
+
+
+def mt_train_m2(fa, fc, tuner, optim, engine, mesh_mod, models, nn,
+                framework, batch=192, seq=128, warmup=2, iters=8):
+    """(m2) Transformer-base (6 + 6, d 512, 8 heads, d_ff 2048, dropout
+    0.1, vocabulary 37,000, shared weights) in bf16 (``model.bfloat16()``,
+    as GPT's bench path casts), ``ParallelTrainer``, AdamW(1e-4, beta2
+    0.98, epsilon 1e-9), the label-smoothed loss; batch 192 x 128 source
+    and target tokens, lengths 16-128 by seed, pad 0. Every attention
+    has a dense mask: 0 flash launches, 18 fallbacks a forward."""
+    from paddle_tpu_torch.testdata import recipes
+    framework.seed(0)
+    model = models.TransformerModel(**MT_BASE)
+    model.bfloat16()
+    n_params = sum(p.numel() for p in model.parameters())
+    src, trg, lbl = (torch.from_numpy(a).cuda() for a in recipes.mt_data(
+        2, batch, seq, MT_BASE["trg_vocab_size"], 16))
+    vocab = MT_BASE["trg_vocab_size"]
+    trainer = engine.ParallelTrainer(
+        _pair_input(nn, model), optim.AdamW(1e-4, beta1=0.9, beta2=0.98,
+                                            epsilon=1e-9),
+        lambda out, y: mt_loss(nn.functional, out, y, vocab),
+        mesh=mesh_mod.build_mesh({"data": 1}))
+    n_steps = warmup + iters
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, fc)
+    fb0 = tuner.FALLBACKS["flash_attention"]
+    losses = [trainer.train_step((src, trg), lbl).item()
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step((src, trg), lbl) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    launches = dict(fa.LAUNCHES)
+    fallbacks = tuner.FALLBACKS["flash_attention"] - fb0
+    check(all(n == 0 for n in launches.values()) and
+          all(n == 0 for n in fc.LAUNCHES.values()),
+          f"m2: kernel launches {launches} {fc.LAUNCHES}")
+    check(fallbacks == 18 * n_steps,
+          f"m2: {fallbacks} flash fallbacks over {n_steps} steps, want "
+          f"{18 * n_steps}")
+    check(all(np.isfinite(losses)), f"m2: losses {losses}")
+    check(losses[-1] < losses[0], f"m2: losses did not fall {losses}")
+    check(trainer.skipped_steps() == 0, "m2: a step skipped")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_steps(trainer, ((src, trg), lbl), _group_mt)
+    tokens = int((lbl != 0).sum())
+    trainer.sync_to_model()
+    rep = {"params": n_params, "batch": batch, "seq": seq,
+           "dtype": "bfloat16", "warmup": warmup, "iters": iters,
+           "losses": losses, "ms_per_step": dt / iters * 1e3,
+           "target_tokens_per_step": tokens,
+           "target_tokens_per_s": tokens * iters / dt,
+           "max_memory_allocated_gb": peak, "flash_launches": launches,
+           "flash_fallbacks": fallbacks,
+           "fallbacks_per_forward": fallbacks / n_steps, "profile": prof}
+    del trainer
+    torch.cuda.empty_cache()
+    return rep, model
+
+
+def mt_beam_m3(models, model, rs_seed=3, n=16, src_len=64):
+    """(m3) ``InferTransformerModel`` (beam 4, ``max_out_len`` 64, alpha
+    0.6, the reference's defaults) at (m2)'s weights, bf16, eval, on 16
+    sources of 64 tokens."""
+    infer = models.InferTransformerModel(**MT_BASE)
+    infer.set_state_dict(model.state_dict(True))
+    infer.bfloat16().cuda().eval()
+    rs = np.random.RandomState(rs_seed)
+    src = torch.from_numpy(rs.randint(2, MT_BASE["src_vocab_size"],
+                                      (n, src_len)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        ids, scores = infer(src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, scores = infer(src)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    check(tuple(ids.shape) == (n, infer.beam_size, infer.max_out_len),
+          f"m3: ids {tuple(ids.shape)}")
+    check(bool(torch.isfinite(scores).all()) and
+          bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"m3: scores not finite and sorted: {scores.tolist()}")
+    steps = infer.max_out_len
+    return {"sources": n, "src_len": src_len, "beam": infer.beam_size,
+            "max_out_len": steps, "ms_per_call": dt * 1e3,
+            "generated_tokens_per_s": n * steps / dt,
+            "beam_row_tokens_per_s": n * infer.beam_size * steps / dt,
+            "min_step_margin": infer.last_margins.min().item()}
+
+
+def mt_copy_task(optim, models, framework, device="cuda"):
+    """(m3) the reference test's copy task (``tests/test_transformer_mt.py``,
+    its sizes: V 20, 1 + 1 layers, 2 heads, d 32, d_ff 64, L 6, batch 64):
+    150 Adam(2e-3) steps of the eager loop, then beam 3 over 6 steps on 4
+    sources: the best beam reproduces more than 90% of the tokens and the
+    scores are sorted."""
+    V, L = 20, 6
+    kw = dict(max_length=32, num_encoder_layers=1, num_decoder_layers=1,
+              n_head=2, d_model=32, d_inner_hid=64, dropout=0.0, bos_id=0,
+              eos_id=1)
+    framework.seed(0)
+    m = models.TransformerModel(V, V, **kw).to(device)
+    m.eval()
+    rs = np.random.RandomState(1)
+
+    def batch(n=64):
+        body = rs.randint(2, V, (n, L)).astype(np.int32)
+        trg_in = np.concatenate([np.zeros((n, 1), np.int32), body[:, :-1]],
+                                1)
+        return [torch.from_numpy(a).to(device) for a in (body, trg_in, body)]
+
+    from paddle_tpu_torch import nn
+    opt = optim.Adam(2e-3, parameters=m.parameters())
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(150):
+        src, trg_in, lbl = batch()
+        loss = nn.functional.cross_entropy(m(src, trg_in), lbl)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss)
+    losses = [x.item() for x in losses]
+    train_s = time.perf_counter() - t0
+    check(losses[-1] < 0.3, f"copy task: loss {losses[0]} -> {losses[-1]}")
+    infer = models.InferTransformerModel(V, V, beam_size=3, max_out_len=L,
+                                         **kw).to(device)
+    infer.set_state_dict(m.state_dict(True))
+    infer.eval()
+    src, _, body = batch(4)
+    with torch.no_grad():
+        ids, scores = infer(src)
+    acc = (ids[:, 0, :L] == body).float().mean().item()
+    check(acc > 0.9, f"copy task: best beam reproduces {acc} of the tokens")
+    check(bool((scores[:, 1:] - scores[:, :-1] <= 1e-5).all()),
+          f"copy task: scores not sorted {scores.tolist()}")
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "train_s": train_s, "token_accuracy": acc}
+
+
+M4_ROUTE_RATIO = 1.1     # the flash route's gradient error over the plain
+#                          bf16 route's, both against the float32 stack
+
+
+def _relnorm(a, ref):
+    return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def mt_flash_m4(fa, fc, tuner, nn, framework, b=8, s=1024, layers=6):
+    """(m4) ``MultiHeadAttention`` on the flash kernels: a
+    ``TransformerEncoder`` of (m2)'s widths (6 layers, 8 heads, D 64,
+    dropout 0), no mask, B 8 x S 1024, bf16, forward and backward: 6
+    launches a step of each flash kernel on the mma route, 0 fallbacks.
+    The output within ``FLASH_TOL[bf16]`` of the same bf16 stack forced
+    onto the plain route (an all-zero additive mask). The gradients (of
+    the input and of the first layer's query weight) are held against the
+    float32 stack on the plain route: six layers of bf16 rounding put
+    either bf16 route about 5% (in norm) off float32 and some 4% off the
+    other, element by element far outside ``FLASH_TOL``, so the bar is
+    that the flash route is no further from float32 than the plain bf16
+    route, within ``M4_ROUTE_RATIO``."""
+    import copy
+    framework.seed(0)
+    enc32 = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+        512, 8, 2048, dropout=0.0), layers).cuda()
+    enc = copy.deepcopy(enc32).bfloat16()
+    rs = np.random.RandomState(4)
+    x0 = torch.from_numpy(rs.randn(b, s, 512).astype(np.float32)).cuda()
+    w = torch.from_numpy(rs.randn(b, s, 512).astype(np.float32)).cuda()
+    zero_mask = torch.zeros((b, 1, 1, s), device="cuda")
+
+    def step(stack, mask, dtype=torch.bfloat16):
+        x = x0.to(dtype).requires_grad_()
+        out = stack(x, mask)
+        gx, gw = torch.autograd.grad(
+            (out.float() * w).sum(),
+            (x, stack.layers[0].self_attn.q_proj.weight))
+        return out, gx, gw
+
+    zero_counts(fa, fc)
+    fb0 = tuner.FALLBACKS["flash_attention"]
+    flash = step(enc, None)
+    torch.cuda.synchronize()
+    fallbacks = tuner.FALLBACKS["flash_attention"] - fb0
+    launches = check_path(fa, fc, "m4", layers, layers, 0)
+    check(fallbacks == 0, f"m4: {fallbacks} flash fallbacks")
+    plain = step(enc, zero_mask)
+    ref32 = step(enc32, zero_mask, torch.float32)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    gap = (flash[0].float() - plain[0].float()).abs().max().item()
+    check(torch.allclose(flash[0].float(), plain[0].float(), rtol=rtol,
+                         atol=atol), f"m4: output off the plain route by "
+          f"{gap}")
+    errs = {"out_max_abs_vs_plain": gap}
+    for name, f, p, r in zip(("out", "grad_x", "grad_wq"), flash, plain,
+                             ref32):
+        fe, pe = _relnorm(f, r), _relnorm(p, r)
+        errs[name] = {"flash_vs_f32": fe, "plain_vs_f32": pe,
+                      "flash_vs_plain": _relnorm(f, p)}
+        check(fe <= M4_ROUTE_RATIO * pe,
+              f"m4: {name} {fe} off float32 against the plain route's {pe}")
+    del ref32, enc32
+    ms = time_ms(lambda: step(enc, None), reps=5, warmup=1)
+    plain_ms = time_ms(lambda: step(enc, zero_mask), reps=5, warmup=1)
+    zero_counts(fa, fc)
+    return {"batch": b, "seq": s, "layers": layers, "heads": 8,
+            "head_dim": 64, "dtype": "bfloat16", "launches": launches,
+            "fallbacks": fallbacks, "errors": errs, "tol": [rtol, atol],
+            "route_ratio": M4_ROUTE_RATIO, "fwd_bwd_ms": ms,
+            "plain_route_fwd_bwd_ms": plain_ms}
+
+
+def ptb_m5(fa, fc, optim, engine, mesh_mod, nn, port, jit, framework,
+           warmup=2, iters=8):
+    """(m5) the PTB LM medium: the golden; then bf16 (dropout 0.5 between
+    the layers, as Zaremba's medium regularizes), SGD(1.0) under
+    ``ClipGradByGlobalNorm(5.0)``, batch 20 x 35: ms a step, words/s and
+    kernels a step; then one SGD step of the dy2static tier's ``Seq2Seq``
+    (hidden 512, vocabulary 10,000, f32) through ``to_static`` against its
+    eager step, within ``SEQ2SEQ_RTOL``."""
+    from paddle_tpu_torch.testdata import recipes
+    out = {"golden": ptb_golden(optim, engine, mesh_mod, nn, port)}
+    torch.cuda.empty_cache()
+    framework.seed(0)
+    model = recipes.ptb_lm(port, 10000, 650, 2, dropout=0.5)
+    model.bfloat16()
+    ids, nxt = (torch.from_numpy(a).cuda() for a in recipes.ptb_data(
+        3, 20, 35, 10000))
+    trainer = engine.ParallelTrainer(
+        model, optim.SGD(1.0, grad_clip=nn.ClipGradByGlobalNorm(5.0)),
+        _ptb_loss(nn), mesh=mesh_mod.build_mesh({"data": 1}))
+    zero_counts(fa, fc)
+    losses = [trainer.train_step(ids, nxt).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step(ids, nxt) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    check(all(n == 0 for n in {**fa.LAUNCHES, **fc.LAUNCHES}.values()),
+          "m5: a flash or CE kernel launched")
+    check(all(np.isfinite(losses)), f"m5: losses {losses}")
+    check(trainer.skipped_steps() == 0, "m5: a step skipped")
+    prof = profile_steps(trainer, (ids, nxt), _group_mt)
+    out["bf16"] = {"batch": 20, "steps": 35, "losses": losses,
+                   "ms_per_step": dt / iters * 1e3,
+                   "words_per_s": 20 * 35 * iters / dt,
+                   "kernels_per_step": sum(
+                       g["launches_per_step"]
+                       for g in prof["by_group"].values()),
+                   "profile": prof}
+    del trainer, model
+    torch.cuda.empty_cache()
+    # the seq2seq case: the staged step against the eager one
+    rs = np.random.RandomState(8)
+    src, trg, lbl = (torch.from_numpy(rs.randint(2, 10000, (8, n)).astype(
+        np.int32)).cuda() for n in (24, 20, 20))
+    framework.seed(0)
+    pair = [recipes.seq2seq(port, 10000, 512).cuda() for _ in range(2)]
+    pair[1].set_state_dict(pair[0].state_dict(True))
+    staged = jit.to_static(pair[1])
+    rows = []
+    for m, call in ((pair[0], pair[0]), (pair[1], staged)):
+        opt = optim.SGD(0.05, parameters=m.parameters())
+        logits = call(src, trg)
+        loss = nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), lbl.reshape(-1))
+        loss.backward()
+        opt.step()
+        after = nn.functional.cross_entropy(
+            m(src, trg).reshape(-1, 10000), lbl.reshape(-1))
+        rows.append((loss.item(), after.item(),
+                     m.head.weight.detach().clone()))
+    rel = [abs(a - b) / abs(b) for a, b in zip(rows[1][:2], rows[0][:2])]
+    wgap = (rows[1][2] - rows[0][2]).abs().max().item()
+    check(all(r <= SEQ2SEQ_RTOL for r in rel) and
+          torch.allclose(rows[1][2], rows[0][2], rtol=SEQ2SEQ_RTOL,
+                         atol=1e-7),
+          f"m5 seq2seq: staged {rows[1][:2]} vs eager {rows[0][:2]}, "
+          f"weights {wgap}")
+    out["seq2seq"] = {"hidden": 512, "vocab": 10000, "eager_losses":
+                      rows[0][:2], "staged_losses": rows[1][:2],
+                      "loss_rel_gap": rel, "head_weight_max_abs_gap": wgap}
+    return out
+
+
+def mt_phase(fa, fc, tuner, optim, engine, framework, card):
+    """``mt``: (m1) the MT golden, (m2) Transformer-base training, (m3)
+    beam search at (m2)'s weights and the copy task, (m4)
+    ``MultiHeadAttention`` on the flash kernels, (m5) the PTB LM medium and
+    the seq2seq step through ``to_static``. Returns (m4)'s launch counts
+    as the path's (the only kernels the phase launches)."""
+    import paddle_tpu_torch as port
+    from paddle_tpu_torch import jit, nn
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.text import models
+    mesh_mod.set_mesh(None)
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["m1_golden"] = mt_golden(optim, engine, mesh_mod, models, nn)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["m2_train"], model = mt_train_m2(fa, fc, tuner, optim, engine,
+                                         mesh_mod, models, nn, framework)
+    t2 = time.perf_counter()
+    out["m3_beam"] = mt_beam_m3(models, model)
+    del model
+    torch.cuda.empty_cache()
+    out["m3_copy_task"] = mt_copy_task(optim, models, framework)
+    t3 = time.perf_counter()
+    out["m4_flash"] = mt_flash_m4(fa, fc, tuner, nn, framework)
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    out["m5_ptb"] = ptb_m5(fa, fc, optim, engine, mesh_mod, nn, port, jit,
+                           framework)
+    torch.cuda.empty_cache()
+    out["part_seconds"] = {"m1": t1 - t0, "m2": t2 - t1, "m3": t3 - t2,
+                           "m4": t4 - t3, "m5": time.perf_counter() - t4}
+    out["launches"] = {**out["m4_flash"]["launches"], "ce_fwd": 0,
+                       "ce_dh": 0, "ce_dw": 0}
+    zero_counts(fa, fc)
     return out
 
 
@@ -5967,6 +6545,15 @@ def run(work) -> int:
     rep = rec_phase(fa, fc, optim, engine, framework)
     path_launches["rec"] = rep["launches"]
     emit(phase="rec", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15n. the MT Transformer (the golden, Transformer-base training, beam
+    # search, the copy task), MultiHeadAttention on the flash kernels, the
+    # PTB LSTM and the seq2seq step through to_static
+    t0 = time.perf_counter()
+    rep = mt_phase(fa, fc, tuner, optim, engine, framework, card)
+    path_launches["mt"] = rep["launches"]
+    emit(phase="mt", seconds=time.perf_counter() - t0, **rep)
     torch.cuda.empty_cache()
 
     # 15b. the same steps with dh and dw on the staged route: how far two

@@ -331,8 +331,9 @@ def _function_spy():
     traced code applies to tensors that need a gradient. ``make_fx``
     inlines such a Function's forward, so a replay of the graph has no
     way to its ``backward``. Functions of torch itself are left out: a
-    registered op's autograd (the flash kernels') is one of them, and its
-    node keeps it."""
+    registered op's autograd (the flash kernels', the CE losses', the
+    ring's and the sharded lookup's) is one of them, and its node keeps
+    it."""
     import contextlib
     seen = []
     fn_cls = torch.autograd.Function
@@ -434,9 +435,11 @@ class StaticFunction:
         if lost:
             raise LostGradientError(
                 f"to_static({self._dygraph_function.__name__}): the staged "
-                f"graph would lose the backward of {lost}; trace the value "
-                "and its gradients together (static.append_backward in a "
-                "static.Program) or call it under torch.no_grad()")
+                f"graph would lose the backward of {lost}, a plain "
+                "autograd.Function (the experts' exchanges, the Megatron "
+                "operators); trace the value and its gradients together "
+                "(static.append_backward in a static.Program) or call it "
+                "under torch.no_grad()")
         return graph(*[leaves[i] for i in tensors])
 
     @property
@@ -504,10 +507,12 @@ class TracedLayer:
         if lost:
             raise LostGradientError(
                 f"TracedLayer({type(self.layer).__name__}): the staged graph "
-                f"would lose the backward of {lost} (its forward is inlined "
-                "in the trace); trace the loss and its gradients together "
-                "(static.append_backward in a static.Program) or call the "
-                "layer under torch.no_grad()")
+                f"would lose the backward of {lost}, a plain "
+                "autograd.Function whose forward the trace inlines (the "
+                "experts' exchanges, the Megatron operators); trace the "
+                "loss and its gradients together (static.append_backward "
+                "in a static.Program) or call the layer under "
+                "torch.no_grad()")
         return graph(*state, *[leaves[i] for i in tensors])
 
     @property

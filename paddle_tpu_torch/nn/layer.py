@@ -4,9 +4,21 @@ Port of ``paddle_tpu/nn/layer.py``. PyTorch's module system already has
 what the reference builds by hand (parameters, sublayers, buffers,
 ``train``/``eval``, ``state_dict``), so ``Layer`` adds only:
 
-- ``create_parameter(shape, dtype, initializer, is_bias)`` with the
-  reference's defaults (``Constant(0)`` for biases, ``XavierUniform`` for
-  weights);
+- ``create_parameter(shape, dtype, initializer, is_bias, attr,
+  trainable)`` with the reference's defaults (``Constant(0)`` for biases,
+  ``XavierUniform`` for weights) and its precedence: the ``ParamAttr``'s
+  (or ``Initializer`` attr's) initializer, else the global one
+  (``initializer.set_global_initializer``), else ``initializer``;
+- the Paddle surface: ``state_dict(include_sublayers,
+  structured_name_prefix)`` (parameters, each once, then persistable
+  buffers, by structured name; called with torch's keywords or with none
+  it is ``nn.Module.state_dict`` as it was), ``set_state_dict``/
+  ``load_dict`` (returns ``(missing, unexpected)``, raises on a shape
+  mismatch), ``register_forward_post_hook`` (``nn.Module``'s forward
+  hook: ``hook(layer, inputs, output)``, a non-None return replaces the
+  output; the pre-hook is ``nn.Module``'s own, ``hook(layer, inputs)``),
+  each returning a handle with ``remove()``; ``clear_gradients`` and
+  ``full_name``;
 - ``set_state_dict_from_numpy(state, mesh=None)``: loads the reference's
   ``{structured_name: array}`` (``paddle_tpu.nn.Layer.state_dict()``) 1:1.
   Name sets must be equal, else it raises. A parameter that this rank
@@ -51,16 +63,99 @@ def _as_tensor(value) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+_PADDLE_STATE_KW = ("include_sublayers", "structured_name_prefix")
+
+
 class Layer(nn.Module):
     """Base class of the port's modules (reference: nn/layer.py Layer)."""
 
     def create_parameter(self, shape, dtype=None, initializer=None,
-                         is_bias: bool = False) -> nn.Parameter:
-        from .initializer import Constant, XavierUniform
-        dtype = dtype or torch.get_default_dtype()
-        if initializer is None:
-            initializer = Constant(0.0) if is_bias else XavierUniform()
-        return nn.Parameter(initializer(tuple(shape), dtype))
+                         is_bias: bool = False, attr=None,
+                         trainable: bool = True, name=None) -> nn.Parameter:
+        from .initializer import (Constant, ParamAttr, XavierUniform,
+                                  global_initializer, initializer_of)
+        from ..framework.dtype import convert_dtype
+        dtype = convert_dtype(dtype) if dtype is not None else \
+            torch.get_default_dtype()
+        init = initializer_of(attr, None) or global_initializer(is_bias) \
+            or initializer
+        if init is None:
+            init = Constant(0.0) if is_bias else XavierUniform()
+        p = nn.Parameter(init(tuple(shape), dtype))
+        if isinstance(attr, ParamAttr):
+            trainable = trainable and attr.trainable
+            p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.requires_grad_(bool(trainable))
+        return p
+
+    # -- the Paddle surface ---------------------------------------------------
+    def full_name(self) -> str:
+        """A unique name of this layer, ``<class name in lower case>_<n>``
+        (taken on first use)."""
+        name = self.__dict__.get("_full_name")
+        if name is None:
+            from ..framework.naming import unique_name
+            name = self.__dict__["_full_name"] = unique_name(
+                type(self).__name__.lower())
+        return name
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.grad = None
+
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, output)`` after each forward, in
+        registration order; a non-None return replaces the output.
+        Returns a handle whose ``remove()`` drops the hook."""
+        return self.register_forward_hook(hook)
+
+    def state_dict(self, *args, **kwargs):
+        """Paddle's form, ``state_dict(include_sublayers=True,
+        structured_name_prefix="")``: the parameters (each once, in
+        ``named_parameters`` order) then the persistable buffers, by
+        structured name, detached. Called with torch's arguments
+        (``destination``, ``prefix``, ``keep_vars``) or with none it is
+        ``nn.Module.state_dict``, which the module tree's recursion
+        uses."""
+        paddle = any(k in kwargs for k in _PADDLE_STATE_KW) or (
+            args and isinstance(args[0], bool))
+        if not paddle:
+            return super().state_dict(*args, **kwargs)
+        include = kwargs.pop("include_sublayers", args[0] if args else True)
+        prefix = kwargs.pop("structured_name_prefix",
+                            args[1] if len(args) > 1 else "")
+        out = OrderedDict(
+            (k, v.detach()) for k, v in self.named_parameters(
+                prefix=prefix, recurse=include))
+        mods = self.named_modules(prefix=prefix) if include \
+            else [(prefix, self)]
+        for mp, m in mods:
+            for name, b in m._buffers.items():
+                if b is None or name in m._non_persistent_buffers_set:
+                    continue
+                out[(mp + "." if mp else "") + name] = b.detach()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict, use_structured_name: bool = True):
+        """Copy ``state_dict``'s entries (tensors or arrays) into the
+        parameters and persistable buffers of the same names, each keeping
+        its dtype and device -> ``(missing, unexpected)``: own names the
+        dict lacks, the dict's names this layer lacks. A shape mismatch
+        raises."""
+        own = OrderedDict(self.named_parameters())
+        for mp, m in self.named_modules():
+            for name, b in m._buffers.items():
+                if b is not None and name not in m._non_persistent_buffers_set:
+                    own[(mp + "." if mp else "") + name] = b
+        missing = [k for k in own if k not in state_dict]
+        unexpected = [k for k in state_dict if k not in own]
+        for name, t in own.items():
+            if name in state_dict:
+                _copy_into(t, state_dict[name], name)
+        return missing, unexpected
+
+    load_dict = set_state_dict
 
     def named_state(self) -> Dict[str, torch.Tensor]:
         """Parameters (each once) then persistent buffers, by structured

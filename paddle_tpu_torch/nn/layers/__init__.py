@@ -1,1 +1,3 @@
-"""paddle_tpu_torch.nn.layers — ``common``, ``container`` and ``norm``."""
+"""paddle_tpu_torch.nn.layers — ``activation``, ``common``, ``container``,
+``conv``, ``loss``, ``norm``, ``pooling``, ``rnn``, ``transformer`` and
+``vision``."""

@@ -68,6 +68,7 @@ class PReLU(Layer):
         self.data_format = data_format
         self.weight = self.create_parameter(
             (num_parameters,),
+            attr=weight_attr,
             initializer=initializer_of(weight_attr, Constant(init)))
 
     def forward(self, x):

@@ -41,6 +41,7 @@ class _ConvNd(Layer):
         fan_in = in_channels // groups * math.prod(k)
         self.weight = self.create_parameter(
             wshape,
+            attr=weight_attr,
             initializer=initializer_of(weight_attr,
                                        KaimingUniform(fan_in=fan_in)))
         if bias_attr is False:
@@ -49,6 +50,7 @@ class _ConvNd(Layer):
             bound = 1.0 / math.sqrt(fan_in)
             self.bias = self.create_parameter(
                 (out_channels,), is_bias=True,
+                attr=bias_attr,
                 initializer=initializer_of(bias_attr,
                                            Uniform(-bound, bound)))
 

@@ -51,10 +51,11 @@ def in_recompute() -> bool:
 
 def _affine(layer, num_features, weight_attr, bias_attr):
     layer.weight = None if weight_attr is False else layer.create_parameter(
-        (num_features,), initializer=initializer_of(weight_attr,
-                                                    Constant(1.0)))
+        (num_features,), attr=weight_attr,
+        initializer=initializer_of(weight_attr, Constant(1.0)))
     layer.bias = None if bias_attr is False else layer.create_parameter(
-        (num_features,), initializer=initializer_of(bias_attr, None),
+        (num_features,), attr=bias_attr,
+        initializer=initializer_of(bias_attr, None),
         is_bias=True)
 
 
@@ -219,10 +220,11 @@ class LayerNorm(Layer):
         self.epsilon = epsilon
         self.weight = None if weight_attr is False else self.create_parameter(
             self.normalized_shape,
+            attr=weight_attr,
             initializer=initializer_of(weight_attr, Constant(1.0)))
         self.bias = None if bias_attr is False else self.create_parameter(
-            self.normalized_shape, initializer=initializer_of(bias_attr,
-                                                              None),
+            self.normalized_shape, attr=bias_attr,
+            initializer=initializer_of(bias_attr, None),
             is_bias=True)
 
     def forward(self, x):

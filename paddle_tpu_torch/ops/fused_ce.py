@@ -49,10 +49,11 @@ device memory.
   :data:`CE_FWD_OP`, :data:`CE_DH_OP`, :data:`CE_DW_OP`) whose body is its
   wrapper and whose fake implementation gives the shapes alone, so
   ``make_fx`` under a fake mode records each as one node, on a CUDA or a
-  CPU fake tensor; ``_FusedCE`` (the autograd) reaches the kernels
-  through them. The ops' autograd stays in ``_FusedCE``: the backward
-  kernels take the loss's one scale for lse and the target logit alike,
-  which no per-output gradient of the forward op could state.
+  CPU fake tensor. The forward op carries the autograd
+  (``register_autograd``): its backward reaches the dh and dw ops with
+  ``scale = dlse`` and adds ``(dlse + dtgt)`` times the label's one-hot
+  term, zero for the head loss (:func:`_ce_backward`), so a ``to_static``
+  graph of the loss keeps its backward.
 - **Host epilogue**, as the reference's ``_ce_fwd``: ``valid = labels !=
   ignore_index``, ``loss = sum(valid * (lse - tgt)) / max(sum(valid), 1)``;
   the backward scale ``g * valid / denom`` makes ignored rows exact zeros.
@@ -467,9 +468,9 @@ def ce_dw(hid, w, labels, lse, scale):
                 lse, scale)
 
 
-# Plain library ops (reached inside ``_FusedCE``'s forward and backward,
-# grad mode off): the dispatcher calls each wrapper directly, at a
-# fraction of a ``custom_op``'s host cost a call
+# Plain library ops: the dispatcher calls each wrapper directly, at a
+# fraction of a ``custom_op``'s host cost a call (the forward's autograd
+# is registered below its fake)
 _CE_BWD_SCHEMA = ("(Tensor hid, Tensor w, Tensor labels, Tensor lse, "
                   "Tensor scale) -> Tensor")
 _LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
@@ -507,29 +508,42 @@ CE_DH_OP = torch.ops.paddle_tpu_torch.fused_ce_dh
 CE_DW_OP = torch.ops.paddle_tpu_torch.fused_ce_dw
 
 
-class _FusedCE(torch.autograd.Function):
-    """loss = mean CE over valid labels; the backward runs the dh and dw
-    kernels on the saved (hid, w, labels, lse). Each kernel is reached
-    through its registered op, so a traced step holds it as one node."""
+def _ce_setup_context(ctx, inputs, output):
+    hid, w, labels = inputs
+    ctx.save_for_backward(hid, w, labels, output[0])
 
-    @staticmethod
-    def forward(ctx, hid, w, lbl, ignore_index):
-        lse, tgt = CE_FWD_OP(hid, w, lbl)
-        valid = (lbl != ignore_index).float()
-        denom = valid.sum().clamp(min=1.0)
-        loss = (valid * (lse - tgt)).sum() / denom
-        ctx.save_for_backward(hid, w, lbl, lse, valid, denom)
-        return loss
 
-    @staticmethod
-    def backward(ctx, g):
-        hid, w, lbl, lse, valid, denom = ctx.saved_tensors
-        scale = (g.float() / denom) * valid
-        dh = CE_DH_OP(hid, w, lbl, lse, scale) \
-            if ctx.needs_input_grad[0] else None
-        dw = CE_DW_OP(hid, w, lbl, lse, scale) \
-            if ctx.needs_input_grad[1] else None
-        return dh, dw, None, None
+def _ce_backward(ctx, dlse, dtgt):
+    """The forward op's backward. ``d logits = dlse * softmax + dtgt *
+    onehot(label)``, which is ``dlse * (softmax - onehot) + (dlse + dtgt)
+    * onehot``: the dh and dw kernels compute the first term with
+    ``scale = dlse``; the second, a gather of ``w``'s label columns and a
+    scatter-add of ``hid``'s rows, is exactly zero for a loss of ``lse -
+    tgt`` (autograd hands that loss's ``dtgt`` as ``-dlse``), so the head
+    loss's gradients are the kernels' bit for bit."""
+    hid, w, labels, lse = ctx.saved_tensors
+    scale = (torch.zeros_like(lse) if dlse is None else dlse.float())
+    dh = CE_DH_OP(hid, w, labels, lse, scale) \
+        if ctx.needs_input_grad[0] else None
+    dw = CE_DW_OP(hid, w, labels, lse, scale) \
+        if ctx.needs_input_grad[1] else None
+    if dtgt is not None and (dh is not None or dw is not None):
+        lbl = labels.long()
+        ok = _in_vocab(lbl, w.shape[1])
+        c = torch.where(ok, scale + dtgt.float(), torch.zeros_like(scale))
+        safe = torch.where(ok, lbl, torch.zeros_like(lbl))
+        if dh is not None:
+            dh.add_((c[:, None] * w[:, safe].T.float()).to(dh.dtype))
+        if dw is not None:
+            dw.index_add_(1, safe, (hid.float() * c[:, None]).T
+                          .to(dw.dtype))
+    return dh, dw, None
+
+
+# the forward op carries the autograd: a staged graph's node keeps it
+torch.library.register_autograd("paddle_tpu_torch::fused_ce_fwd",
+                                _ce_backward, setup_context=_ce_setup_context,
+                                lib=_LIB)
 
 
 def fused_lm_ce(hidden, weight, labels, block_tokens=None, block_vocab=None,
@@ -555,6 +569,8 @@ def fused_lm_ce(hidden, weight, labels, block_tokens=None, block_vocab=None,
                          f"{hid.shape[0]} tokens")
     resolve_blocks(hid.dtype, hid.shape[0], h, weight.shape[1],
                    block_tokens, block_vocab)
-    loss = _FusedCE.apply(hid, weight, lbl.to(torch.int32),
-                          int(ignore_index))
-    return loss
+    lbl = lbl.to(torch.int32)
+    lse, tgt = CE_FWD_OP(hid, weight, lbl)
+    valid = (lbl != int(ignore_index)).float()
+    denom = valid.sum().clamp(min=1.0)
+    return (valid * (lse - tgt)).sum() / denom

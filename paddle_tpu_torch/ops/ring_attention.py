@@ -30,6 +30,10 @@ attention when ``src < i``, causal on the diagonal and skipped when ``src
   their output once: they and the ring differ by these bounds plus each
   kernel's own error against exact arithmetic.
 
+- **The op.** The ring is a library op (``paddle_tpu_torch::
+  ring_attention``, :data:`RING_OP`) with its backward registered, so a
+  ``jit.to_static`` graph holds it as one node and keeps the backward.
+
 On the CPU each block takes the kernels' plain versions (the CPU twin); on
 a CUDA tensor every block launches the kernels: a chunk the kernels' gate
 (:func:`~.flash_attention.flash_gate` at 128 rows) refuses raises, and no
@@ -148,51 +152,79 @@ def _hop(sends, recv_like, nxt, prv):
     return dist.batch_isend_irecv(ops), bufs
 
 
-class _Ring(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, n, i, nxt, prv):
-        kv = (k.contiguous(), v.contiguous())
-        acc = None
-        for j in range(n):
-            reqs = bufs = None
-            if j < n - 1:
-                reqs, bufs = _hop(kv, kv, nxt, prv)
-            acc = _fwd_step(q, kv[0], kv[1], i, (i - j) % n, causal,
-                            sm_scale, acc)
-            if reqs is not None:
-                for r in reqs:
-                    r.wait()
-                kv = tuple(bufs)
-        out = acc[0].to(q.dtype)
-        ctx.save_for_backward(q, k, v, out, acc[1])
-        ctx.args = (causal, sm_scale, n, i, nxt, prv)
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, sm_scale, n, i, nxt, prv = ctx.args
-        do = do.contiguous()
-        delta = _delta(out, do)
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        kv = (k.contiguous(), v.contiguous())
-        dkv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device),
-               torch.zeros(v.shape, dtype=torch.float32, device=v.device))
-        for j in range(n):
-            _bwd_step(q, kv[0], kv[1], do, lse, delta, i, (i - j) % n,
-                      causal, sm_scale, dq, *dkv)
-            # the accumulators travel every hop, K/V all but the last:
-            # after n hops each dk/dv is back at its owner
-            send = (kv + dkv) if j < n - 1 else dkv
-            reqs, bufs = _hop(send, send, nxt, prv)
+def _ring_fwd(q, k, v, causal, sm_scale, n, i, nxt, prv):
+    """The ring's forward: n block steps, K/V handed on each hop ->
+    ``(out, lse)``."""
+    kv = (k.contiguous(), v.contiguous())
+    acc = None
+    for j in range(n):
+        reqs = bufs = None
+        if j < n - 1:
+            reqs, bufs = _hop(kv, kv, nxt, prv)
+        acc = _fwd_step(q, kv[0], kv[1], i, (i - j) % n, causal,
+                        sm_scale, acc)
+        if reqs is not None:
             for r in reqs:
                 r.wait()
-            if j < n - 1:
-                kv, dkv = tuple(bufs[:2]), tuple(bufs[2:])
-            else:
-                dkv = tuple(bufs)
-        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
-                None, None, None, None, None, None)
+            kv = tuple(bufs)
+    return acc[0].to(q.dtype), acc[1].contiguous()
+
+
+def _ring_setup_context(ctx, inputs, output):
+    q, k, v, causal, sm_scale, n, i, nxt, prv = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, sm_scale, n, i, nxt, prv)
+
+
+def _ring_backward(ctx, do, _dlse):
+    """The ring's backward: the block gradients, the dk/dv accumulators
+    travelling every hop back to their owners; lse has no gradient."""
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, sm_scale, n, i, nxt, prv = ctx.args
+    do = do.contiguous()
+    delta = _delta(out, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    kv = (k.contiguous(), v.contiguous())
+    dkv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+           torch.zeros(v.shape, dtype=torch.float32, device=v.device))
+    for j in range(n):
+        _bwd_step(q, kv[0], kv[1], do, lse, delta, i, (i - j) % n,
+                  causal, sm_scale, dq, *dkv)
+        # the accumulators travel every hop, K/V all but the last:
+        # after n hops each dk/dv is back at its owner
+        send = (kv + dkv) if j < n - 1 else dkv
+        reqs, bufs = _hop(send, send, nxt, prv)
+        for r in reqs:
+            r.wait()
+        if j < n - 1:
+            kv, dkv = tuple(bufs[:2]), tuple(bufs[2:])
+        else:
+            dkv = tuple(bufs)
+    return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+            None, None, None, None, None, None)
+
+
+# a library op with its autograd: a staged graph holds the ring as one
+# node (its hops run when the node runs) and keeps its backward
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("ring_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float sm_scale, int n, int i, int nxt, int prv) -> "
+            "(Tensor, Tensor)")
+_LIB.impl("ring_attention", _ring_fwd, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("paddle_tpu_torch::ring_attention", lib=_LIB)
+def _(q, k, v, causal, sm_scale, n, i, nxt, prv):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+torch.library.register_autograd("paddle_tpu_torch::ring_attention",
+                                _ring_backward,
+                                setup_context=_ring_setup_context, lib=_LIB)
+
+#: ``torch.ops.paddle_tpu_torch.ring_attention``
+RING_OP = torch.ops.paddle_tpu_torch.ring_attention
 
 
 def _plain_attention(q, k, v, causal, sm_scale):
@@ -226,9 +258,9 @@ def ring_flash_attention(q, k, v, axis_name: str = SEP_AXIS, causal=False,
         raise ValueError(f"ring attention: query chunk {q.shape[1]} and "
                          f"key chunk {k.shape[1]} differ; the diagonal "
                          f"block needs equal chunks")
-    return _Ring.apply(q, k, v, bool(causal), sm_scale, n,
-                       mesh.coord[axis_name], mesh.neighbor(axis_name, 1),
-                       mesh.neighbor(axis_name, -1))
+    return RING_OP(q, k, v, bool(causal), float(sm_scale), n,
+                   mesh.coord[axis_name], mesh.neighbor(axis_name, 1),
+                   mesh.neighbor(axis_name, -1))[0]
 
 
 def ring_attention_local(q, k, v, n: int, causal: bool = False,

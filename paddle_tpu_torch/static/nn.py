@@ -346,7 +346,7 @@ def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
     not have yet."""
     raise NotImplementedError(
         "static.nn.deform_conv2d delegates to vision/ops.py deform_conv2d, "
-        "which waits for ROADMAP Queue 1 item 21 (vision/ops.py)")
+        "which waits for ROADMAP Queue 1 item 21b (vision/ops.py)")
 
 
 def row_conv(input, future_context_size, param_attr=None, act=None,

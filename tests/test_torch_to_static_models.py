@@ -8,9 +8,10 @@ package.
   graph (``jit.to_static``: the ``TracedLayer``'s graph, with autograd
   over its ATen ops) match two steps of the reference's converted model
   (under ``jax.jit``) — losses and a parameter within rtol 5e-4, atol
-  5e-5 (the reference's tolerance). The ``slow`` marks are the reference's. Its Transformer,
-  seq2seq and PTB LSTM models need ``TransformerModel``/``nn.LSTM``,
-  which the port does not have yet (ROADMAP Queue 1 item 21).
+  5e-5 (the reference's tolerance). The ``slow`` marks are the
+  reference's. Its Transformer (``TransformerModel``), seq2seq and PTB
+  LSTM cases (``testdata/recipes.py``'s ``seq2seq`` and ``ptb_lm``, built
+  by each package) are here too.
 - The slice as a whole: GPT at depth 2 and narrow widths, its
   ``to_static`` forward against the reference's, and two training steps
   of a ``static.Program`` (the loss and the parameter gradients of
@@ -142,6 +143,47 @@ def test_bert_pretraining_train_two_steps():
         return built[pd]
 
     _train_parity(build, loss_of, (ids, mlm, nsp), lr=1e-3, opt="AdamW")
+
+
+# -- test_transformer.py / test_seq2seq.py / test_ptb_lm.py ----------------------
+def _mt_model(pd):
+    import importlib
+    return importlib.import_module(pd.__name__ + ".text.models") \
+        .TransformerModel(src_vocab_size=64, trg_vocab_size=64,
+                          max_length=16, num_encoder_layers=2,
+                          num_decoder_layers=2, n_head=2, d_model=32,
+                          d_inner_hid=64, dropout=0.0)
+
+
+def _seq2seq(pd):
+    from paddle_tpu_torch.testdata import recipes
+    return recipes.seq2seq(pd, 64, 32)
+
+
+def _ptb_lm(pd):
+    from paddle_tpu_torch.testdata import recipes
+    return recipes.ptb_lm(pd, 64, 32, 2)
+
+
+SEQ_MODELS = {
+    "mt_transformer": (_mt_model, lambda pd, m, s, t, y: _ce(pd, m(s, t), y),
+                       (RS.randint(2, 64, (2, 8)).astype("int32"),
+                        RS.randint(2, 64, (2, 8)).astype("int32"),
+                        RS.randint(2, 64, (2, 8)).astype("int32")), 0.01),
+    "seq2seq": (_seq2seq, lambda pd, m, s, t, y: _ce(pd, m(s, t), y),
+                (RS.randint(2, 64, (2, 6)).astype("int32"),
+                 RS.randint(2, 64, (2, 5)).astype("int32"),
+                 RS.randint(2, 64, (2, 5)).astype("int32")), 0.05),
+    "ptb_lstm_lm": (_ptb_lm, lambda pd, m, x, y: _ce(pd, m(x), y),
+                    (RS.randint(0, 64, (2, 8)).astype("int32"),
+                     RS.randint(0, 64, (2, 8)).astype("int32")), 0.05),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_MODELS))
+def test_sequence_model_trains_through_the_staged_graph(name):
+    build, loss_of, data, lr = SEQ_MODELS[name]
+    _train_parity(build, loss_of, data, lr=lr)
 
 
 # -- the model zoo scenarios ---------------------------------------------------
@@ -340,25 +382,19 @@ def test_converted_model_saves_and_loads(tmp_path):
 
 
 def test_lost_gradient_raises_by_name():
+    # the experts' exchanges are still plain autograd.Functions, whose
+    # forward the trace inlines
+    from paddle_tpu_torch.incubate import MoELayer
     from paddle_tpu_torch.jit import LostGradientError
-    from paddle_tpu_torch.text.models import GPTForPretraining
 
-    class FusedLoss(port.nn.Layer):
-        def __init__(self):
-            super().__init__()
-            self.inner = GPTForPretraining(**_GPT_CFG)
-
-        def forward(self, ids, lbl):
-            return self.inner.fused_head_loss(ids, lbl, ce_kernel="pallas")
-
-    m = FusedLoss()
-    ids, lbl = (torch.from_numpy(a) for a in _gpt_batch())
+    port.seed(0)
+    m = MoELayer(16, 32, 4)
+    x = torch.from_numpy(RS.randn(2, 8, 16).astype("float32"))
     tl = port.jit.to_static(m)
-    with pytest.raises(LostGradientError, match="_FusedCE"):
-        tl(ids, lbl)
+    with pytest.raises(LostGradientError, match="_Combine"):
+        tl(x)
     with torch.no_grad():
-        np.testing.assert_allclose(tl(ids, lbl).item(),
-                                   m(ids, lbl).item(), rtol=1e-6)
+        np.testing.assert_allclose(tl(x).numpy(), m(x).numpy(), rtol=1e-6)
 
 
 def test_dropout_draws_at_run_time_from_the_port_generator():
