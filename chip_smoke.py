@@ -4202,18 +4202,387 @@ def resnet_main(nn, optim, engine, mesh_mod, models, framework, batch=128,
             "bn1_variance_moved": moved, "profile": prof}
 
 
-def vision_phase(fa, fc, nn, optim, engine, framework):
+# -- vision: the zoo (LeNet, MobileNetV2, VGG-16) and the detection ops -------
+
+ZOO_LOSS_RTOL = RESNET_LOSS_RTOL             # step 0, later steps
+ZOO_GRAD_NORM_RTOL = RESNET_GRAD_NORM_RTOL
+IMAGENET_MEAN = [123.675, 116.28, 103.53]    # the 0-255 scale
+IMAGENET_STD = [58.395, 57.12, 57.375]
+
+
+def zoo_golden(nn, optim, engine, mesh_mod, models):
+    """(v3) ``mobilenet_v2()``, ``vgg16()`` and ``LeNet()`` at full width,
+    float32 (TF32 off), each ``Dropout`` at p 0, the golden's batch and
+    ``Momentum(1e-4, 0.9)``: the step-0 loss and gradient norm, then
+    three ``train_step``s, against ``vision_zoo_golden.json`` (v1's bars:
+    step-0 loss rtol 1e-4, gradient norm 2e-3, later losses 1e-3); the
+    tracked parameters' update norms beside the golden's, unchecked."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "vision_zoo_golden.json")) as f:
+        gold = json.load(f)
+    rw, opt = gold["recipe"]["weights"], gold["optimizer"]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    out = {}
+    for name, g in gold["models"].items():
+        cfg = g["config"]
+        model = getattr(models, cfg["constructor"])(
+            num_classes=cfg["num_classes"])
+        recipes.no_dropout(model)
+        names_shapes = [(n, tuple(t.shape)) for n, t in
+                        model.named_state().items()]
+        check([[n, list(s)] for n, s in names_shapes] == g["names_shapes"],
+              f"v3 {name}: port state names/shapes differ from the golden")
+        w = recipes.zoo_weights(names_shapes, rw["seed"], rw["conv_gain"],
+                                rw["linear_gain"])
+        model.set_state_dict_from_numpy(w)
+        x, y = recipes.zoo_data(gold["recipe"]["data"]["seed"],
+                                cfg["batch"], cfg["channels"], cfg["image"],
+                                cfg["num_classes"])
+        x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+        trainer = engine.ParallelTrainer(
+            model, optim.Momentum(opt["learning_rate"],
+                                  momentum=opt["momentum"]),
+            _ce(nn), mesh=mesh_mod.build_mesh({"data": 1}))
+        loss0 = _ce(nn)(model(x), y)
+        grads = torch.autograd.grad(loss0, list(trainer.params.values()))
+        gnorm = torch.sqrt(sum(t.double().square().sum()
+                               for t in grads)).item()
+        loss0 = loss0.item()
+        del grads
+        losses, ms = [], []
+        for _ in g["losses"]:
+            loss, t = _timed_step(trainer, x, y)
+            losses.append(loss)
+            ms.append(t)
+        check(rel(loss0, g["losses"][0]) <= ZOO_LOSS_RTOL[0],
+              f"v3 {name}: step-0 loss {loss0} vs golden {g['losses'][0]}")
+        check(rel(gnorm, g["step0_grad_norm"]) <= ZOO_GRAD_NORM_RTOL,
+              f"v3 {name}: step-0 grad norm {gnorm} vs "
+              f"{g['step0_grad_norm']}")
+        check(rel(losses[0], g["losses"][0]) <= ZOO_LOSS_RTOL[0],
+              f"v3 {name}: train_step 0 loss {losses[0]} vs "
+              f"{g['losses'][0]}")
+        for i in range(1, len(losses)):
+            check(rel(losses[i], g["losses"][i]) <= ZOO_LOSS_RTOL[1],
+                  f"v3 {name}: loss after {i} updates {losses[i]} vs "
+                  f"{g['losses'][i]}")
+        check(trainer.skipped_steps() == 0, f"v3 {name}: a step skipped")
+        after = {}
+        for k, a in g["after"].items():
+            p = trainer.get_param(k).double().cpu().numpy()
+            upd = float(np.linalg.norm(p - w[k].astype(np.float64)))
+            after[k] = {"update_norm": upd,
+                        "golden_update_norm": a["update_norm"],
+                        "rel_err": rel(upd, a["update_norm"])}
+        out[name] = {
+            "parameters": cfg["parameters"], "batch": cfg["batch"],
+            "image": cfg["image"], "loss0": loss0, "grad_norm": gnorm,
+            "losses": losses, "golden_losses": g["losses"],
+            "loss_rel_err": [rel(a, b) for a, b in zip(
+                [loss0] + losses, g["losses"][:1] + g["losses"])],
+            "grad_norm_rel_err": rel(gnorm, g["step0_grad_norm"]),
+            "after": after, "ms_per_step": ms}
+        del trainer, model, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def imagenet_batch(transforms, batch, seed=0, size=224, source=256):
+    """``batch`` seeded uint8 ``source``x``source`` HWC images through
+    ``RandomResizedCrop(size)``, ``RandomHorizontalFlip``, ``Normalize``
+    (the ImageNet mean and std) and ``Transpose`` on the host ->
+    (float32 NCHW array, images/s of the pipeline)."""
+    import random
+    pipe = transforms.Compose([
+        transforms.RandomResizedCrop(size),
+        transforms.RandomHorizontalFlip(),
+        transforms.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+        transforms.Transpose()])
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (batch, source, source, 3)).astype(np.uint8)
+    random.seed(seed)
+    t0 = time.perf_counter()
+    out = np.stack([pipe(img) for img in images])
+    dt = time.perf_counter() - t0
+    check(out.shape == (batch, 3, size, size) and out.dtype == np.float32
+          and np.isfinite(out).all(), f"transform pipeline gave "
+          f"{out.shape} {out.dtype}")
+    return out, batch / dt
+
+
+def zoo_main(nn, optim, engine, mesh_mod, model, images, stat, what,
+             lr=0.1, warmup=2, iters=10):
+    """(v4, v5) ``model`` (weights from seed 0) in bfloat16 through
+    ``ParallelTrainer`` with ``Momentum(lr, 0.9)`` and ``cross_entropy``
+    on a data mesh of one, on one fixed batch of ``images`` (a float32
+    NCHW array) and int32 labels from RandomState(0): losses finite and
+    falling, no step skipped, the running statistic ``stat`` moved;
+    images/s, ms a step, peak GB and the profile by kernel group."""
+    model.bfloat16()
+    trainer = engine.ParallelTrainer(
+        model, optim.Momentum(lr, momentum=0.9), _ce(nn),
+        mesh=mesh_mod.build_mesh({"data": 1}))
+    batch = images.shape[0]
+    imgs = torch.from_numpy(images).to("cuda", torch.bfloat16)
+    lbls = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 1000, (batch,)).astype(np.int32)).cuda()
+    before = trainer.state["buffers"][stat].float().clone()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(imgs, lbls).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [trainer.train_step(imgs, lbls) for _ in range(iters)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses += [x.item() for x in timed]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses)), f"{what} losses {losses}")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall {losses}")
+    check(trainer.skipped_steps() == 0, f"{what}: a step skipped")
+    moved = float((trainer.state["buffers"][stat].float() - before)
+                  .abs().max())
+    check(moved > 0, f"{what}: the running statistics did not move")
+    prof = profile_steps(trainer, (imgs, lbls), _group_vision)
+    del trainer, imgs
+    torch.cuda.empty_cache()
+    return {"batch": batch, "image": images.shape[-1], "dtype": "bfloat16",
+            "layout": "NCHW", "lr": lr, "warmup": warmup, "iters": iters,
+            "losses": losses, "losses_fell": losses[-1] < losses[0],
+            "skipped": 0, "images_per_s": batch * iters / dt,
+            "ms_per_step": dt / iters * 1e3,
+            "max_memory_allocated_gb": peak, "stat": stat,
+            "stat_moved": moved, "profile": prof}
+
+
+# card-vs-CPU bars of the detection ops, relative to the largest element
+# of the CPU result: float32 sums in other orders (cuDNN/cuBLAS against
+# the CPU's) and the backward's scatter-adds in another order
+DET_FWD_TOL = 1e-4
+DET_BWD_TOL = 1e-3
+DET_GOLDEN_TOL = 1e-4     # the summaries' sums against the reference's
+
+
+def _rel_err(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def _on(d, device, keys):
+    return [torch.from_numpy(np.ascontiguousarray(d[k])).to(device)
+            for k in keys]
+
+
+def _hold_summary(what, got, gold):
+    """``got`` (a CPU tensor) against a golden summary: shape, then the sum,
+    the absolute sum and the strided sample (relative to the largest)."""
+    a = got.double().numpy().reshape(-1)
+    check(list(got.shape) == gold["shape"], f"v6 {what}: shape "
+          f"{list(got.shape)} vs golden {gold['shape']}")
+    sample = a[::gold["stride"]][:len(gold["sample"])]
+    scale = max(1.0, float(np.abs(gold["sample"]).max()))
+    errs = {"sum": abs(a.sum() - gold["sum"]) / max(1.0, abs(gold["sum"])),
+            "abs_sum": abs(np.abs(a).sum() - gold["abs_sum"]) /
+            gold["abs_sum"],
+            "sample": float(np.abs(sample - gold["sample"]).max()) / scale}
+    check(max(errs.values()) <= DET_GOLDEN_TOL,
+          f"v6 {what}: against the golden summary {errs}")
+    return errs
+
+
+def _time_op(fn, reps):
+    """Median card time of ``fn`` (CUDA events), then one call under
+    torch.profiler: the device's busy time and the share of the call's
+    wall time it sat idle (the host's share; a selection op launches no
+    kernel at all, only its copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    t = time_ms(fn, reps=reps, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, busy_us = _device_time(prof)
+    return {"card_ms": t, "profiled_wall_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "host_share": 1.0 - busy_us / 1e6 / wall,
+            "device_ops": sum(n for _, _, n in rows)}
+
+
+def detection_ops(vops):
+    """(v6) each detection op on the card against the port's CPU run on
+    the same inputs (``recipes.detection_inputs``), and against the
+    reference's summaries (``vision_zoo_golden.json``) where it has them:
+    the error, the card ms (CUDA events) and the share of the call the
+    card sat idle (host time: the selection ops run on the host)."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "vision_zoo_golden.json")) as f:
+        gold = json.load(f)["ops"]
+    out = {}
+
+    def fwd_bwd(name, call, keys, d, wrt, reps=10):
+        """forward and backward of ``sum(out * r)`` on both devices."""
+        res = {}
+        for dev in ("cpu", "cuda"):
+            args = _on(d, dev, keys)
+            for i in wrt:
+                args[i].requires_grad_()
+            y = call(*args)
+            r = torch.from_numpy(np.random.RandomState(5).randn(
+                *y.shape).astype(np.float32)).to(dev)
+            grads = torch.autograd.grad((y * r).sum(), [args[i] for i in wrt])
+            res[dev] = (y.detach().cpu(), [t.cpu() for t in grads], args, r)
+        yc, gc, _, _ = res["cpu"]
+        yg, gg, args, r = res["cuda"]
+        fe = _rel_err(yg, yc)
+        be = max(_rel_err(a, b) for a, b in zip(gg, gc))
+        check(fe <= DET_FWD_TOL, f"v6 {name}: forward card vs CPU {fe}")
+        check(be <= DET_BWD_TOL, f"v6 {name}: backward card vs CPU {be}")
+        plain = [a.detach() for a in args]
+        rep = {"shape": list(yg.shape), "fwd_err": fe, "bwd_err": be,
+               "fwd": _time_op(lambda: call(*plain), reps)}
+
+        def both():
+            a = [t.detach().requires_grad_(i in wrt)
+                 for i, t in enumerate(plain)]
+            y = call(*a)
+            torch.autograd.grad((y * r).sum(), [a[i] for i in wrt])
+        rep["fwd_bwd"] = _time_op(both, reps)
+        return rep, yc
+
+    d = recipes.detection_inputs("roi_align")
+    out["roi_align"], _ = fwd_bwd(
+        "roi_align", lambda x, b, n: vops.roi_align(
+            x, b, n, d["output_size"], d["spatial_scale"],
+            d["sampling_ratio"]),
+        ("x", "boxes", "boxes_num"), d, (0,))
+    out["roi_align"]["golden"] = "none: the reference's copy of each RoI's "\
+        "map would take 57 GB"
+    d = recipes.detection_inputs("deform_conv2d")
+    out["deform_conv2d"], y = fwd_bwd(
+        "deform_conv2d", lambda x, o, m, w, b: vops.deform_conv2d(
+            x, o, w, b, padding=d["padding"], mask=m),
+        ("x", "offset", "mask", "weight", "bias"), d, (0, 1, 2, 3, 4))
+    out["deform_conv2d"]["golden_err"] = _hold_summary(
+        "deform_conv2d", y, gold["deform_conv2d"])
+    d = recipes.detection_inputs("yolo_loss")
+    out["yolo_loss"], y = fwd_bwd(
+        "yolo_loss", lambda x, g, lb: vops.yolo_loss(
+            x, g, lb, d["anchors"], d["anchor_mask"], d["class_num"],
+            d["ignore_thresh"], d["downsample_ratio"]),
+        ("x", "gt_box", "gt_label"), d, (0,))
+    out["yolo_loss"]["golden_err"] = _hold_summary("yolo_loss", y,
+                                                   gold["yolo_loss"])
+    d = recipes.detection_inputs("yolo_box")
+    anchors = [d["anchors"][2 * i + j] for i in d["anchor_mask"]
+               for j in (0, 1)]
+
+    def yolo_box(x, s):
+        return vops.yolo_box(x, s, anchors, d["class_num"], d["conf_thresh"],
+                             d["downsample_ratio"])
+    (bc, sc), (bg, sg) = (yolo_box(*_on(d, dev, ("x", "img_size")))
+                          for dev in ("cpu", "cuda"))
+    err = max(_rel_err(bg, bc), _rel_err(sg, sc))
+    check(err <= DET_FWD_TOL, f"v6 yolo_box: card vs CPU {err}")
+    args = _on(d, "cuda", ("x", "img_size"))
+    out["yolo_box"] = {"fwd_err": err, "golden_err": _hold_summary(
+        "yolo_box scores", sc, gold["yolo_box_scores"]),
+        "fwd": _time_op(lambda: yolo_box(*args), 10)}
+
+    # the selection ops: the same host code on the card's inputs
+    d = recipes.detection_inputs("nms")
+    res = [vops.nms(b, d["iou_threshold"], scores=s)
+           for b, s in (_on(d, dev, ("boxes", "scores"))
+                        for dev in ("cpu", "cuda"))]
+    check(res[1].device.type == "cuda", "v6 nms: not on the card")
+    check(torch.equal(res[0], res[1].cpu()), "v6 nms: card vs CPU")
+    check(res[0].tolist() == gold["nms"]["indices"],
+          "v6 nms: the kept indices differ from the reference's")
+    b, s = _on(d, "cuda", ("boxes", "scores"))
+    out["nms"] = {"kept": len(res[0]), "golden_kept": gold["nms"]["kept"],
+                  "fwd": _time_op(lambda: vops.nms(
+                      b, d["iou_threshold"], scores=s), 5)}
+    d = recipes.detection_inputs("generate_proposals")
+    keys = ("scores", "bbox_deltas", "img_size", "anchors", "variances")
+    kw = dict(pre_nms_top_n=d["pre_nms_top_n"],
+              post_nms_top_n=d["post_nms_top_n"], return_rois_num=True)
+    res = [vops.generate_proposals(*_on(d, dev, keys), **kw)
+           for dev in ("cpu", "cuda")]
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(*res)),
+          "v6 generate_proposals: card vs CPU")
+    args = _on(d, "cuda", keys)
+    out["generate_proposals"] = {
+        "rois": int(res[0][2].sum()),
+        "fwd": _time_op(lambda: vops.generate_proposals(*args, **kw), 2)}
+    d = recipes.detection_inputs("multiclass_nms")
+    kw = {k: d[k] for k in ("score_threshold", "nms_top_k", "keep_top_k",
+                            "nms_threshold")}
+    res = [vops.multiclass_nms(*_on(d, dev, ("bboxes", "scores")), **kw)
+           for dev in ("cpu", "cuda")]
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(*res)),
+          "v6 multiclass_nms: card vs CPU")
+    args = _on(d, "cuda", ("bboxes", "scores"))
+    out["multiclass_nms"] = {
+        "detections": [len(t) for t in res[0]],
+        "fwd": _time_op(lambda: vops.multiclass_nms(*args, **kw), 3)}
+    return out
+
+
+def vision_phase(fa, fc, nn, optim, engine, framework, card=None):
     """``vision``: (v1) the ResNet-50 golden, (v2) bench_resnet50's main
-    path; no kernel of the port runs on this path (the reference's
-    convolutions, pooling and batch norm are XLA ops, no Pallas kernel):
-    the six training kernels' counts stay 0."""
+    path, (v3) the zoo's goldens, (v4) MobileNetV2 at batch 128 on a batch
+    made by ``vision.transforms``, (v5) VGG-16 at batch 64, (v6) the
+    detection ops on the card against their CPU runs; v3-v6 each print a
+    line of their own (``vision_v3`` ...). No kernel of the port runs on
+    this path (the reference's convolutions, pooling, batch norm and
+    detection ops are XLA ops, no Pallas kernel): the six training
+    kernels' counts stay 0."""
     from paddle_tpu_torch.distributed import mesh as mesh_mod
-    from paddle_tpu_torch.vision import models
+    from paddle_tpu_torch.vision import models, ops as vops, transforms
     zero_counts(fa, fc)
     out = {"v1_golden": resnet_golden(nn, optim, engine, mesh_mod, models)}
     torch.cuda.empty_cache()
     out["v2_resnet50_b128"] = resnet_main(nn, optim, engine, mesh_mod,
                                           models, framework)
+    seconds = {}
+
+    def sub(key, fn):
+        t0 = time.perf_counter()
+        rep = fn()
+        seconds[key] = time.perf_counter() - t0
+        emit(phase=f"vision_{key}", card=card, seconds=seconds[key], **rep)
+        torch.cuda.empty_cache()
+
+    sub("v3", lambda: {"golden": zoo_golden(nn, optim, engine, mesh_mod,
+                                            models)})
+    images, rate = imagenet_batch(transforms, 128)
+
+    def v4():
+        framework.seed(0)
+        return {"transform_images_per_s": rate, **zoo_main(
+            nn, optim, engine, mesh_mod, models.mobilenet_v2(), images,
+            "features.0.bn._variance", "v4 mobilenet_v2")}
+    sub("v4", v4)
+
+    def v5():
+        # configuration D with batch norm (the golden's v3 holds the plain
+        # one), so that the step has running statistics to move. lr 1e-3:
+        # on one fixed batch (measured on the CPU, batch 16 at 96x96, bf16)
+        # 0.1 reaches NaN by the 6th step, the paper's 1e-2 (batch 256 of
+        # fresh images) climbs to 17x its first loss, 3e-3 climbs after
+        # its 4th step; 1e-3 falls from 8.5 to under 1
+        framework.seed(0)
+        return zoo_main(nn, optim, engine, mesh_mod,
+                        models.vgg16(batch_norm=True), images[:64],
+                        "features.1._variance", "v5 vgg16_bn", lr=1e-3)
+    sub("v5", v5)
+    sub("v6", lambda: detection_ops(vops))
+    out["sub_phase_seconds"] = seconds
     out["launches"] = check_path(fa, fc, "vision", 0, 0, 0)
     return out
 
@@ -6507,7 +6876,7 @@ def run(work) -> int:
     # 15i. ResNet-50: the golden in float32, then bench_resnet50's step at
     # batch 128 in bfloat16
     t0 = time.perf_counter()
-    rep = vision_phase(fa, fc, nn, optim, engine, framework)
+    rep = vision_phase(fa, fc, nn, optim, engine, framework, card)
     path_launches["vision"] = rep["launches"]
     emit(phase="vision", card=card, seconds=time.perf_counter() - t0, **rep)
     torch.cuda.empty_cache()

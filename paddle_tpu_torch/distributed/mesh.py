@@ -65,7 +65,7 @@ __all__ = ["AXES_ORDER", "OWN_AXES", "LINK_TYPES", "Mesh", "build_mesh",
            "get_mesh", "require_mesh", "axis_size", "set_axis_links",
            "explicit_axis_links", "infer_axis_links", "axis_links",
            "axis_link", "LINK_BANDWIDTHS", "link_bandwidth", "link_latency",
-           "known_groups",
+           "known_groups", "group_handle", "handle_group",
            "CommunicateTopology", "HybridCommunicateGroup"]
 
 AXES_ORDER = ("data", "pipe", "sharding", "sep", "model")
@@ -190,6 +190,26 @@ def known_groups() -> Dict[int, Tuple[Dict[str, int], Tuple[str, ...]]]:
     """The process groups :func:`build_mesh` made (the analysis rules'
     membership check): ``id(group) -> (mesh shape, axes)``."""
     return dict(_GROUPS)
+
+
+# the process groups a library op names by handle (an op takes no
+# Python object), kept for the process's life
+_OP_GROUPS: List = []
+
+
+def group_handle(group) -> int:
+    """The integer a library op takes for ``group``
+    (:func:`handle_group` gives it back)."""
+    for h, g in enumerate(_OP_GROUPS):
+        if g is group:
+            return h
+    _OP_GROUPS.append(group)
+    return len(_OP_GROUPS) - 1
+
+
+def handle_group(handle: int):
+    """The process group of :func:`group_handle`'s ``handle``."""
+    return _OP_GROUPS[handle]
 
 
 class _MeshState(threading.local):

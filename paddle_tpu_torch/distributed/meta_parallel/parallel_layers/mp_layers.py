@@ -15,8 +15,9 @@ the reference's ``Parameter.pspec``; checkpoints and
 a ``model`` axis of 1, every layer holds whole weights and issues no
 collective.
 
-Megatron's operators are ``torch.autograd.Function``s over the mesh's
-``model`` group:
+Megatron's operators are library ops over the mesh's ``model`` group
+(``torch.ops.paddle_tpu_torch.mp_*``, their autograd registered, so a
+``jit.to_static`` graph keeps their backward):
 
 - :func:`copy_to_model_parallel` ("f"): identity forward, all-reduce
   backward;
@@ -35,7 +36,8 @@ import torch.distributed as dist
 from ....nn import functional as F
 from ....nn.initializer import XavierUniform
 from ....nn.layer import Layer
-from ...mesh import get_mesh
+from ....ops._library import library_op
+from ...mesh import get_mesh, group_handle, handle_group
 
 __all__ = ["MODEL_AXIS", "copy_to_model_parallel",
            "reduce_from_parallel_region", "gather_from_model_parallel",
@@ -55,43 +57,46 @@ def model_parallel(axis: str = MODEL_AXIS):
     return mesh.group_of(axis), mesh.shape[axis], mesh.coord[axis]
 
 
-class _CopyToModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+def _all_reduce(x, group):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=handle_group(group))
+    return out
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+def _group_setup(ctx, inputs, output):
+    ctx.group = inputs[1]
 
 
-class _GatherFromModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, n, rank):
-        ctx.rank, ctx.n = rank, n
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=-1)
+def _gather_setup(ctx, inputs, output):
+    ctx.n, ctx.rank = inputs[2:]
 
-    @staticmethod
-    def backward(ctx, g):
-        return g.chunk(ctx.n, dim=-1)[ctx.rank].contiguous(), None, None, None
+
+_CopyToModel = library_op(
+    "mp_copy_to_model(Tensor x, int group) -> Tensor",
+    lambda x, group: x.clone(), lambda x, group: torch.empty_like(x),
+    lambda ctx, g: (_all_reduce(g, ctx.group), None), _group_setup)
+
+_ReduceFromModel = library_op(
+    "mp_reduce_from_model(Tensor x, int group) -> Tensor",
+    _all_reduce, lambda x, group: torch.empty_like(x),
+    lambda ctx, g: (g, None), _group_setup)
+
+
+def _gather_last(x, group, n, rank):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=handle_group(group))
+    return torch.cat(parts, dim=-1)
+
+
+_GatherFromModel = library_op(
+    "mp_gather_from_model(Tensor x, int group, int n, int rank) -> Tensor",
+    _gather_last,
+    lambda x, group, n, rank: x.new_empty(tuple(x.shape[:-1])
+                                          + (x.shape[-1] * n,)),
+    lambda ctx, g: (g.chunk(ctx.n, dim=-1)[ctx.rank].contiguous(), None,
+                    None, None),
+    _gather_setup)
 
 
 def copy_to_model_parallel(x, axis: str = MODEL_AXIS):
@@ -99,21 +104,22 @@ def copy_to_model_parallel(x, axis: str = MODEL_AXIS):
     cotangent over ``axis``, so the gradient of a replicated input (and of
     every replicated parameter upstream) is whole on every rank."""
     group, n, _ = model_parallel(axis)
-    return x if n == 1 else _CopyToModel.apply(x, group)
+    return x if n == 1 else _CopyToModel(x, group_handle(group))
 
 
 def reduce_from_parallel_region(x, axis: str = MODEL_AXIS):
     """Megatron's "g": the sum over ``axis`` forward, identity backward
     (the cotangent of the replicated sum is each partial term's)."""
     group, n, _ = model_parallel(axis)
-    return x if n == 1 else _ReduceFromModel.apply(x, group)
+    return x if n == 1 else _ReduceFromModel(x, group_handle(group))
 
 
 def gather_from_model_parallel(x, axis: str = MODEL_AXIS):
     """The ranks' last-dim chunks concatenated (all-gather); the backward
     keeps this rank's chunk of the cotangent."""
     group, n, rank = model_parallel(axis)
-    return x if n == 1 else _GatherFromModel.apply(x, group, n, rank)
+    return x if n == 1 else _GatherFromModel(x, group_handle(group), n,
+                                             rank)
 
 
 def _split_param(layer, name, shape, dim, initializer, spec, is_bias=False):

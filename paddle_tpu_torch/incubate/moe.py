@@ -49,12 +49,16 @@ What the port does differently:
   (ROADMAP Oracle caveats);
 - where each rank brings its own tokens (``split_tokens=True``), the
   tokens cross ranks in the tiled ``all_to_all`` as in the reference; it
-  is an autograd function (its backward is the reverse ``all_to_all``),
+  is a library op whose backward is the reverse ``all_to_all``,
   so each expert's gradient sums the cotangents of every rank's tokens
   routed to it: the gradient of the sum of the ranks' losses, as the
   reference's ``shard_map`` transpose gives. ``ParallelTrainer`` refuses
   such a layer on a live axis (``token_axis``), since it would hand every
   rank the same batch.
+
+The exchanges, the dispatch and the combine are library ops
+(``torch.ops.paddle_tpu_torch.moe_*``) with their autograd registered:
+a ``jit.to_static`` graph holds each as one node and keeps its backward.
 
 ``aux_loss`` is a non-persistent buffer, replaced by each forward with the
 loss of that forward's routing (differentiable, so it can join the loss).
@@ -64,11 +68,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..distributed.mesh import OWN_AXES, get_mesh
+from ..distributed.mesh import (OWN_AXES, get_mesh, group_handle,
+                                handle_group)
 from ..nn import functional as F
 from ..nn.initializer import XavierUniform
 from ..nn.layer import Layer
 from ..nn.layers.common import Linear
+from ..ops._library import library_op
 
 __all__ = ["EXPERT_AXIS", "top2_gating", "ExpertFFN", "MoELayer",
            "expert_parallel"]
@@ -132,106 +138,133 @@ def top2_gating(logits, capacity):
     return combine, dispatch, aux
 
 
-class _AllToAll(torch.autograd.Function):
-    """Chunk j of dim 0 goes to rank j; the backward sends the cotangents
-    back the same way."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
+def _all_to_all(x, group):
+    """Chunk j of dim 0 goes to rank j."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=handle_group(group))
+    return out
 
 
-class _OwnChunk(torch.autograd.Function):
-    """This rank's chunk of dim 0 of a tensor every rank holds alike; the
-    backward all-gathers the ranks' cotangent chunks, so the replicated
+def _all_to_all_setup(ctx, inputs, output):
+    ctx.group = inputs[1]
+
+
+def _all_to_all_backward(ctx, g):
+    """The cotangents go back the same way."""
+    return _AllToAll(g, ctx.group), None
+
+
+_AllToAll = library_op("moe_all_to_all(Tensor x, int group) -> Tensor",
+                       _all_to_all, lambda x, group: torch.empty_like(x),
+                       _all_to_all_backward, _all_to_all_setup)
+
+
+def _gather_chunks(x, group, n, rank):
+    """The ranks' dim-0 chunks concatenated (all-gather)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=handle_group(group))
+    return torch.cat(parts)
+
+
+def _chunk_args_setup(ctx, inputs, output):
+    ctx.group, ctx.n, ctx.rank = inputs[1:]
+
+
+def _gather_chunks_backward(ctx, g):
+    """This rank's chunk of the cotangent (every rank's is the same)."""
+    return g.chunk(ctx.n, dim=0)[ctx.rank].contiguous(), None, None, None
+
+
+_GatherChunks = library_op(
+    "moe_gather_chunks(Tensor x, int group, int n, int rank) -> Tensor",
+    _gather_chunks,
+    lambda x, group, n, rank: x.new_empty((x.shape[0] * n,)
+                                          + tuple(x.shape[1:])),
+    _gather_chunks_backward, _chunk_args_setup)
+
+
+def _own_chunk_backward(ctx, g):
+    """The ranks' cotangent chunks all-gathered, so the replicated
     input's gradient is whole on every rank."""
-
-    @staticmethod
-    def forward(ctx, x, group, n, rank):
-        ctx.group, ctx.n = group, n
-        return x.chunk(n, dim=0)[rank]
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        parts = [torch.empty_like(g) for _ in range(ctx.n)]
-        dist.all_gather(parts, g, group=ctx.group)
-        return torch.cat(parts), None, None, None
+    return _GatherChunks(g, ctx.group, ctx.n, ctx.rank), None, None, None
 
 
-class _GatherChunks(torch.autograd.Function):
-    """The ranks' dim-0 chunks concatenated (all-gather); the backward
-    keeps this rank's chunk of the cotangent (every rank's is the same)."""
-
-    @staticmethod
-    def forward(ctx, x, group, n, rank):
-        ctx.n, ctx.rank = n, rank
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.chunk(ctx.n, dim=0)[ctx.rank].contiguous(), None, None, None
+_OwnChunk = library_op(
+    "moe_own_chunk(Tensor x, int group, int n, int rank) -> Tensor",
+    lambda x, group, n, rank: x.chunk(n, dim=0)[rank].clone(),
+    lambda x, group, n, rank: x.new_empty(
+        (-(-x.shape[0] // n),) + tuple(x.shape[1:])),
+    _own_chunk_backward, _chunk_args_setup)
 
 
-class _Dispatch(torch.autograd.Function):
-    """``buf[s] = tokens[src[s]]`` (``src[s] == T``: a zero row). Each
-    slot holds at most one token, so the backward gathers: a token's
-    gradient is the sum of its (up to two) slots' gradients, read at
-    ``slots`` (T, 2; the sink ``n_slots`` for a dropped choice), with no
-    scatter-add."""
-
-    @staticmethod
-    def forward(ctx, tokens, src, slots):
-        ctx.save_for_backward(slots)
-        padded = torch.cat([tokens, tokens.new_zeros((1, tokens.shape[1]))])
-        return padded[src]
-
-    @staticmethod
-    def backward(ctx, g):
-        (slots,) = ctx.saved_tensors
-        gpad = torch.cat([g, g.new_zeros((1, g.shape[1]))])
-        return gpad[slots].sum(dim=1), None, None
+def _dispatch(tokens, src, slots):
+    """``buf[s] = tokens[src[s]]`` (``src[s] == T``: a zero row)."""
+    padded = torch.cat([tokens, tokens.new_zeros((1, tokens.shape[1]))])
+    return padded[src]
 
 
-class _Combine(torch.autograd.Function):
+def _dispatch_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[2])
+
+
+def _dispatch_backward(ctx, g):
+    """Each slot holds at most one token, so the backward gathers: a
+    token's gradient is the sum of its (up to two) slots' gradients, read
+    at ``slots`` (T, 2; the sink ``n_slots`` for a dropped choice), with
+    no scatter-add."""
+    (slots,) = ctx.saved_tensors
+    gpad = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+    return gpad[slots].sum(dim=1), None, None
+
+
+_Dispatch = library_op(
+    "moe_dispatch(Tensor tokens, Tensor src, Tensor slots) -> Tensor",
+    _dispatch,
+    lambda tokens, src, slots: tokens.new_empty((src.shape[0],
+                                                 tokens.shape[1])),
+    _dispatch_backward, _dispatch_setup)
+
+
+def _picked(out, slots):
+    """(T, 2, D): each token's two slots' rows (the sink a zero row)."""
+    return torch.cat([out, out.new_zeros((1, out.shape[1]))])[slots]
+
+
+def _combine(out, w, slots):
     """``y[t] = sum_k w[t, k] · out[slots[t, k]]`` in float32, cast to
     ``out``'s dtype (``slots`` the sink row for a dropped choice, whose
-    ``w`` is 0). The backward writes each slot's gradient once (a slot
-    has one token: a plain index write, not an accumulation) and reduces
-    the weights' over the width."""
+    ``w`` is 0)."""
+    return (w[..., None] * _picked(out, slots).float()).sum(dim=1).to(
+        out.dtype)
 
-    @staticmethod
-    def forward(ctx, out, w, slots):
-        pad = torch.cat([out, out.new_zeros((1, out.shape[1]))])
-        picked = pad[slots]                                  # (T, 2, D)
-        ctx.n_slots = out.shape[0]
-        ctx.save_for_backward(picked, w, slots)
-        return (w[..., None] * picked.float()).sum(dim=1).to(out.dtype)
 
-    @staticmethod
-    def backward(ctx, gy):
-        picked, w, slots = ctx.saved_tensors
-        g32 = gy.float()
-        gout = None
-        if ctx.needs_input_grad[0]:
-            gout = picked.new_zeros((ctx.n_slots + 1, picked.shape[2]))
-            gout[slots.reshape(-1)] = (w[..., None] * g32[:, None, :]).reshape(
-                -1, picked.shape[2]).to(gout.dtype)
-            gout = gout[:-1]
-        gw = (g32[:, None, :] * picked.float()).sum(dim=-1)
-        return gout, gw, None
+def _combine_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _combine_backward(ctx, gy):
+    """Writes each slot's gradient once (a slot has one token: a plain
+    index write, not an accumulation) and reduces the weights' over the
+    width."""
+    out, w, slots = ctx.saved_tensors
+    picked = _picked(out, slots)
+    g32 = gy.float()
+    gout = None
+    if ctx.needs_input_grad[0]:
+        gout = picked.new_zeros((out.shape[0] + 1, picked.shape[2]))
+        gout[slots.reshape(-1)] = (w[..., None] * g32[:, None, :]).reshape(
+            -1, picked.shape[2]).to(gout.dtype)
+        gout = gout[:-1]
+    gw = (g32[:, None, :] * picked.float()).sum(dim=-1)
+    return gout, gw, None
+
+
+_Combine = library_op(
+    "moe_combine(Tensor out, Tensor w, Tensor slots) -> Tensor",
+    _combine,
+    lambda out, w, slots: out.new_empty((slots.shape[0], out.shape[1])),
+    _combine_backward, _combine_setup)
 
 
 class ExpertFFN(Layer):
@@ -312,27 +345,29 @@ class MoELayer(Layer):
         src = torch.full((E * cap + 1,), T, dtype=torch.long,
                          device=x.device)
         src[slots] = torch.arange(T, device=x.device)[:, None].expand(T, 2)
-        buf = _Dispatch.apply(tokens, src[:E * cap], slots).reshape(
+        buf = _Dispatch(tokens, src[:E * cap], slots).reshape(
             E, cap, d)
         e = self.local_experts
         if n > 1 and self.token_axis is not None:
             # (E, C, D) -> this rank's E/n experts' buffers of every rank,
             # (E/n, n*C, D), and back
-            recv = _AllToAll.apply(buf, self._group).reshape(n, e, cap, d)
+            group = group_handle(self._group)
+            recv = _AllToAll(buf, group).reshape(n, e, cap, d)
             out = self._run_experts(recv.transpose(0, 1).reshape(
                 e, n * cap, d))
             out = out.reshape(e, n, cap, d).transpose(0, 1).reshape(
                 E, cap, d)
-            out = _AllToAll.apply(out, self._group)
+            out = _AllToAll(out, group)
         elif n > 1:
             # every rank holds this buffer: its own experts' rows, their
             # outputs all-gathered
-            own = _OwnChunk.apply(buf, self._group, n, self._rank)
-            out = _GatherChunks.apply(self._run_experts(own), self._group,
-                                      n, self._rank)
+            group = group_handle(self._group)
+            own = _OwnChunk(buf, group, n, self._rank)
+            out = _GatherChunks(self._run_experts(own), group, n,
+                                self._rank)
         else:
             out = self._run_experts(buf)
         # combine: the two kept choices' outputs, gated, summed in float32
         w = torch.where(keep, gate.to(x.dtype).float(), 0.0)
-        y = _Combine.apply(out.reshape(E * cap, d), w, slots)
+        y = _Combine(out.reshape(E * cap, d), w, slots)
         return y.reshape(b, s, d)

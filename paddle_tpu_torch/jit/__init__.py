@@ -332,8 +332,8 @@ def _function_spy():
     inlines such a Function's forward, so a replay of the graph has no
     way to its ``backward``. Functions of torch itself are left out: a
     registered op's autograd (the flash kernels', the CE losses', the
-    ring's and the sharded lookup's) is one of them, and its node keeps
-    it."""
+    ring's, the sharded lookup's, the experts' and the Megatron
+    operators') is one of them, and its node keeps it."""
     import contextlib
     seen = []
     fn_cls = torch.autograd.Function
@@ -436,8 +436,9 @@ class StaticFunction:
             raise LostGradientError(
                 f"to_static({self._dygraph_function.__name__}): the staged "
                 f"graph would lose the backward of {lost}, a plain "
-                "autograd.Function (the experts' exchanges, the Megatron "
-                "operators); trace the value and its gradients together "
+                "autograd.Function whose forward the trace inlines (make "
+                "it a library op with torch.library.register_autograd); "
+                "trace the value and its gradients together "
                 "(static.append_backward in a static.Program) or call it "
                 "under torch.no_grad()")
         return graph(*[leaves[i] for i in tensors])
@@ -508,11 +509,11 @@ class TracedLayer:
             raise LostGradientError(
                 f"TracedLayer({type(self.layer).__name__}): the staged graph "
                 f"would lose the backward of {lost}, a plain "
-                "autograd.Function whose forward the trace inlines (the "
-                "experts' exchanges, the Megatron operators); trace the "
-                "loss and its gradients together (static.append_backward "
-                "in a static.Program) or call the layer under "
-                "torch.no_grad()")
+                "autograd.Function whose forward the trace inlines (make "
+                "it a library op with torch.library.register_autograd); "
+                "trace the loss and its gradients together "
+                "(static.append_backward in a static.Program) or call the "
+                "layer under torch.no_grad()")
         return graph(*state, *[leaves[i] for i in tensors])
 
     @property

@@ -20,12 +20,21 @@ __all__ = ["relu", "relu6", "relu_", "elu", "selu", "celu", "gelu",
            "tanh_"]
 
 
+def _clip(x, lo, hi):
+    """``jnp.clip``: a bound's gradient, where ``x`` equals it, is half
+    the cotangent (``maximum``/``minimum`` split ties), where ``clamp``
+    passes it whole; a ReLU6 after a zero-padded depthwise window meets
+    exact zeros."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def relu(x, name=None):
     return torch.relu(x)
 
 
 def relu6(x, name=None):
-    return torch.clamp(x, 0.0, 6.0)
+    return _clip(x, 0.0, 6.0)
 
 
 def relu_(x):
@@ -78,15 +87,15 @@ def sigmoid(x, name=None):
 
 
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
+    return _clip(slope * x + offset, 0.0, 1.0)
 
 
 def hardswish(x, name=None):
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def hardtanh(x, min=-1.0, max=1.0, name=None):
-    return torch.clamp(x, min, max)
+    return _clip(x, min, max)
 
 
 def hardshrink(x, threshold=0.5, name=None):

@@ -342,11 +342,18 @@ def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
 def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
                   padding=0, dilation=1, groups=1, deformable_groups=1,
                   im2col_step=1, param_attr=None, bias_attr=None, name=None):
-    """reference: delegates to vision.ops.deform_conv2d, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        "static.nn.deform_conv2d delegates to vision/ops.py deform_conv2d, "
-        "which waits for ROADMAP Queue 1 item 21b (vision/ops.py)")
+    """Delegates to ``vision.ops.deform_conv2d``, as the reference does;
+    its filter and bias are this scope's ``<name>.w_0`` and
+    ``<name>.b_0``."""
+    from ..vision.ops import deform_conv2d as _dc
+    x = _t(x)
+    name = name or _uname("deform_conv2d")
+    w = _conv_param(name, (num_filters, x.shape[1] // groups)
+                    + _ks(filter_size, 2), x.device)
+    b = _bias(name, bias_attr, num_filters, x.device)
+    return _dc(x, _t(offset), w, bias=b, stride=stride, padding=padding,
+               dilation=dilation, deformable_groups=deformable_groups,
+               groups=groups, mask=None if mask is None else _t(mask))
 
 
 def row_conv(input, future_context_size, param_attr=None, act=None,

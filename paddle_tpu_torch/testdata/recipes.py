@@ -2,8 +2,9 @@
 
 One definition for every caller: the golden writers
 (``tests/torch_resnet_golden.py``, ``tests/torch_moe_golden.py``,
-``tests/torch_bert_golden.py``, ``tests/torch_mt_golden.py``, which
-run the JAX package on the CPU), the tests, and ``chip_smoke.py`` on the
+``tests/torch_bert_golden.py``, ``tests/torch_mt_golden.py``,
+``tests/torch_vision_zoo_golden.py``, which run the JAX package on the
+CPU), the tests, and ``chip_smoke.py`` on the
 card. Each golden file records the arguments (seeds, scales) it was made
 with. Imports numpy only: :func:`ptb_lm` and :func:`seq2seq`, the two
 small models the MT golden file and the dy2static model tier train, are
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["resnet_weights", "resnet_data", "moe_weights", "moe_tokens",
+__all__ = ["resnet_weights", "resnet_data", "zoo_weights", "zoo_data",
+           "no_dropout", "detection_inputs", "moe_weights", "moe_tokens",
            "bert_weights", "bert_data", "mt_data", "ptb_weights", "ptb_data",
            "ptb_lm", "seq2seq"]
 
@@ -46,6 +48,155 @@ def resnet_data(seed, batch, size, classes=1000):
     images = rs.randn(batch, 3, size, size).astype(np.float32)
     labels = rs.randint(0, classes, (batch,)).astype(np.int32)
     return images, labels
+
+
+def zoo_weights(names_shapes, seed, conv_gain=2.0, linear_gain=1.0) -> dict:
+    """{name: float32 array} in the given (``state_dict``) order from one
+    ``np.random.default_rng(seed)`` for the LeNet, MobileNet and VGG
+    families: running means and ``.bias`` zeros, running variances and
+    other 1-d parameters ones, a convolution weight ``(O, I/g, kh, kw)``
+    ``standard_normal`` (float32) times ``sqrt(conv_gain / (I/g * kh *
+    kw))`` (He's std for ReLU at 2), a linear weight ``(in, out)`` times
+    ``sqrt(linear_gain / in)``. (The float32 draws keep VGG's 138M
+    weights to a fraction of a second.)"""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in names_shapes:
+        shape = tuple(shape)
+        if name.endswith("._mean") or name.endswith(".bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif name.endswith("._variance") or len(shape) == 1:
+            out[name] = np.ones(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:])) if len(shape) == 4 else shape[0]
+            gain = conv_gain if len(shape) == 4 else linear_gain
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w *= np.float32(np.sqrt(gain / fan_in))
+            out[name] = w
+    return out
+
+
+def zoo_data(seed, batch, channels, size, classes):
+    """Images ``randn(batch, channels, size, size)`` float32, then labels
+    ``randint(0, classes, (batch,))`` int32, from ``RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+    images = rs.randn(batch, channels, size, size).astype(np.float32)
+    labels = rs.randint(0, classes, (batch,)).astype(np.int32)
+    return images, labels
+
+
+def no_dropout(model):
+    """Set every ``Dropout`` of ``model`` (either package) to p 0; returns
+    how many there were."""
+    n = 0
+    layers = (model.sublayers(include_self=True)
+              if hasattr(model, "sublayers") else model.modules())
+    for layer in layers:
+        if type(layer).__name__ == "Dropout":
+            layer.p = 0.0
+            n += 1
+    return n
+
+
+#: YOLOv3's anchors (w, h at 416x416), three a scale; the 13x13 head
+#: takes the last three (mask 6, 7, 8)
+YOLOV3_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                  156, 198, 373, 326]
+
+
+def _boxes_xyxy(rs, n, height, width, lo, hi):
+    """n boxes (x1, y1, x2, y2) inside a height x width image, sides
+    uniform in [lo, hi) pixels."""
+    wh = rs.uniform(lo, hi, (n, 2))
+    x1 = rs.uniform(0, width - wh[:, 0])
+    y1 = rs.uniform(0, height - wh[:, 1])
+    return np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1).astype(
+        np.float32)
+
+
+def detection_inputs(op, seed=0):
+    """The inputs of ``chip_smoke.py``'s detection sub-phase (v6) for
+    ``op``, at the shapes of the public models' published settings, as a
+    dict of numpy arrays and plain arguments; one ``RandomState(seed)``
+    an op.
+
+    - ``roi_align``: an FPN P2 level of an 800x1088 image (2 x 256 x 200
+      x 272, spatial scale 1/4), 512 boxes an image, 7x7, 2 samples;
+    - ``deform_conv2d``: DCNv2 in ResNet-50's C4 stage: 2 x 256 x 50 x 68,
+      3x3 with padding 1, 256 filters, offsets of a few pixels, the
+      modulation mask in [0, 1);
+    - ``yolo_box`` and ``yolo_loss``: the YOLOv3 head at 416x416, the
+      13x13 scale: 8 x 255 x 13 x 13 (3 anchors of 80 classes), 50 boxes
+      an image of which the first 20 are objects (the rest padding);
+    - ``nms``: 1,000 boxes in an 800x1088 image, clustered round 50
+      centres, IoU 0.7;
+    - ``generate_proposals``: an RPN over a 50x68 map (stride 16 of
+      800x1088), 15 anchors a cell (5 sizes x 3 ratios), the reference's
+      defaults (pre_nms_top_n 6000, post_nms_top_n 1000);
+    - ``multiclass_nms``: SSD300's 8,732 priors and 21 classes (softmax
+      scores), score 0.01, nms_top_k 400, keep_top_k 200, IoU 0.45.
+    """
+    rs = np.random.RandomState(seed)
+    if op == "roi_align":
+        boxes = np.concatenate([_boxes_xyxy(rs, 512, 800, 1088, 16, 400)
+                                for _ in range(2)])
+        return dict(x=rs.randn(2, 256, 200, 272).astype(np.float32),
+                    boxes=boxes, boxes_num=np.array([512, 512], np.int32),
+                    output_size=7, spatial_scale=0.25, sampling_ratio=2)
+    if op == "deform_conv2d":
+        return dict(
+            x=rs.randn(2, 256, 50, 68).astype(np.float32),
+            offset=(2.0 * rs.randn(2, 18, 50, 68)).astype(np.float32),
+            mask=rs.rand(2, 9, 50, 68).astype(np.float32),
+            weight=rs.normal(0.0, np.sqrt(2.0 / 2304),
+                             (256, 256, 3, 3)).astype(np.float32),
+            bias=(0.1 * rs.randn(256)).astype(np.float32), padding=1)
+    if op in ("yolo_box", "yolo_loss"):
+        x = rs.randn(8, 255, 13, 13).astype(np.float32)
+        gt = np.zeros((8, 50, 4), np.float32)
+        gt[:, :20, :2] = rs.uniform(0.05, 0.95, (8, 20, 2))
+        gt[:, :20, 2:] = rs.uniform(0.02, 0.8, (8, 20, 2))
+        return dict(x=x, img_size=np.full((8, 2), 416, np.int32),
+                    gt_box=gt,
+                    gt_label=rs.randint(0, 80, (8, 50)).astype(np.int32),
+                    anchors=YOLOV3_ANCHORS, anchor_mask=[6, 7, 8],
+                    class_num=80, conf_thresh=0.01, ignore_thresh=0.7,
+                    downsample_ratio=32)
+    if op == "nms":
+        centres = rs.uniform(60, 740, (50, 2))[rs.randint(0, 50, 1000)]
+        wh = rs.uniform(30, 120, (1000, 2))
+        xy = centres + rs.randn(1000, 2) * 12
+        boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1)
+        return dict(boxes=boxes.astype(np.float32),
+                    scores=rs.rand(1000).astype(np.float32),
+                    iou_threshold=0.7)
+    if op == "generate_proposals":
+        a, h, w = 15, 50, 68
+        sizes, ratios = [32.0, 64.0, 128.0, 256.0, 512.0], [0.5, 1.0, 2.0]
+        cx = (np.arange(w) + 0.5) * 16.0
+        cy = (np.arange(h) + 0.5) * 16.0
+        cx, cy = np.meshgrid(cx, cy)
+        half = np.array([[s * np.sqrt(1 / r) / 2, s * np.sqrt(r) / 2]
+                         for r in ratios for s in sizes])
+        anchors = np.stack([cx[..., None] - half[:, 0],
+                            cy[..., None] - half[:, 1],
+                            cx[..., None] + half[:, 0],
+                            cy[..., None] + half[:, 1]], -1)
+        return dict(
+            scores=rs.rand(1, a, h, w).astype(np.float32),
+            bbox_deltas=(0.2 * rs.randn(1, 4 * a, h, w)).astype(np.float32),
+            img_size=np.array([[800, 1088]], np.float32),
+            anchors=anchors.astype(np.float32),
+            variances=np.ones((h, w, a, 4), np.float32),
+            pre_nms_top_n=6000, post_nms_top_n=1000)
+    if op == "multiclass_nms":
+        boxes = _boxes_xyxy(rs, 8732, 1.0, 1.0, 0.02, 0.5)[None]
+        logits = 2.0 * rs.randn(1, 21, 8732)
+        scores = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+        return dict(bboxes=boxes, scores=scores.astype(np.float32),
+                    score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+                    nms_threshold=0.45)
+    raise ValueError(f"no detection inputs for {op!r}")
 
 
 def moe_weights(names_shapes, seed) -> dict:

@@ -1,7 +1,13 @@
-"""The model zoo (port of ``paddle_tpu/vision/models``): the ResNet
-family."""
+"""The model zoo (port of ``paddle_tpu/vision/models``): LeNet, the
+MobileNets, the ResNet family and VGG."""
+from .lenet import LeNet  # noqa: F401
+from .mobilenet import (MobileNetV1, MobileNetV2,  # noqa: F401
+                        mobilenet_v1, mobilenet_v2)
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      resnet18, resnet34, resnet50, resnet101, resnet152)
+from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
 
-__all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
-           "resnet50", "resnet101", "resnet152"]
+__all__ = ["LeNet", "MobileNetV1", "MobileNetV2", "mobilenet_v1",
+           "mobilenet_v2", "BasicBlock", "BottleneckBlock", "ResNet",
+           "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+           "VGG", "vgg11", "vgg13", "vgg16", "vgg19"]

@@ -10,8 +10,8 @@ so both compute the same function. float32 within 1e-5 relative and 1e-6
 absolute (convolutions and matmuls reorder sums), integers exactly. The
 cases of the reference's ``tests/test_static_nn.py`` run beside. The
 functions also run traced, inside a ``Program``, against their eager
-results. ``deform_conv2d`` raises by name: ``vision/ops.py`` is not
-ported yet.
+results. ``deform_conv2d`` delegates to ``vision.ops.deform_conv2d`` in
+both, and the port's names a misshapen offset.
 """
 import numpy as np
 import pytest
@@ -34,6 +34,11 @@ SEQ = np.arange(24, dtype="float32").reshape(2, 4, 3) / 10.0
 LEN = np.asarray([2, 4], "int64")
 IDS = np.asarray([[0, 1, 3], [2, 0, 4]], "int64")
 TOL = dict(rtol=1e-5, atol=1e-6)
+# deform_conv2d's input, offsets (within two pixels) and mask, from a
+# RandomState of its own
+_DRS = np.random.RandomState(11)
+DEFORM = (X4, (2 * _DRS.randn(2, 36, 6, 6)).astype("float32"),
+          _DRS.rand(2, 18, 6, 6).astype("float32"))
 
 
 # the reference's eager-only (ragged, host) cases, its sampling nce and
@@ -110,6 +115,9 @@ CASES = {
     "conv2d_transpose": (lambda m, x: m.conv2d_transpose(
         x, 6, filter_size=2, stride=2, name="c2t"), (X4,)),
     "conv3d": (lambda m, x: m.conv3d(x, 4, 3, padding=1, name="c3"), (X5,)),
+    "deform_conv2d": (lambda m, x, o, k: m.deform_conv2d(
+        x, o, k, 6, 3, padding=1, deformable_groups=2, name="dc"),
+        DEFORM),
     "conv3d_transpose": (lambda m, x: m.conv3d_transpose(
         x, 3, filter_size=2, stride=2, name="c3t"), (X5,)),
     "row_conv": (lambda m, x: m.row_conv(x, 2, name="rc"), (SEQ,)),
@@ -213,12 +221,17 @@ def test_every_reference_function_has_a_case():
     covered = {n.split("_length")[0].split("_packed")[0] for n in CASES}
     covered |= {n for n in rnn.__all__ if any(c.startswith(n)
                                               for c in CASES)}
-    assert set(rnn.__all__) - covered == {"deform_conv2d"}
+    assert set(rnn.__all__) - covered == set()
 
 
 def test_deform_conv2d_raises_by_name():
-    with pytest.raises(NotImplementedError, match="vision/ops.py"):
-        pnn.deform_conv2d(torch.ones(1, 2, 4, 4), torch.zeros(1, 18, 4, 4),
+    # an offset of the wrong width: the port names the argument (the
+    # reference fails inside a reshape)
+    # in a scope of its own: the filter is made before the check, and a
+    # variable left in the global scope would join every later Program
+    with st.scope_guard(st.Scope()), \
+            pytest.raises(ValueError, match="offset has 16 channels, 18"):
+        pnn.deform_conv2d(torch.ones(1, 2, 4, 4), torch.zeros(1, 16, 4, 4),
                           None, 2, 3)
 
 

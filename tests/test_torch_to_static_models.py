@@ -381,17 +381,37 @@ def test_converted_model_saves_and_loads(tmp_path):
     assert any("cond" in str(n.target) for n in ep.graph.nodes)
 
 
+class _UserScale(torch.autograd.Function):
+    """A user's Function, whose forward the trace inlines."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 3
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * 3
+
+
+class _ScaledLinear(port.nn.Layer):
+    def __init__(self):
+        super().__init__()
+        self.fc = port.nn.Linear(16, 4)
+
+    def forward(self, x):
+        return _UserScale.apply(self.fc(x))
+
+
 def test_lost_gradient_raises_by_name():
-    # the experts' exchanges are still plain autograd.Functions, whose
-    # forward the trace inlines
-    from paddle_tpu_torch.incubate import MoELayer
+    # a user-defined autograd.Function: the staged graph would replay its
+    # forward with no way to its backward
     from paddle_tpu_torch.jit import LostGradientError
 
     port.seed(0)
-    m = MoELayer(16, 32, 4)
+    m = _ScaledLinear()
     x = torch.from_numpy(RS.randn(2, 8, 16).astype("float32"))
     tl = port.jit.to_static(m)
-    with pytest.raises(LostGradientError, match="_Combine"):
+    with pytest.raises(LostGradientError, match="_UserScale"):
         tl(x)
     with torch.no_grad():
         np.testing.assert_allclose(tl(x).numpy(), m(x).numpy(), rtol=1e-6)
