@@ -100,6 +100,23 @@ per source, all started together), then:
   steps over four chunks of a 4096-row sequence against the flash kernels
   over the whole sequence, with their device times and launches.
 
+- the high-level API, after ``vision`` (``hapi``; lines ``hapi_a1`` to
+  ``hapi_a3``): (a1) GPT-base in bf16 through ``hapi.Model.fit`` over a
+  ``DataLoader`` of seeded token batches against ``fused_b8_pallas_ce``'s
+  trainer on the same weights and batches: 12 launches of each flash
+  kernel and one of each CE kernel a step (the ``kernels`` line's
+  ``launches_by_path["hapi"]``), the losses within ``HAPI_LOSS_RTOL``,
+  both steps timed and profiled; (a2) MobileNetV2 under ``amp_configs=
+  "O1"`` at 128 x 224^2 through ``Model.fit``, fed by the loading process
+  and by DataLoader workers (min(8, usable cores - 1)) that draw and
+  transform each image, each run timed only after the batches its loader
+  can hold ready (``fed_ahead``), against the same step on one batch
+  already on the card: images/s, the loader's wait a step, the busy share
+  of a profiled fed step; (a3) LeNet's
+  fit with ``ModelCheckpoint`` and ``EarlyStopping`` against the
+  reference's (``hapi_golden.json``), ``evaluate`` and ``predict`` against
+  the same Model on the CPU, ``save`` on the card and ``load`` on the CPU.
+
 - BERT/ERNIE, after ``analysis`` (``text``): the golden at BERT-base
   widths, depth 2, float32 (``bert_golden.json``); bench.py's
   ``bert_base_amp`` (BERT-base, bf16, 16 x 128: every attention refused
@@ -1209,14 +1226,15 @@ def golden_data(vocab, batch, seq, seed):
 
 def fused_loss_layer(nn, model, chunk, ce_kernel="chunked"):
     """(ids, labels) -> loss Layer around ``fused_head_loss``, as bench.py
-    wraps the model for ParallelTrainer."""
+    wraps the model for ParallelTrainer: called with the pair (the
+    trainer's input) or with ids and labels apart (``hapi.Model``'s)."""
     class FusedLoss(nn.Layer):
         def __init__(self, inner):
             super().__init__()
             self.inner = inner
 
-        def forward(self, batch):
-            ids, lbl = batch
+        def forward(self, *batch):
+            ids, lbl = batch[0] if len(batch) == 1 else batch
             return self.inner.fused_head_loss(ids, lbl, chunk=chunk,
                                               ce_kernel=ce_kernel)
 
@@ -4587,6 +4605,468 @@ def vision_phase(fa, fc, nn, optim, engine, framework, card=None):
     return out
 
 
+# -- hapi: Model.fit, the DataLoader and its workers on the card -------------
+
+# (a1) Model.fit's losses against fused_b8_pallas_ce's trainer on the same
+# weights and batches: the largest relative gap over the 12 steps. Set
+# before any card run from the same comparison on the CPU (bf16 GPT, depth
+# 2, narrow widths; tests/test_torch_hapi.py::test_gpt_model_loss_bar),
+# which reads 0: one step, the same ops in the same order. The bar is at
+# least ten times that reading; it is the static phase's STATIC_LOSS_RTOL,
+# the bar of another way of running the same step
+HAPI_LOSS_RTOL = 1e-5
+# (a3) the card's LeNet fit against hapi_golden.json (the reference's
+# Model.fit on the CPU, float32): each per-batch loss, relative
+HAPI_GOLDEN_RTOL = 1e-5
+# (a3) evaluate's loss and predict's outputs on the card against the same
+# Model on the CPU with the same weights, of the largest element
+HAPI_CPU_TOL = 1e-5
+HAPI_WARMUP, HAPI_ITERS = 2, 10
+# (a2) timed steps of the run fed by DataLoader workers: five times the
+# most its loader can hold ready at 7 workers (fed_ahead), so the rate is
+# the workers' sustained one, not that of batches made during the warm-up
+HAPI_FED_TIMED = 5 * 17
+# (a2) timed steps of the run fed by the loading process alone: 12 steps
+# in all with the warm-up and fed_ahead(0)
+HAPI_LOADER_TIMED = 7
+HAPI_PREFETCH = 2       # io.DataLoader's prefetch_factor, its default
+# (a3) the LeNet fit, which tests/torch_hapi_golden.py runs through the
+# reference: LeNet on recipes.zoo_weights(seed 0), Momentum, cross entropy
+# and top-1/top-5 accuracy, HapiEasyData (labels drawn into the image, so
+# the model learns) shuffled from np.random.seed(shuffle_seed), evaluated
+# after each epoch on the eval set
+HAPI_LENET = {"weights_seed": 0, "lr": 1e-2, "momentum": 0.9, "epochs": 2,
+              "batch": 32, "train_size": 256, "eval_size": 64,
+              "eval_seed": 999, "shuffle_seed": 0, "topk": [1, 5]}
+
+
+def step_clock(callbacks, probe=None):
+    """A callback keeping each train batch's loss and the host clock at
+    its end hook, which runs after ``train_batch`` read the loss on the
+    host (a wait for the card), and what ``probe()`` reads then."""
+    class StepClock(callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.t = [], []
+            self.probe, self.probes = probe, []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            self.t.append(time.perf_counter())
+            if self.probe is not None:
+                self.probes.append(self.probe())
+
+        def ms_per_step(self, warmup=HAPI_WARMUP):
+            """Mean ms of the steps after ``warmup``: batch fetch, copy
+            to the card, step and loss read included."""
+            return (self.t[-1] - self.t[warmup - 1]) / (
+                len(self.t) - warmup) * 1e3
+
+    return StepClock()
+
+
+def fed_ahead(workers, prefetch=HAPI_PREFETCH):
+    """The most batches an ``io.DataLoader`` holds ready ahead of its
+    consumer: ``workers * prefetch`` in flight in the workers (none
+    without them), ``prefetch`` in the prefetch thread's queue and one in
+    its hand."""
+    return workers * prefetch + prefetch + 1
+
+
+def hapi_gpt_batches(steps, batch, seq, vocab=50304, seed=0):
+    """``steps`` batches of seeded ids and labels, row-stacked (int32)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (steps * batch, seq)).astype(np.int32)
+    lbl = rs.randint(0, vocab, (steps * batch, seq)).astype(np.int32)
+    return ids, lbl
+
+
+def gpt_trainer_run(nn, engine, optim, model, ids, lbl, batch,
+                    warmup=HAPI_WARMUP, iters=HAPI_ITERS, device=None):
+    """fused_b8_pallas_ce's trainer (AdamW(3e-4), the fused CE kernels)
+    over the batches in order, each on the device before the steps ->
+    (trainer, losses, ms a timed step, the last batch)."""
+    trainer = engine.ParallelTrainer(
+        fused_loss_layer(nn, model, 8192, ce_kernel="pallas"),
+        optim.AdamW(3e-4), lambda out, _l: out, device=device)
+    dev = trainer.device
+    batches = [(torch.from_numpy(ids[i * batch:(i + 1) * batch]).to(dev),
+                torch.from_numpy(lbl[i * batch:(i + 1) * batch]).to(dev))
+               for i in range(warmup + iters)]
+    losses = [trainer.train_step(b, 0.0) for b in batches[:warmup]]
+    float(losses[-1])
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(b, 0.0) for b in batches[warmup:]]
+    float(losses[-1])
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    return trainer, [float(x) for x in losses], ms, batches[-1]
+
+
+def gpt_model_fit(nn, optim, io, hapi, model, ids, lbl, batch,
+                  steps=HAPI_WARMUP + HAPI_ITERS, device=None):
+    """The same run through ``hapi.Model``: ``fit(num_iters=steps)`` over
+    a ``DataLoader`` (``num_workers=0``) of a ``TensorDataset`` of (ids,
+    labels, a zero label), the network computing its fused head loss from
+    ids and labels and ``loss`` returning it -> (Model, StepClock)."""
+    m = hapi.Model(fused_loss_layer(nn, model, 8192, ce_kernel="pallas"),
+                   device=device)
+    m.prepare(optim.AdamW(3e-4), loss=lambda out, _zero: out)
+    data = io.TensorDataset([ids, lbl, np.zeros(len(ids), np.float32)])
+    clock = step_clock(hapi.callbacks)
+    m.fit(io.DataLoader(data, batch_size=batch), epochs=1, num_iters=steps,
+          verbose=0, callbacks=[clock])
+    return m, clock
+
+
+def hapi_a1(fa, fc, nn, gpt, engine, optim, framework, io, hapi,
+            layers=12, batch=8, seq=1024):
+    """(a1) GPT-base (bf16, the fused CE kernels) through ``Model.fit``
+    against fused_b8_pallas_ce's trainer on the same weights and batches:
+    per step 12 launches of each flash kernel and one of each CE kernel,
+    all on the mma and tiled routes, the losses within ``HAPI_LOSS_RTOL``;
+    ms a step of each and the card's busy share of one step of each
+    (``profile_calls``)."""
+    steps = HAPI_WARMUP + HAPI_ITERS
+    ids, lbl = hapi_gpt_batches(steps, batch, seq)
+    trainer, t_losses, trainer_ms, last = gpt_trainer_run(
+        nn, engine, optim, gpt_base_model(gpt, framework, seq, layers), ids,
+        lbl, batch)
+    trainer_prof = profile_calls(lambda: trainer.train_step(last, 0.0))
+    del trainer
+    torch.cuda.empty_cache()
+    zero_counts(fa, fc)
+    m, clock = gpt_model_fit(nn, optim, io, hapi,
+                             gpt_base_model(gpt, framework, seq, layers),
+                             ids, lbl, batch, steps)
+    torch.cuda.synchronize()
+    launches = check_path(fa, fc, "hapi a1", layers * steps, layers * steps,
+                          steps)
+    losses = clock.losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, t_losses)]
+    # fresh random tokens each step: the loss stays near ln(50304), so
+    # it is held to the trainer's, not asked to fall
+    check(all(np.isfinite(losses)), f"hapi a1: losses {losses}")
+    check(max(rel) <= HAPI_LOSS_RTOL,
+          f"hapi a1: losses {losses} vs the trainer's {t_losses}")
+    model_prof = profile_calls(
+        lambda: m.train_batch([last[0], last[1]], [torch.zeros(batch)]))
+    del m
+    torch.cuda.empty_cache()
+    return {"layers": layers, "batch": batch, "seq": seq,
+            "warmup": HAPI_WARMUP, "iters": HAPI_ITERS, "losses": losses,
+            "trainer_losses": t_losses, "max_rel_gap": max(rel),
+            "rtol": HAPI_LOSS_RTOL,
+            "bit_equal_to_trainer": losses == t_losses,
+            "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "ms_per_step": clock.ms_per_step(),
+            "trainer_ms_per_step": trainer_ms,
+            "busy_share": 1.0 - model_prof["profiled_idle_share"],
+            "trainer_busy_share": 1.0 - trainer_prof["profiled_idle_share"],
+            "profile": model_prof, "trainer_profile": trainer_prof}
+
+
+class HapiImages:
+    """``n`` seeded uint8 ``source`` x ``source`` x 3 images, each made
+    from ``RandomState(seed + idx)`` when it is asked for, with a label
+    from the same draw, through ``RandomResizedCrop(size)``,
+    ``RandomHorizontalFlip``, ``Normalize`` (ImageNet's mean and std) and
+    ``Transpose`` in ``__getitem__``: the per-sample work of an ImageNet
+    training loader (``FakeData``'s draw per index)."""
+
+    def __init__(self, transforms, n=1536, size=224, source=256, seed=0,
+                 classes=1000):
+        self.n, self.source, self.seed, self.classes = n, source, seed, \
+            classes
+        self.pipe = transforms.Compose([
+            transforms.RandomResizedCrop(size),
+            transforms.RandomHorizontalFlip(),
+            transforms.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                 data_format="HWC"),
+            transforms.Transpose()])
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        rs = np.random.RandomState(self.seed + idx)
+        img = rs.randint(0, 256, (self.source, self.source, 3)).astype(
+            np.uint8)
+        label = np.asarray(rs.randint(0, self.classes), dtype=np.int64)
+        return self.pipe(img), label
+
+
+def hapi_a2(nn, optim, framework, io, hapi, metric, telemetry, models,
+            transforms, batch=128, timed=(HAPI_LOADER_TIMED, HAPI_FED_TIMED)):
+    """(a2) ``mobilenet_v2()`` under ``amp_configs="O1"`` (bf16) with
+    ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss`` and ``Accuracy`` through
+    ``Model.fit`` on ``HapiImages`` at batch 128 x 224², at ``num_workers``
+    0 and at W = min(8, usable cores - 1), each inside a telemetry scope;
+    then ``train_batch`` on one batch already on the card. A fed run steps
+    ``HAPI_WARMUP`` steps, then as many as the loader may hold ready
+    (``fed_ahead``), then ``timed[0]`` (no workers) or ``timed[1]`` steps:
+    its images/s (also over the timed steps' second half) and the loader's
+    wait a step (``dataloader_fetch_seconds``) are the timed steps'. The
+    busy share of a run is the device ms of one profiled ``train_batch``
+    on a CPU batch from that run's loader (the copy to the card included)
+    over the run's ms a step; the fixed batch's, its own profiled step.
+    Losses finite, falling on the fixed batch, batch norm's running
+    statistics moved."""
+    cores, usable = os.cpu_count(), len(os.sched_getaffinity(0))
+    workers = min(8, usable - 1)
+    framework.seed(0)
+    net = models.mobilenet_v2()
+    m = hapi.Model(net)
+    m.prepare(optim.Momentum(0.1, momentum=0.9), nn.CrossEntropyLoss(),
+              metric.Accuracy(), amp_configs="O1")
+    stat = "features.0.bn._variance"
+    before = dict(net.named_buffers())[stat].float().clone()
+    runs = {}
+    for w, n_timed in zip((0, workers), timed):
+        skip = HAPI_WARMUP + fed_ahead(w)
+        steps = skip + n_timed
+        ds = HapiImages(transforms, n=batch * steps)
+        np.random.seed(0)
+        with telemetry.scope(profile=False) as tel:
+            def waited(reg=tel.registry):
+                h = reg.get("dataloader_fetch_seconds")
+                return h.sum(), h.count()
+            clock = step_clock(hapi.callbacks, probe=waited)
+            t0 = time.perf_counter()
+            m.fit(io.DataLoader(ds, batch_size=batch, shuffle=True,
+                                num_workers=w), epochs=1, num_iters=steps,
+                  verbose=0, callbacks=[clock])
+            wall = time.perf_counter() - t0
+        check(len(clock.losses) == steps and all(np.isfinite(clock.losses)),
+              f"hapi a2 workers {w}: losses {clock.losses}")
+        ms = clock.ms_per_step(skip)
+        half = skip + n_timed // 2
+        (w_end, n_end), (w_skip, n_skip) = clock.probes[-1], \
+            clock.probes[skip - 1]
+        it = iter(io.DataLoader(ds, batch_size=batch, num_workers=w))
+        xb, yb = next(it)
+        it.close()
+        prof = profile_calls(lambda: m.train_batch([xb], [yb]))
+        runs[f"workers_{w}"] = {
+            "num_workers": w, "steps": steps, "untimed_steps": skip,
+            "timed_steps": n_timed, "losses": clock.losses,
+            "ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+            "images_per_s_second_half": batch / clock.ms_per_step(half)
+            * 1e3,
+            "fetch_wait_ms_per_step": (w_end - w_skip) / (n_end - n_skip)
+            * 1e3,
+            "first_fetch_s": clock.probes[0][0],
+            "untimed_fetch_wait_s": w_skip, "fit_wall_s": wall,
+            "fed_step_device_ms": prof["device_busy_ms"],
+            "busy_share": prof["device_busy_ms"] / ms, "profile": prof}
+        del xb, yb
+    # collated here, not by a loader, whose prefetch thread would go on
+    # transforming batches beside the timed steps
+    xb, yb = io.default_collate_fn([ds[i] for i in range(batch)])
+    xb, yb = xb.cuda(), yb.cuda()
+    n_fixed = HAPI_WARMUP + HAPI_ITERS
+    losses = [m.train_batch([xb], [yb])[0] for _ in range(HAPI_WARMUP)]
+    t0 = time.perf_counter()
+    losses += [m.train_batch([xb], [yb])[0] for _ in range(HAPI_ITERS)]
+    fixed_ms = (time.perf_counter() - t0) / HAPI_ITERS * 1e3
+    check(all(np.isfinite(losses)), f"hapi a2 fixed batch: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"hapi a2 fixed batch: the loss did not fall {losses}")
+    prof = profile_calls(lambda: m.train_batch([xb], [yb]))
+    moved = float((dict(net.named_buffers())[stat].float() - before)
+                  .abs().max())
+    check(moved > 0, "hapi a2: the running statistics did not move")
+    busy_ms = prof["device_busy_ms"]
+    del m, net, xb, yb
+    torch.cuda.empty_cache()
+    return {"batch": batch, "image": 224, "source": 256, "amp": "O1",
+            "warmup": HAPI_WARMUP, "cpu_count": cores,
+            "usable_cores": usable, "workers": workers, "runs": runs,
+            "fixed_batch": {"steps": n_fixed, "losses": losses,
+                            "ms_per_step": fixed_ms,
+                            "images_per_s": batch / fixed_ms * 1e3,
+                            "busy_share": busy_ms / fixed_ms,
+                            "profile": prof},
+            "stat": stat, "stat_moved": moved}
+
+
+def hapi_easy_data(fake_data):
+    """``FakeData``'s subclass whose label is drawn into the image (a bar
+    of ones at rows 2*label, 2*label+1), so a LeNet learns it: the
+    reference's test_lenet_fit_learns data, for either package."""
+    class HapiEasyData(fake_data):
+        def __getitem__(self, idx):
+            rng = np.random.RandomState(self.seed + idx)
+            label = rng.randint(0, self.num_classes)
+            img = np.zeros(self.image_shape, dtype=np.float32)
+            img[0, label * 2:(label * 2 + 2), :] = 1.0
+            img += rng.rand(*self.image_shape).astype(np.float32) * 0.1
+            return img, np.asarray(label, dtype=np.int64)
+    return HapiEasyData
+
+
+class _Inputs:
+    """The first field of each sample of ``ds`` (what ``predict`` feeds
+    the network)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, idx):
+        return self.ds[idx][0]
+
+
+def hapi_lenet(models, weights_seed=0):
+    from paddle_tpu_torch.testdata import recipes
+    net = models.LeNet()
+    net.set_state_dict_from_numpy(recipes.zoo_weights(
+        [(n, tuple(t.shape)) for n, t in net.named_state().items()],
+        weights_seed))
+    return net
+
+
+def hapi_lenet_fit(nn, optim, hapi, metric, models, datasets, save_dir,
+                   device=None, cfg=HAPI_LENET):
+    """(a3)'s fit (``HAPI_LENET``) with ``ModelCheckpoint`` into
+    ``save_dir`` and ``EarlyStopping`` on top-1 accuracy (patience 2)
+    -> (Model, StepClock, evaluation after the fit)."""
+    easy = hapi_easy_data(datasets.FakeData)
+    m = hapi.Model(hapi_lenet(models, cfg["weights_seed"]), device=device)
+    m.prepare(optim.Momentum(cfg["lr"], momentum=cfg["momentum"]),
+              nn.CrossEntropyLoss(), metric.Accuracy(topk=tuple(cfg["topk"])))
+    clock = step_clock(hapi.callbacks)
+    cbs = hapi.callbacks
+    eval_ds = easy(size=cfg["eval_size"], seed=cfg["eval_seed"])
+    np.random.seed(cfg["shuffle_seed"])
+    m.fit(easy(size=cfg["train_size"]), eval_data=eval_ds,
+          batch_size=cfg["batch"], epochs=cfg["epochs"], verbose=0,
+          callbacks=[clock, cbs.ModelCheckpoint(1, save_dir),
+                     cbs.EarlyStopping(monitor="acc_top1", patience=2,
+                                       verbose=0, save_best_model=False)])
+    ev = m.evaluate(eval_ds, batch_size=cfg["batch"], verbose=0)
+    return m, clock, ev
+
+
+def _hapi_golden():
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "hapi_golden.json")) as f:
+        return json.load(f)
+
+
+def hapi_a3(nn, optim, io, hapi, metric, models, datasets, work):
+    """(a3) LeNet: the fit on the card (2 epochs, ``ModelCheckpoint`` and
+    ``EarlyStopping``) against ``hapi_golden.json`` (per-batch losses
+    within ``HAPI_GOLDEN_RTOL``, the accuracies equal); ``evaluate`` and
+    ``predict(stack_outputs=True)`` on the card against the same Model on
+    the CPU with the same weights (within ``HAPI_CPU_TOL`` of the largest
+    element, the accuracies equal); ``save`` on the card and ``load`` into
+    a CPU Model: its predictions equal the CPU Model's, its optimizer
+    state the card's."""
+    gold = _hapi_golden()
+    check(gold["recipe"] == HAPI_LENET, "hapi a3: the golden's recipe "
+          f"{gold['recipe']} is not HAPI_LENET")
+    save_dir = os.path.join(work, "hapi_lenet")
+    t0 = time.perf_counter()
+    m, clock, ev = hapi_lenet_fit(nn, optim, hapi, metric, models, datasets,
+                                  save_dir)
+    fit_s = time.perf_counter() - t0
+    losses = clock.losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, gold["losses"])]
+    check(len(losses) == len(gold["losses"]) and
+          max(rel) <= HAPI_GOLDEN_RTOL,
+          f"hapi a3: losses {losses} vs the golden's {gold['losses']}")
+    check({k: ev[k] for k in gold["eval"] if k != "loss"} ==
+          {k: v for k, v in gold["eval"].items() if k != "loss"},
+          f"hapi a3: evaluation {ev} vs the golden's {gold['eval']}")
+    saved = sorted(os.listdir(save_dir))
+    check(saved == sorted(f"{e}.{x}" for e in ("0", "1", "final")
+                          for x in ("pdopt", "pdparams")),
+          f"hapi a3: ModelCheckpoint wrote {saved}")
+    check(not m.stop_training, "hapi a3: EarlyStopping stopped the fit")
+
+    easy = hapi_easy_data(datasets.FakeData)
+    eval_ds = easy(size=HAPI_LENET["eval_size"], seed=HAPI_LENET["eval_seed"])
+    cpu_net = models.LeNet()
+    cpu_net.load_state_dict({k: v.cpu() for k, v in
+                             m.network.state_dict().items()})
+    cm = hapi.Model(cpu_net, device="cpu")
+    cm.prepare(loss=nn.CrossEntropyLoss(),
+               metrics=metric.Accuracy(topk=tuple(HAPI_LENET["topk"])))
+    ev_card = m.evaluate(eval_ds, batch_size=32, verbose=0)
+    ev_cpu = cm.evaluate(eval_ds, batch_size=32, verbose=0)
+    check(abs(ev_card["loss"] - ev_cpu["loss"]) <=
+          HAPI_CPU_TOL * abs(ev_cpu["loss"]) and
+          {k: v for k, v in ev_card.items() if k != "loss"} ==
+          {k: v for k, v in ev_cpu.items() if k != "loss"},
+          f"hapi a3: evaluate on the card {ev_card} vs the CPU {ev_cpu}")
+    # a loader, not the bare samples: predict iterates what is not an
+    # io.Dataset as it comes, and FakeData's indices never run out
+    inputs = io.DataLoader(_Inputs(eval_ds), batch_size=32)
+    p_card = m.predict(inputs, stack_outputs=True)[0]
+    p_cpu = cm.predict(inputs, stack_outputs=True)[0]
+    gap = float(np.abs(p_card - p_cpu).max())
+    check(p_card.shape == (HAPI_LENET["eval_size"], 10) and
+          gap <= HAPI_CPU_TOL * float(np.abs(p_cpu).max()),
+          f"hapi a3: predict gap {gap} between the card and the CPU")
+    path = os.path.join(work, "hapi_lenet_saved", "model")
+    m.save(path)
+    lm = hapi.Model(models.LeNet(), device="cpu")
+    lm.prepare(optim.Momentum(HAPI_LENET["lr"],
+                              momentum=HAPI_LENET["momentum"]),
+               nn.CrossEntropyLoss())
+    lm.load(path)
+    p_loaded = lm.predict(inputs, stack_outputs=True)[0]
+    check(np.array_equal(p_loaded, p_cpu),
+          "hapi a3: the loaded CPU Model predicts otherwise")
+    same_opt = int(lm._opt_state["step"]) == int(m._opt_state["step"]) and \
+        all(torch.equal(lm._opt_state["slots"][k]["velocity"],
+                        v["velocity"].cpu())
+            for k, v in m._opt_state["slots"].items())
+    check(same_opt, "hapi a3: the loaded optimizer state differs")
+    opt_step = int(lm._opt_state["step"])
+    del m, cm, lm
+    return {"losses": losses, "golden_losses": gold["losses"],
+            "max_rel_gap": max(rel), "rtol": HAPI_GOLDEN_RTOL,
+            "eval": ev, "golden_eval": gold["eval"], "fit_s": fit_s,
+            "ms_per_step": clock.ms_per_step(), "checkpoints": saved,
+            "eval_card": ev_card, "eval_cpu": ev_cpu,
+            "predict_max_abs_gap": gap, "cpu_tol": HAPI_CPU_TOL,
+            "loaded_predictions_equal": True, "optimizer_step": opt_step}
+
+
+def hapi_phase(fa, fc, nn, gpt, engine, optim, framework, work, card=None):
+    """``hapi``: (a1) GPT-base through ``Model.fit`` against the trainer,
+    (a2) MobileNetV2 through ``Model.fit`` fed by ``DataLoader`` workers,
+    (a3) LeNet's fit, evaluate, predict, save and load across the card
+    and the CPU; each prints a line of its own (``hapi_a1`` ...). (a1)
+    runs the six training kernels, (a2) and (a3) none."""
+    from paddle_tpu_torch import hapi, io, metric, telemetry
+    from paddle_tpu_torch.vision import datasets, models, transforms
+    seconds = {}
+    reps = {}
+
+    def sub(key, fn):
+        t0 = time.perf_counter()
+        reps[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        emit(phase=f"hapi_{key}", card=card, seconds=seconds[key],
+             **reps[key])
+        torch.cuda.empty_cache()
+
+    sub("a1", lambda: hapi_a1(fa, fc, nn, gpt, engine, optim, framework, io,
+                              hapi))
+    zero_counts(fa, fc)
+    sub("a2", lambda: hapi_a2(nn, optim, framework, io, hapi, metric,
+                              telemetry, models, transforms))
+    sub("a3", lambda: hapi_a3(nn, optim, io, hapi, metric, models,
+                              datasets, work))
+    check_path(fa, fc, "hapi a2/a3", 0, 0, 0)
+    return {"sub_phase_seconds": seconds, "launches": reps["a1"]["launches"]}
+
+
 # -- experts, the sharded lookup, LocalSGD -------------------------------------
 
 MOE_TOL = 1e-5          # rtol; atol 1e-5 of the largest element
@@ -6879,6 +7359,14 @@ def run(work) -> int:
     rep = vision_phase(fa, fc, nn, optim, engine, framework, card)
     path_launches["vision"] = rep["launches"]
     emit(phase="vision", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15i'. the high-level API: GPT-base through Model.fit against the
+    # trainer, MobileNetV2 fed by DataLoader workers, LeNet's round trip
+    t0 = time.perf_counter()
+    rep = hapi_phase(fa, fc, nn, gpt, engine, optim, framework, work, card)
+    path_launches["hapi"] = rep["launches"]
+    emit(phase="hapi", card=card, seconds=time.perf_counter() - t0, **rep)
     torch.cuda.empty_cache()
 
     # 15j. experts on one card, the sharded lookup and LocalSGD at one rank

@@ -51,7 +51,11 @@ mode: the tensor API at the top level (``paddle_tpu_torch.add``,
 ``.reshape``, ``.matmul`` ... from ``tensor``), ``autograd``, dy2static
 with ``jit.to_static``/``TracedLayer`` and ``static`` (``Program``,
 ``Executor``, ``static.nn``, ``static.amp``), whose programs are
-``torch.fx`` graphs traced once and executed.
+``torch.fx`` graphs traced once and executed; and the high-level API
+with its data path: ``io`` (datasets, samplers, the multi-process
+``DataLoader``), ``reader``/``batch``, ``metric``, ``hapi`` (``Model``
+with ``fit``/``evaluate``/``predict``, the callbacks, ``summary`` and
+``flops``) and ``incubate.checkpoint`` (the auto-checkpoint).
 
 The tensor API's star import shadows Python's ``abs``, ``max``, ``min``,
 ``sum``, ``round``, ``all``, ``any``, ``pow`` and ``slice`` in this
@@ -68,12 +72,23 @@ from .framework.random import get_rng_state_tracker, seed  # noqa: F401,E402
 
 # -- tensor ops at top level (paddle.add, paddle.reshape, ...) ---------------
 from .tensor import *  # noqa: F401,F403,E402
-from .tensor import linalg, logic, manipulation, math, random, stat  # noqa: F401,E402
+from .tensor import (array, creation, inplace, linalg,  # noqa: F401,E402
+                     logic, manipulation, math, random, stat)
 from . import tensor  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
 from . import jit  # noqa: F401,E402
 from . import static  # noqa: F401,E402
 from .autograd import grad, no_grad, set_grad_enabled  # noqa: F401,E402
+# -- the high-level API and the data path ------------------------------------
+from . import io, metric, reader  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from .batch import batch  # noqa: F401,E402
+from .framework_io import load, save  # noqa: F401,E402
+from .hapi import callbacks, model_summary  # noqa: F401,E402
+from .hapi.model import Model  # noqa: F401,E402
+from .hapi.model_summary import flops, summary  # noqa: F401,E402
+from .distributed.parallel import DataParallel  # noqa: F401,E402
+from .nn import Parameter, ParamAttr  # noqa: F401,E402
 
 __all__ = ["amp", "analysis", "autograd", "distributed", "framework",
            "framework_io", "incubate",
@@ -81,7 +96,10 @@ __all__ = ["amp", "analysis", "autograd", "distributed", "framework",
            "rec", "regularizer", "resilience", "static", "telemetry",
            "tensor", "text", "vision", "grad", "no_grad",
            "set_grad_enabled", "in_dynamic_mode", "enable_static",
-           "disable_static", "in_dygraph_mode", "seed"]
+           "disable_static", "in_dygraph_mode", "seed", "io", "metric",
+           "reader", "hapi", "batch", "load", "save", "callbacks",
+           "model_summary", "Model", "flops", "summary", "DataParallel",
+           "Parameter", "ParamAttr", "create_parameter"]
 
 _static_mode = False
 
@@ -115,3 +133,15 @@ def in_dygraph_mode() -> bool:
 enable_dygraph = disable_static
 disable_dygraph = enable_static
 Tensor = _torch.Tensor
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A standalone parameter (reference framework create_parameter):
+    ``default_initializer``, else ``Constant(0)`` for a bias and
+    ``XavierNormal`` for a weight."""
+    from .framework.dtype import convert_dtype
+    from .nn.initializer import Constant, XavierNormal
+    init = default_initializer or (Constant(0.0) if is_bias
+                                   else XavierNormal())
+    return _torch.nn.Parameter(init(tuple(shape), convert_dtype(dtype)))

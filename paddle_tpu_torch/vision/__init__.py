@@ -1,12 +1,13 @@
 """paddle_tpu_torch.vision (port of ``paddle_tpu/vision``): the model zoo
 (LeNet, the MobileNets, the ResNet family, VGG), ``vision.ops`` (the
-detection ops, ``deform_conv2d``), ``vision.transforms`` and the image
-backend. Datasets are Queue 1 item 22 (ROADMAP.md)."""
-from . import models, ops, transforms  # noqa: F401
+detection ops, ``deform_conv2d``), ``vision.transforms``, the image
+backend and ``datasets.FakeData``. The other datasets are Queue 1 item 22
+(ROADMAP.md)."""
+from . import datasets, models, ops, transforms  # noqa: F401
 from .models import LeNet  # noqa: F401
 
-__all__ = ["models", "ops", "transforms", "LeNet", "set_image_backend",
-           "get_image_backend", "image_load"]
+__all__ = ["datasets", "models", "ops", "transforms", "LeNet",
+           "set_image_backend", "get_image_backend", "image_load"]
 
 _image_backend = "pil"
 

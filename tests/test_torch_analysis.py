@@ -49,6 +49,7 @@ from paddle_tpu_torch.ops import fused_ce as fc
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.text.models import GPTForPretraining
 from paddle_tpu_torch.vision.models import resnet18
+from torch_threads import two_threads  # noqa: F401
 
 GPT_CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
                max_position_embeddings=64, tensor_parallel=False,

@@ -49,6 +49,7 @@ from paddle_tpu_torch.testdata import recipes
 from paddle_tpu_torch.text import models
 
 import torch_hybrid_worker as hybrid
+from torch_threads import two_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
            max_position_embeddings=64, attn_dropout=0.0, hidden_dropout=0.0)

@@ -50,6 +50,7 @@ from paddle_tpu_torch.nn.layers.common import Linear
 from paddle_tpu_torch.optimizer import AdamW, lr as tlr
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.text.models import GPTForPretraining
+from torch_threads import two_threads  # noqa: F401
 
 
 def _state(step, n=6):

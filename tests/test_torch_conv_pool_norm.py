@@ -54,6 +54,7 @@ from paddle_tpu_torch import nn
 from paddle_tpu_torch.nn import functional as F
 
 import torch_ep_worker as worker
+from torch_threads import two_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 BF16_TOL = 2.0 ** -7

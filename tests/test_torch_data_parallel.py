@@ -59,6 +59,7 @@ from paddle_tpu.text.models import gpt_tiny
 
 import torch_dp_worker as worker
 from paddle_tpu_torch.distributed.spawn import spawn
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=420)
 

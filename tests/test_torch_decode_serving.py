@@ -25,6 +25,7 @@ from paddle_tpu_torch.inference.kv_cache import PagedKVCache as TorchCache
 from paddle_tpu_torch.inference.spec_decode import (NGramDrafter,
                                                     SpeculativeDecodeServer)
 from paddle_tpu_torch.resilience import faults
+from torch_threads import two_threads  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 PS = 8

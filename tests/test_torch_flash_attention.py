@@ -24,6 +24,7 @@ from paddle_tpu.ops.pallas import tuner as ref_tuner
 from paddle_tpu_torch.nn.functional import attention as port_attention
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import tuner
+from torch_threads import two_threads  # noqa: F401
 
 R = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 

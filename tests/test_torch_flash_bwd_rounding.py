@@ -36,6 +36,7 @@ import torch
 
 import chip_smoke
 from paddle_tpu_torch.ops import flash_attention as fa
+from torch_threads import two_threads  # noqa: F401
 
 BF16 = torch.bfloat16
 

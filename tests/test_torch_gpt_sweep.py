@@ -34,6 +34,7 @@ from paddle_tpu_torch.ops import fused_ce
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.optimizer import lr as port_lr
 from paddle_tpu_torch.text.models import GPTForPretraining
+from torch_threads import two_threads  # noqa: F401
 
 BATCH, SEQ = 2, 128
 CFG = dict(tensor_parallel=False, attn_dropout=0.0, hidden_dropout=0.0,

@@ -40,6 +40,7 @@ from paddle_tpu_torch.nn.functional import dropout, fused_linear_cross_entropy
 from paddle_tpu_torch.ops import tuner
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.text.models import GPTForPretraining
+from torch_threads import two_threads  # noqa: F401
 
 BATCH, SEQ, CHUNK = 2, 64, 384
 CFG = dict(tensor_parallel=False, attn_dropout=0.0, hidden_dropout=0.0,

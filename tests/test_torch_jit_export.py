@@ -37,6 +37,7 @@ from paddle_tpu_torch.text.models import gpt
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_gpt_train_golden as train_golden  # noqa: E402
 import torch_predictor_golden as predictor_golden  # noqa: E402
+from torch_threads import two_threads  # noqa: E402,F401
 
 TOL = 1e-5          # port vs reference Predictor, float32
 GOLDEN_TOL = 1e-4   # port vs the golden file, float32

@@ -33,6 +33,7 @@ from paddle_tpu.distributed.meta_parallel.localsgd import \
     LocalSGDTrainer as RefLocalSGD
 
 import torch_ep_worker as worker
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=300)
 

@@ -58,6 +58,7 @@ from paddle_tpu.jit.functionalization import functional_call, state_of
 from paddle_tpu_torch.incubate import MoELayer, top2_gating
 
 import torch_ep_worker as worker
+from torch_threads import two_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GATE_ATOL = 2e-7

@@ -46,6 +46,7 @@ from paddle_tpu.jit.functionalization import functional_call, state_of
 from paddle_tpu.nn import functional as rF
 
 import torch_hybrid_worker as worker
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=300)
 

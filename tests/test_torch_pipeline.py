@@ -58,6 +58,7 @@ from paddle_tpu_torch.distributed.meta_parallel import (LayerDesc,
                                                         PipelineParallel,
                                                         SegmentLayers)
 from paddle_tpu_torch.optimizer import SGD
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=300)
 

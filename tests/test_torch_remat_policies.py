@@ -26,6 +26,7 @@ from paddle_tpu_torch import framework
 from paddle_tpu_torch.distributed.fleet import utils as fleet_utils
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.text.models import GPTForPretraining
+from torch_threads import two_threads  # noqa: F401
 
 POLICIES = [None, "full", "dots_saveable", "dots_with_no_batch_dims_saveable",
             "nothing_saveable", "everything_saveable"]

@@ -48,6 +48,7 @@ from paddle_tpu_torch.distributed.checkpoint import (PENDING_PREFIX,
 from paddle_tpu_torch.distributed.spawn import spawn
 from paddle_tpu_torch.resilience import hostsim
 from paddle_tpu_torch.telemetry import flight
+from torch_threads import two_threads  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 

@@ -49,6 +49,7 @@ from paddle_tpu_torch.distributed.fleet.elastic import ElasticStatus
 from paddle_tpu_torch.nn.layer import set_trainer_state_from_numpy
 from paddle_tpu_torch.resilience import faults, hostsim, run_resilient
 from paddle_tpu_torch.resilience import runner
+from torch_threads import two_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5
 RESULT_FIELDS = ("exit_code", "status", "steps_done", "last_step",

@@ -48,6 +48,7 @@ from paddle_tpu_torch.ops.flash_attention import (flash_attention_plain_bwd,
                                                   flash_attention_plain_fwd)
 from paddle_tpu_torch.ops.ring_attention import ring_attention_local
 from paddle_tpu_torch.text.models import GPTAttention
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=300)
 

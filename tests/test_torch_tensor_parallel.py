@@ -67,6 +67,7 @@ from paddle_tpu.text.models import GPTForPretraining as RefGPT
 
 import torch_hybrid_worker as worker
 import torch_zero_worker as zero_worker
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=300)
 

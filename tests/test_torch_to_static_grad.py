@@ -45,6 +45,7 @@ import paddle_tpu as ref
 import paddle_tpu_torch as port
 
 import torch_to_static_worker as worker
+from torch_threads import two_threads  # noqa: F401
 
 CFG = dict(tensor_parallel=False, vocab_size=256, hidden_size=64,
            num_layers=2, num_heads=4, max_position_embeddings=64,

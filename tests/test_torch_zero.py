@@ -68,6 +68,7 @@ import torch_zero_worker as worker
 from paddle_tpu_torch.distributed.meta_parallel.sharding_parallel import \
     spec_dim
 from paddle_tpu_torch.distributed.spawn import spawn
+from torch_threads import two_threads  # noqa: F401
 
 pytestmark = pytest.mark.multihost(timeout=420)
 
