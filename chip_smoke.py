@@ -136,7 +136,30 @@ per source, all started together), then:
   run 10 steps by ``Executor.run`` with AdamW (36 flash and 3 CE launches
   a step, losses against ``fused_b8_pallas_ce``'s trainer, both steps
   timed, its analysis), and converted ``if``/``while``/``for`` functions
-  and a converted layer's ``jit.save``/``jit.load`` on the card.
+  and a converted layer's ``jit.save``/``jit.load`` on the card;
+- ONNX export, after ``mt`` (``onnx``): ResNet-50 in float32 exported with
+  a dynamic batch (53 ``Conv`` nodes), the file evaluated on the card at
+  batch 4 by ``testdata/onnx_eval.py`` against the eager forward
+  (``ONNX_R50_TOL``); the GPT-base trunk in float32 at S 1024, whose
+  eager forward launches the flash forward 12 times, exported with the
+  flash node mapped to its plain subgraph (no custom op in the file) and
+  evaluated against that forward (``ONNX_GPT_TOL``); a layer calling
+  ``torch.sort`` falling back, with the warning, to the ``jit.save``
+  artifact, which ``jit.load`` runs on the card; export seconds and file
+  sizes;
+- the small modules, after ``onnx`` (``incubate``; lines ``incubate_i1``
+  to ``incubate_i6``): (i1) GPT-base in ``fused_b8_pallas_ce``'s trainer
+  2:4-pruned by ``incubate.asp`` with the AdamW ``decorate``d, 5 steps:
+  every pruned weight 2:4 and every pruned position zero after each, 36
+  flash and 3 CE launches a step, the pruned step timed beside the
+  unpruned; (i2) ``LookAhead`` and ``ModelAverage`` beside AdamW on a
+  narrow GPT against ``incubate_golden.json``; (i3) ``Normal``,
+  ``Uniform`` and ``Categorical`` drawing 10^6 samples each, their
+  moments and ``log_prob`` against the CPU; (i4) the masked softmax at
+  GPT-base's score shape against float64, timed; (i5) a host custom op
+  built by ``cpp_extension.load`` with g++, forward and gradient on CUDA
+  tensors against the CPU, the µs of its round trip; (i6) ``run_check``,
+  ``get_device``, ``CUDAPlace`` and ``check_numerics`` on the card.
 
 Prints one JSON object per line; the line before the last is the
 ``{"kernels": [...]}`` summary, the last is ``{"ok": true, "device":
@@ -6944,6 +6967,521 @@ def rec_phase(fa, fc, optim, engine, framework):
     return out
 
 
+# -- onnx and the small modules --------------------------------------------------
+
+ONNX_R50_TOL = 1e-4     # rtol; atol 1e-4 of the largest element (float32)
+ONNX_GPT_TOL = 1e-4     # the same; the flash kernel against its subgraph
+# (i2): losses and norms against the reference's golden, float32
+INCUBATE_LOSS_RTOL = 1e-5
+INCUBATE_NORM_RTOL = 1e-4
+# (i3): moments of 10^6 draws within this many standard errors
+DIST_SIGMAS = 5.0
+DIST_DRAWS = 10 ** 6
+# (i4): the masked softmax against its float64 value
+MASKED_SOFTMAX_ATOL = {"float32": 2e-6, "bfloat16": 2 ** -7}
+
+
+def _rel_close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want)))
+    return err <= tol * max(1.0, float(np.max(np.abs(want)))), err
+
+
+def _onnx_eval_check(onnx_eval, path, inputs, want, tol, what):
+    """The file evaluated on the card against ``want``; returns the
+    largest absolute error and the largest element."""
+    model = onnx_eval.load(path)
+    got = onnx_eval.run(model, inputs, device="cuda")[0]
+    ok, err = _rel_close(got.float().cpu().numpy(),
+                         want.float().cpu().numpy(), tol)
+    big = float(want.abs().max())
+    check(ok, f"{what}: the ONNX file's output is {err} from the eager "
+          f"forward's (bar {tol} of {big})")
+    return model, err, big
+
+
+def onnx_phase(fa, fc, nn, gpt, framework, work, card):
+    """``onnx``: (x1) ResNet-50 in float32 exported with a dynamic batch,
+    53 ``Conv`` nodes, evaluated at batch 4 on the card against the eager
+    forward; (x2) the GPT-base trunk in float32 at S 1024: the eager
+    forward runs the flash forward 12 times, the ONNX graph maps the
+    flash node to its plain subgraph and holds no custom op, its
+    evaluation on the card matches the forward; (x3) a layer calling
+    ``torch.sort`` warns and falls back to the ``jit.save`` artifact,
+    which ``jit.load`` runs on the card."""
+    import warnings
+
+    from paddle_tpu_torch import jit, onnx
+    from paddle_tpu_torch.testdata import onnx_eval
+    from paddle_tpu_torch.vision.models import resnet50
+    rep = {}
+
+    # (x1) ResNet-50
+    framework.seed(0)
+    model = resnet50().cuda().eval()
+    path = os.path.join(work, "r50.onnx")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = onnx.export(model, path, input_spec=[
+            jit.InputSpec([None, 3, 224, 224], "float32")])
+    seconds = time.perf_counter() - t0
+    check(out == path, f"onnx x1: ResNet-50 exported {out}, not {path}")
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        4, 3, 224, 224).astype(np.float32)).cuda()
+    with torch.no_grad():
+        want = model(x)
+    m, err, big = _onnx_eval_check(onnx_eval, path, [x], want, ONNX_R50_TOL,
+                                   "onnx x1")
+    ops = onnx_eval.op_types(m)
+    check(ops.count("Conv") == 53, f"onnx x1: {ops.count('Conv')} Conv")
+    check(isinstance(m.inputs[0][2][0], str) and
+          isinstance(m.outputs[0][2][0], str),
+          f"onnx x1: batch not dynamic: {m.inputs} -> {m.outputs}")
+    rep["x1"] = {"model": "resnet50", "export_seconds": seconds,
+                 "file_bytes": os.path.getsize(path), "nodes": len(ops),
+                 "conv_nodes": ops.count("Conv"), "batch": 4,
+                 "max_abs_err": err, "max_abs_out": big, "rtol": ONNX_R50_TOL,
+                 "inputs": m.inputs, "outputs": m.outputs}
+    os.remove(path)
+    del model, m, want
+    torch.cuda.empty_cache()
+
+    # (x2) the GPT-base trunk, float32, S 1024
+    framework.seed(0)
+    model = gpt.GPTModel(tensor_parallel=False, vocab_size=50304,
+                         hidden_size=768, num_layers=12, num_heads=12,
+                         max_position_embeddings=1024, attn_dropout=0.0,
+                         hidden_dropout=0.0).cuda().eval()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 50304, (1, 1024)).astype(np.int32)).cuda()
+    zero_counts(fa, fc)
+    with torch.no_grad():
+        want = model(ids)
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fc.LAUNCHES}
+    check(launches == {"flash_fwd": 12, "flash_dq": 0, "flash_dkv": 0,
+                       "ce_fwd": 0, "ce_dh": 0, "ce_dw": 0},
+          f"onnx x2: the eager forward launched {launches}")
+    check(fa.ROUTES["flash_fwd_scalar"] == 12,
+          f"onnx x2: flash routes {fa.ROUTES}")
+    path = os.path.join(work, "gpt.onnx")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = onnx.export(model, path, input_spec=[
+            jit.InputSpec([1, 1024], "int32")])
+    seconds = time.perf_counter() - t0
+    check(out == path, f"onnx x2: GPT-base exported {out}, not {path}")
+    m, err, big = _onnx_eval_check(onnx_eval, path, [ids], want,
+                                   ONNX_GPT_TOL, "onnx x2")
+    ops = onnx_eval.op_types(m)
+    check(all(op[:1].isupper() and "::" not in op for op in ops),
+          f"onnx x2: a custom op in the graph: {sorted(set(ops))}")
+    rep["x2"] = {"model": "GPTModel 12 x 768, vocab 50304, S 1024",
+                 "export_seconds": seconds,
+                 "file_bytes": os.path.getsize(path), "nodes": len(ops),
+                 "softmax_nodes": ops.count("Softmax"),
+                 "max_abs_err": err, "max_abs_out": big,
+                 "rtol": ONNX_GPT_TOL, "launches": launches}
+    os.remove(path)
+    del model, m, want
+    torch.cuda.empty_cache()
+
+    # (x3) the fallback
+    class Sorty(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.scale = nn.Parameter(torch.full((4,), 2.0))
+
+        def forward(self, x):
+            return torch.sort(x * self.scale, dim=-1)[0]
+
+    layer = Sorty().cuda()
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 4)
+                         .astype(np.float32)).cuda()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        prefix = onnx.export(layer, os.path.join(work, "srt.onnx"),
+                             input_spec=[jit.InputSpec([2, 4], "float32")])
+    msgs = [str(w.message) for w in seen]
+    check(not prefix.endswith(".onnx") and
+          any("ONNX conversion not available" in s for s in msgs),
+          f"onnx x3: {prefix}, warnings {msgs}")
+    loaded = jit.load(prefix)
+    with torch.no_grad():
+        got, eager = loaded(x), layer(x)
+    check(got.device.type == "cuda" and torch.equal(got, eager),
+          "onnx x3: jit.load's output differs from the eager one")
+    rep["x3"] = {"prefix_files": sorted(os.path.basename(p) for p in
+                                        os.listdir(work)
+                                        if p.startswith("srt")),
+                 "warning": next(s for s in msgs if "not available" in s),
+                 "equal": True}
+    rep["launches"] = launches
+    return rep
+
+
+def incubate_golden_run(nn, gpt, engine, optim, framework, incubate,
+                        device="cuda"):
+    """``tests/torch_incubate_golden.py``'s two runs on the port: the
+    golden file's recipe, on ``device``; the same keys as the file."""
+    from paddle_tpu_torch.testdata import recipes
+    with open(os.path.join(HERE, "paddle_tpu_torch", "testdata",
+                           "incubate_golden.json")) as f:
+        gold = json.load(f)
+    r = gold["recipe"]
+    rs = np.random.RandomState(r["data_seed"])
+    shape = (r["batch"], r["seq"])
+    vocab = r["config"]["vocab_size"]
+    ids = torch.from_numpy(rs.randint(0, vocab, shape).astype(np.int32))
+    lbl = torch.from_numpy(rs.randint(0, vocab, shape).astype(np.int32))
+
+    def trainer(opt):
+        model = gpt.GPTForPretraining(tensor_parallel=False, **r["config"])
+        names_shapes = [(n, tuple(t.shape))
+                        for n, t in model.named_state().items()]
+        model.set_state_dict_from_numpy(recipes.bert_weights(
+            names_shapes, r["seed"], r["std"]))
+        return engine.ParallelTrainer(
+            model, opt, lambda logits, y: nn.functional.cross_entropy(
+                logits, y), device=device)
+
+    def params(tr):
+        return {k: p.detach().float().clone() for k, p in tr.params.items()}
+
+    def norm(tree):
+        return float(torch.sqrt(sum(torch.sum(v.double() ** 2)
+                                    for v in tree.values())))
+
+    out = {"recipe": r}
+    tr = trainer(incubate.LookAhead(optim.AdamW(
+        r["lr"], weight_decay=r["weight_decay"]), **r["lookahead"]))
+    losses, updates = [], []
+    for _ in range(r["steps"]):
+        before = params(tr)
+        losses.append(float(tr.train_step(ids, lbl)))
+        after = params(tr)
+        updates.append(norm({k: after[k] - before[k] for k in after}))
+    out["lookahead"] = {"losses": losses, "update_norms": updates}
+
+    tr = trainer(optim.AdamW(r["lr"], weight_decay=r["weight_decay"]))
+    ma = incubate.ModelAverage(**r["model_average"])
+    state = None
+    losses, avg_norms, diff_norms = [], [], []
+    for _ in range(r["steps"]):
+        losses.append(float(tr.train_step(ids, lbl)))
+        live = params(tr)
+        if state is None:
+            state = ma.init_state(live)
+        _, state = ma.apply_gradients(live, None, state)
+        avg = ma.average(state)
+        avg_norms.append(norm(avg))
+        diff_norms.append(norm({k: avg[k] - live[k] for k in avg}))
+    out["model_average"] = {"losses": losses, "avg_norms": avg_norms,
+                            "avg_diff_norms": diff_norms}
+    return out, gold
+
+
+def hold_incubate_golden(got, gold, loss_rtol=INCUBATE_LOSS_RTOL,
+                         norm_rtol=INCUBATE_NORM_RTOL):
+    """The largest relative gap of each series; raises past its bar."""
+    gaps = {}
+    for run, series in (("lookahead", ("losses", "update_norms")),
+                        ("model_average", ("losses", "avg_norms",
+                                           "avg_diff_norms"))):
+        for key in series:
+            a, b = np.asarray(got[run][key]), np.asarray(gold[run][key])
+            # a zero (the first step's average is the live weights) is
+            # held exactly
+            gap = float(np.max(np.abs(a - b) / np.where(b == 0, 1.0,
+                                                        np.abs(b))))
+            bar = loss_rtol if key == "losses" else norm_rtol
+            check(gap <= bar, f"incubate i2 {run}.{key}: {a.tolist()} vs "
+                  f"the reference's {b.tolist()} (gap {gap}, bar {bar})")
+            gaps[f"{run}.{key}"] = gap
+    return gaps
+
+
+def _timed_steps(trainer, batch, n):
+    """n train steps, each synced -> (losses, ms of each)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(*batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return losses, ms
+
+
+def asp_i1(fa, fc, nn, gpt, engine, optim, framework, incubate, steps=5,
+           warmup=2):
+    """(i1) GPT-base in fused_b8_pallas_ce's trainer, unpruned and then
+    2:4-pruned (``prune_model`` with the AdamW ``decorate``d): after every
+    pruned step ``check_sparsity`` holds on every pruned weight and every
+    position ``prune_model`` zeroed is still zero; each pruned step
+    launches 36 flash and 3 CE kernels; both steps timed."""
+    asp = incubate.asp
+    trainer, batch, n_params = gpt_base_trainer(nn, gpt, engine, optim,
+                                                framework, head="pallas")
+    dense_losses, dense_ms = _timed_steps(trainer, batch, warmup + 3)
+    del trainer
+    torch.cuda.empty_cache()
+    opt = optim.AdamW(3e-4)
+    trainer, batch, _ = gpt_base_trainer(nn, gpt, engine, optim, framework,
+                                         head="pallas", opt=opt)
+    asp.decorate(opt, trainer.model)
+    masks = asp.prune_model(trainer.model)
+    check(masks, "incubate i1: nothing was pruned")
+    zeroed = {k: m == 0 for k, m in masks.items()}
+    pruned_numel = sum(m.numel() for m in masks.values())
+    zero_counts(fa, fc)
+    losses, ms, joined = [], [], 0
+    for _ in range(steps):
+        l_, t_ = _timed_steps(trainer, batch, 1)
+        losses += l_
+        ms += t_
+        for k, z in zeroed.items():
+            w = trainer.params[k].detach()
+            check(asp.check_sparsity(w), f"incubate i1: {k} lost 2:4")
+            check(not bool(w[z].any()),
+                  f"incubate i1: a pruned position of {k} came back")
+        joined = sum(int((trainer.params[k].detach() == 0).sum())
+                     for k in zeroed) - sum(int(z.sum())
+                                            for z in zeroed.values())
+    torch.cuda.synchronize()
+    launches = check_path(fa, fc, "incubate i1", 12 * steps, 12 * steps,
+                          steps)
+    check(all(np.isfinite(losses)), f"incubate i1: losses {losses}")
+    med = lambda v: float(np.median(v[warmup:]))  # noqa: E731
+    return {"params": n_params, "pruned_weights": len(masks),
+            "pruned_elements": pruned_numel, "losses": losses,
+            "dense_losses": dense_losses, "ms_per_step": med(ms),
+            "dense_ms_per_step": med(dense_ms), "ms": ms,
+            "dense_ms": dense_ms,
+            "pruned_over_dense": med(ms) / med(dense_ms),
+            "kept_zeros_joined_mask": joined, "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()}}
+
+
+def distributions_i3(distribution):
+    """(i3) ``Normal``, ``Uniform`` and ``Categorical`` each draw 10^6
+    samples on the card; their moments within ``DIST_SIGMAS`` standard
+    errors; a seeded draw repeats; ``log_prob`` on the card equals the
+    CPU's."""
+    dev = "cuda"
+    n = DIST_DRAWS
+    out = {}
+    t = lambda v: torch.tensor(v, device=dev)  # noqa: E731
+    normal = distribution.Normal(t(0.5), t(2.0))
+    s = normal.sample((n,), seed=7)
+    check(torch.equal(s, normal.sample((n,), seed=7)),
+          "incubate i3: a seeded Normal draw did not repeat")
+    se = 2.0 / n ** 0.5
+    mean, std = float(s.mean()), float(s.std())
+    check(abs(mean - 0.5) <= DIST_SIGMAS * se and
+          abs(std - 2.0) <= DIST_SIGMAS * se,
+          f"incubate i3: Normal mean {mean}, std {std}")
+    out["normal"] = {"mean": mean, "std": std, "se": se}
+    uniform = distribution.Uniform(t(-1.0), t(3.0))
+    u = uniform.sample((n,))
+    se = (16 / 12) ** 0.5 / n ** 0.5
+    mean = float(u.mean())
+    check(abs(mean - 1.0) <= DIST_SIGMAS * se and float(u.min()) >= -1.0
+          and float(u.max()) < 3.0, f"incubate i3: Uniform mean {mean}")
+    out["uniform"] = {"mean": mean, "min": float(u.min()),
+                      "max": float(u.max()), "se": se}
+    logits = t([0.0, 1.0, 2.0, 0.5])
+    cat = distribution.Categorical(logits)
+    c = cat.sample((n,))
+    p = torch.softmax(logits, -1)
+    freq = torch.bincount(c, minlength=4).double() / n
+    se = torch.sqrt(p.double() * (1 - p.double()) / n)
+    check(bool(((freq - p.double()).abs() <= DIST_SIGMAS * se).all()),
+          f"incubate i3: Categorical frequencies {freq.tolist()} vs "
+          f"{p.tolist()}")
+    out["categorical"] = {"freq": freq.tolist(), "p": p.tolist()}
+    values = torch.linspace(-3.0, 4.0, 1001)
+    errs = {}
+    for name, card_d, cpu_d, v in (
+            ("normal", normal, distribution.Normal(0.5, 2.0), values),
+            ("uniform", uniform, distribution.Uniform(-1.0, 3.0), values),
+            ("categorical", cat,
+             distribution.Categorical(logits.cpu()),
+             torch.arange(4).repeat(5))):
+        a = card_d.log_prob(v.to(dev)).cpu()
+        b = cpu_d.log_prob(v)
+        fin = torch.isfinite(b)
+        check(torch.equal(torch.isfinite(a), fin),
+              f"incubate i3: {name} log_prob's infinities differ")
+        err = float((a[fin] - b[fin]).abs().max())
+        check(err <= 1e-6, f"incubate i3: {name} log_prob card vs CPU {err}")
+        errs[name] = err
+    out["log_prob_max_abs_err"] = errs
+    return out
+
+
+def masked_softmax_i4(operators, shape=(8, 12, 1024, 1024)):
+    """(i4) ``softmax_mask_fuse_upper_triangle`` at GPT-base's score shape
+    in float32 and bfloat16 against its float64 value, timed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.randn(shape, generator=g, device="cuda")
+    ref = operators.softmax_mask_fuse_upper_triangle(x.cpu().double())
+    out = {"shape": list(shape)}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        xi = x.to(dtype)
+        got = operators.softmax_mask_fuse_upper_triangle(xi)
+        want = operators.softmax_mask_fuse_upper_triangle(
+            xi.cpu().double()) if dtype != torch.float32 else ref
+        err = float((got.cpu().double() - want).abs().max())
+        check(err <= MASKED_SOFTMAX_ATOL[name],
+              f"incubate i4: {name} masked softmax {err} from float64")
+        ms = time_ms(lambda: operators.softmax_mask_fuse_upper_triangle(xi),
+                     reps=10, warmup=2)
+        nbytes = 2 * xi.numel() * xi.element_size()
+        out[name] = {"max_abs_err": err, "atol": MASKED_SOFTMAX_ATOL[name],
+                     "ms": ms, "bytes_min": nbytes,
+                     "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+        del got
+    del ref, x
+    torch.cuda.empty_cache()
+    return out
+
+
+EXT_SRC = r'''
+#include "paddle_ext.h"
+#include <algorithm>
+
+static void relu6_fwd(const float** ins, int, float* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = std::min(std::max(ins[0][i], 0.0f), 6.0f);
+}
+static void relu6_bwd(const float** ins, int, const float* gout,
+                      float** gins, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    gins[0][i] = (ins[0][i] > 0.0f && ins[0][i] < 6.0f) ? gout[i] : 0.0f;
+}
+PD_EXT_REGISTER(relu6, &relu6_fwd, &relu6_bwd, 1);
+'''
+
+
+def host_op_i5(cpp_extension, work, calls=200, numel=4096):
+    """(i5) ``cpp_extension.load`` builds a host op with g++ here; on CUDA
+    tensors its forward and gradient equal the CPU's; the µs of one call's
+    host round trip (the card's tensor to the host and back)."""
+    src = os.path.join(work, "chip_ext.cc")
+    with open(src, "w") as f:
+        f.write(EXT_SRC)
+    t0 = time.perf_counter()
+    ext = cpp_extension.load("chip_smoke_ext", [src],
+                             build_directory=os.path.join(work, "ext"))
+    build_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.RandomState(3).uniform(
+        -3.0, 9.0, numel).astype(np.float32))
+    xc = x.cuda().requires_grad_(True)
+    xh = x.clone().requires_grad_(True)
+    yc, yh = ext.relu6(xc), ext.relu6(xh)
+    check(yc.device.type == "cuda" and torch.equal(yc.detach().cpu(),
+                                                   yh.detach()),
+          "incubate i5: the op's card forward differs from the CPU's")
+    yc.sum().backward()
+    yh.sum().backward()
+    check(torch.equal(xc.grad.cpu(), xh.grad),
+          "incubate i5: the op's card gradient differs from the CPU's")
+    check(torch.equal(yh.detach(), x.clamp(0.0, 6.0)),
+          "incubate i5: relu6 is not clamp(0, 6)")
+    xd = x.cuda()
+    for _ in range(10):
+        ext.relu6(xd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        y = ext.relu6(xd)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    del y
+    return {"build_seconds": build_s, "numel": numel,
+            "us_per_call": us, "calls": calls, "equal": True}
+
+
+def device_flags_i6(port):
+    """(i6) ``run_check()`` on the card, ``get_device() == "gpu:0"``,
+    ``CUDAPlace(0)`` the card, ``check_numerics`` naming a NaN planted on
+    a card tensor."""
+    loss = port.utils.run_check()
+    check(np.isfinite(loss), f"incubate i6: run_check loss {loss}")
+    check(port.get_device() == "gpu:0",
+          f"incubate i6: get_device() is {port.get_device()}")
+    check(port.CUDAPlace(0).torch_device == torch.device("cuda", 0),
+          "incubate i6: CUDAPlace(0) is not the card")
+    check(port.is_compiled_with_cuda(), "incubate i6: not built with CUDA")
+    from paddle_tpu_torch.framework import flags
+    t = torch.ones(8, device="cuda")
+    t[5] = float("nan")
+    port.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        flags.check_numerics({"w": torch.ones(3, device="cuda")}, "ok:")
+        try:
+            flags.check_numerics({"w": torch.ones(3, device="cuda"),
+                                  "v": [t]}, "card:")
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+    finally:
+        port.set_flags({"FLAGS_check_nan_inf": False})
+    check(msg is not None and "card:['v'][0]" in msg,
+          f"incubate i6: check_numerics said {msg!r}")
+    return {"run_check_loss": loss, "device": port.get_device(),
+            "cudnn": port.get_cudnn_version(), "check_numerics": msg}
+
+
+def incubate_phase(fa, fc, nn, gpt, engine, optim, framework, work,
+                   card=None):
+    """``incubate``: (i1) 2:4 ASP on GPT-base in the fused CE trainer,
+    (i2) LookAhead and ModelAverage against the reference's golden, (i3)
+    the distributions, (i4) the masked softmax, (i5) a host custom op,
+    (i6) the device queries and flags; each prints a line of its own
+    (``incubate_i1`` ...). (i1) runs the six training kernels, the
+    others none."""
+    import paddle_tpu_torch as port
+    from paddle_tpu_torch import distribution, incubate
+    from paddle_tpu_torch.incubate import operators
+    from paddle_tpu_torch.utils import cpp_extension
+    seconds, reps = {}, {}
+
+    def sub(key, fn):
+        t0 = time.perf_counter()
+        reps[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        emit(phase=f"incubate_{key}", card=card, seconds=seconds[key],
+             **reps[key])
+        torch.cuda.empty_cache()
+
+    sub("i1", lambda: asp_i1(fa, fc, nn, gpt, engine, optim, framework,
+                             incubate))
+    zero_counts(fa, fc)
+
+    def i2():
+        got, gold = incubate_golden_run(nn, gpt, engine, optim, framework,
+                                        incubate)
+        return {"gaps": hold_incubate_golden(got, gold),
+                "loss_rtol": INCUBATE_LOSS_RTOL,
+                "norm_rtol": INCUBATE_NORM_RTOL,
+                "lookahead": got["lookahead"],
+                "model_average": got["model_average"]}
+
+    sub("i2", i2)
+    sub("i3", lambda: distributions_i3(distribution))
+    sub("i4", lambda: masked_softmax_i4(operators))
+    sub("i5", lambda: host_op_i5(cpp_extension, work))
+    sub("i6", lambda: device_flags_i6(port))
+    check_path(fa, fc, "incubate i2-i6", 0, 0, 0)
+    return {"sub_phase_seconds": seconds, "launches": reps["i1"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -7411,6 +7949,26 @@ def run(work) -> int:
     rep = mt_phase(fa, fc, tuner, optim, engine, framework, card)
     path_launches["mt"] = rep["launches"]
     emit(phase="mt", seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15o. ONNX export on the card: ResNet-50 with a dynamic batch and the
+    # GPT-base trunk (the flash node mapped) evaluated against their eager
+    # forwards, and the fallback to jit.save's artifact
+    t0 = time.perf_counter()
+    rep = onnx_phase(fa, fc, nn, gpt, framework, work, card)
+    path_launches["onnx"] = rep["launches"]
+    emit(phase="onnx", card=card, seconds=time.perf_counter() - t0, **rep)
+    torch.cuda.empty_cache()
+
+    # 15p. the small modules: GPT-base trained 2:4-pruned, LookAhead and
+    # ModelAverage against the reference, the distributions, the masked
+    # softmax, a host custom op, the device queries and flags
+    t0 = time.perf_counter()
+    rep = incubate_phase(fa, fc, nn, gpt, engine, optim, framework, work,
+                         card)
+    path_launches["incubate"] = rep["launches"]
+    emit(phase="incubate", card=card, seconds=time.perf_counter() - t0,
+         **rep)
     torch.cuda.empty_cache()
 
     # 15b. the same steps with dh and dw on the staged route: how far two

@@ -89,6 +89,16 @@ from .hapi.model import Model  # noqa: F401,E402
 from .hapi.model_summary import flops, summary  # noqa: F401,E402
 from .distributed.parallel import DataParallel  # noqa: F401,E402
 from .nn import Parameter, ParamAttr  # noqa: F401,E402
+# -- onnx and the small modules ----------------------------------------------
+from . import onnx  # noqa: F401,E402
+from . import device, distribution, monitor, sysconfig, utils  # noqa: F401,E402
+from .framework.flags import get_flags, set_flags  # noqa: F401,E402
+from .device import (  # noqa: F401,E402
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, NPUPlace, TPUPlace, XPUPlace,
+    get_cuda_rng_state, get_cudnn_version, get_device,
+    is_compiled_with_cuda, is_compiled_with_npu, is_compiled_with_rocm,
+    is_compiled_with_tpu, is_compiled_with_xpu, numpy, set_cuda_rng_state,
+    set_device)
 
 __all__ = ["amp", "analysis", "autograd", "distributed", "framework",
            "framework_io", "incubate",
@@ -99,7 +109,15 @@ __all__ = ["amp", "analysis", "autograd", "distributed", "framework",
            "disable_static", "in_dygraph_mode", "seed", "io", "metric",
            "reader", "hapi", "batch", "load", "save", "callbacks",
            "model_summary", "Model", "flops", "summary", "DataParallel",
-           "Parameter", "ParamAttr", "create_parameter"]
+           "Parameter", "ParamAttr", "create_parameter", "onnx", "device",
+           "distribution", "monitor", "sysconfig", "utils", "get_flags",
+           "set_flags", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
+           "TPUPlace", "XPUPlace", "NPUPlace", "get_device", "set_device",
+           "is_compiled_with_cuda", "is_compiled_with_npu",
+           "is_compiled_with_rocm", "is_compiled_with_tpu",
+           "is_compiled_with_xpu", "get_cudnn_version", "get_cuda_rng_state",
+           "set_cuda_rng_state", "monkey_patch_math_varbase",
+           "monkey_patch_variable", "VarBase", "dtype", "bool", "numpy"]
 
 _static_mode = False
 
@@ -133,6 +151,20 @@ def in_dygraph_mode() -> bool:
 enable_dygraph = disable_static
 disable_dygraph = enable_static
 Tensor = _torch.Tensor
+
+# -- source-compat aliases (reference python/paddle/__init__.py) -------------
+VarBase = Tensor                      # fluid core.VarBase -> torch.Tensor
+dtype = _torch.dtype                  # paddle.dtype
+bool = _torch.bool                    # noqa: A001  (dtype alias, as paddle)
+
+
+def monkey_patch_math_varbase():
+    """No-op: torch.Tensor already carries the operator overloads (the
+    reference patches VarBase with math dunders at import)."""
+
+
+def monkey_patch_variable():
+    """No-op: see monkey_patch_math_varbase."""
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,

@@ -9,7 +9,8 @@ the fleet API (``fleet``), the hybrid wrappers (``meta_parallel``:
 disk, one directory for a world of ranks)."""
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
                          alltoall, barrier, broadcast, get_group, new_group,
-                         recv, reduce, reduce_scatter, scatter, send, wait)
+                         recv, reduce, reduce_scatter, scatter, send, split,
+                         split_group, wait)
 from .env import (ParallelEnv, get_rank, get_world_size,  # noqa: F401
                   init_parallel_env)
 from .parallel import DataParallel, sync_params_buffers  # noqa: F401
@@ -18,7 +19,8 @@ from . import checkpoint, fleet, meta_parallel, sharding  # noqa: F401
 
 __all__ = ["ReduceOp", "all_gather", "all_reduce", "alltoall", "barrier",
            "broadcast", "get_group", "new_group", "recv", "reduce",
-           "reduce_scatter", "scatter", "send", "wait", "ParallelEnv",
+           "reduce_scatter", "scatter", "send", "split", "split_group",
+           "wait", "ParallelEnv",
            "get_rank", "get_world_size", "init_parallel_env",
            "DataParallel", "sync_params_buffers", "spawn", "fleet",
            "meta_parallel", "sharding", "checkpoint"]

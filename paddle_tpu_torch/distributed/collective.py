@@ -25,9 +25,10 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
-           "all_gather", "reduce_scatter", "broadcast", "reduce", "scatter",
-           "alltoall", "send", "recv", "barrier", "wait"]
+__all__ = ["ReduceOp", "Group", "new_group", "get_group", "split_group",
+           "all_reduce", "all_gather", "all_gather_concat", "reduce_scatter",
+           "broadcast", "reduce", "scatter", "alltoall", "send", "recv",
+           "barrier", "split", "wait"]
 
 
 class ReduceOp:
@@ -90,6 +91,18 @@ def new_group(ranks=None, backend=None) -> Group:
     return _groups[gid]
 
 
+def split_group(origin_group, split_sizes):
+    """Consecutive subgroups of ``origin_group``'s ranks, of the given
+    sizes (every rank of the default group calls it, as ``new_group``)."""
+    origin_group = origin_group or _groups[0]
+    ranks = origin_group.ranks or list(range(origin_group.nranks))
+    out, start = [], 0
+    for size in split_sizes:
+        out.append(new_group(ranks[start:start + size]))
+        start += size
+    return out
+
+
 def _pg(group):
     """(process group, live): live is False for a world of one rank or no
     process group, where the calls are the identity."""
@@ -124,6 +137,18 @@ def all_gather(tensor_list, tensor: torch.Tensor, group=None, sync_op=True,
     if isinstance(tensor_list, list):
         tensor_list.extend(parts)
     return torch.stack(parts, dim=axis)
+
+
+def all_gather_concat(tensor: torch.Tensor, group=None, axis=0):
+    """Every rank's tensor concatenated along ``axis`` (a tiled
+    all-gather); the input itself outside a group of more than one rank,
+    as the reference's outside a traced axis."""
+    pg, live = _pg(group)
+    if not live:
+        return tensor
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(pg))]
+    dist.all_gather(parts, tensor.contiguous(), group=pg)
+    return torch.cat(parts, dim=axis)
 
 
 def reduce_scatter(tensor: torch.Tensor, op=ReduceOp.SUM, group=None,
@@ -201,6 +226,50 @@ def barrier(group=None):
     pg, live = _pg(group)
     if live:
         dist.barrier(group=pg)
+
+
+def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
+          weight_attr=None, bias_attr=None, name=None):
+    """Model-parallel op builder (reference collective.py:1283 split):
+    build the weight-split layer for ``operation`` over the current
+    mesh's ``model`` axis, on x's device, and apply it to x: "embedding"
+    (``VocabParallelEmbedding``, the vocab split), "linear" with axis 0
+    (``RowParallelLinear``, in_features split) or axis 1
+    (``ColumnParallelLinear``, out_features split). ``num_partitions``
+    must be 1 or the axis's degree. Call it once at build time, as the
+    reference's static-graph usage: the layer's parameters are made
+    here."""
+    from .mesh import get_mesh
+    from .meta_parallel.parallel_layers import mp_layers
+    mesh = get_mesh()
+    model_deg = mesh.shape.get("model", 1) if mesh is not None else 1
+    if num_partitions not in (1, model_deg):
+        raise ValueError(
+            f"num_partitions={num_partitions} does not match the mesh "
+            f"'model' degree {model_deg}")
+    if operation == "embedding":
+        if axis != 0:
+            raise ValueError("parallel embedding only splits axis 0 (vocab)")
+        layer = mp_layers.VocabParallelEmbedding(
+            size[0], size[1], weight_attr=weight_attr, name=name)
+    elif operation == "linear":
+        if axis == 0:
+            layer = mp_layers.RowParallelLinear(
+                size[0], size[1], weight_attr=weight_attr,
+                has_bias=bias_attr is not False,
+                input_is_parallel=False, name=name)
+        elif axis == 1:
+            layer = mp_layers.ColumnParallelLinear(
+                size[0], size[1], weight_attr=weight_attr,
+                has_bias=bias_attr is not False,
+                gather_output=gather_out, name=name)
+        else:
+            raise ValueError(
+                "linear split axis must be 0 (row) or 1 (column)")
+    else:
+        raise ValueError(f"unsupported operation {operation!r} "
+                         "(expected 'linear' or 'embedding')")
+    return layer.to(x.device)(x)
 
 
 def wait(tensor, group=None, use_calc_stream=True):

@@ -246,6 +246,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from .._device import resolve_device
+from ..framework import flags
 from ..framework.random import get_generator
 from ..resilience.guard import all_finite
 from ..resilience.integrity import FINGERPRINT_TAG, _keystr, \
@@ -1021,7 +1022,19 @@ class ParallelTrainer:
             ev.end()
         if tel:
             self._record_step_telemetry(time.perf_counter() - t0, inputs)
+        if not tracing:
+            self._debug_flags(loss)
         return loss
+
+    def _debug_flags(self, loss):
+        """``FLAGS_check_nan_inf`` scans the loss and the parameters,
+        ``FLAGS_benchmark`` synchronizes the card (``framework.flags``)."""
+        if flags.flag("check_nan_inf"):
+            flags.check_numerics({"loss": loss}, "train_step:")
+            flags.check_numerics(dict(self.params), "params:")
+        if (flags.flag("benchmark") or flags.flag("check_kernel_launch")) \
+                and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
     def _update(self, grads, lr, comm_err0, stats0=()):

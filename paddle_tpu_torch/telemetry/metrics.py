@@ -127,6 +127,11 @@ class Gauge(_Metric):
         self._mark(key, float(v))
         return float(v)
 
+    inc = Counter.inc      # a gauge also moves by steps (monitor.StatValue)
+
+    def dec(self, n: float = 1.0, **labels) -> float:
+        return self.inc(-n, **labels)
+
     def value(self, **labels) -> float:
         with self._lock:
             if labels:

@@ -4,8 +4,8 @@ listed here with the Queue 1 item (ROADMAP.md) that owns it.
 A name is in the port when ``paddle_tpu_torch`` has it as an attribute or
 as a subpackage (``paddle_tpu_torch.<name>`` imports). The list must stay
 honest both ways: a listed name the port has gained fails the test, so
-the list shrinks as items land. Item 21c's names, this slice's, are all
-present.
+the list shrinks as items land. Items 21c, 21d and 21e have landed: what
+is left is item 22's ``hub`` and the reference module's own imports.
 """
 import importlib.util
 
@@ -19,21 +19,18 @@ SLICE_21C = ("Model", "summary", "flops", "callbacks", "model_summary",
              "hapi", "io", "metric", "reader", "batch", "save", "load",
              "DataParallel", "ParamAttr", "Parameter", "create_parameter")
 
+SLICE_21D_21E = ("onnx", "distribution", "monitor", "device", "sysconfig",
+                 "utils", "get_flags", "set_flags", "CPUPlace", "CUDAPlace",
+                 "CUDAPinnedPlace", "NPUPlace", "TPUPlace", "XPUPlace",
+                 "get_device", "set_device", "is_compiled_with_cuda",
+                 "is_compiled_with_npu", "is_compiled_with_rocm",
+                 "is_compiled_with_tpu", "is_compiled_with_xpu",
+                 "get_cudnn_version", "get_cuda_rng_state",
+                 "set_cuda_rng_state", "monkey_patch_math_varbase",
+                 "monkey_patch_variable", "VarBase", "dtype", "bool",
+                 "numpy")
+
 MISSING = {
-    # 21d: onnx/*
-    "onnx": "21d",
-    # 21e: the small modules and the reference's device and compat names
-    "distribution": "21e", "monitor": "21e", "device": "21e",
-    "sysconfig": "21e", "utils": "21e", "get_flags": "21e",
-    "set_flags": "21e", "CPUPlace": "21e", "CUDAPlace": "21e",
-    "CUDAPinnedPlace": "21e", "NPUPlace": "21e", "TPUPlace": "21e",
-    "XPUPlace": "21e", "get_device": "21e", "set_device": "21e",
-    "is_compiled_with_cuda": "21e", "is_compiled_with_npu": "21e",
-    "is_compiled_with_rocm": "21e", "is_compiled_with_tpu": "21e",
-    "is_compiled_with_xpu": "21e", "get_cudnn_version": "21e",
-    "get_cuda_rng_state": "21e", "set_cuda_rng_state": "21e",
-    "monkey_patch_math_varbase": "21e", "monkey_patch_variable": "21e",
-    "VarBase": "21e", "dtype": "21e", "bool": "21e", "numpy": "21e",
     # 22: datasets and hub
     "hub": "22",
     # the reference module's own imports, no API: ``from __future__
@@ -56,7 +53,7 @@ def test_every_reference_name_is_present_or_listed():
     gained = [n for n in MISSING if _in_port(n)]
     assert not gained, f"listed as missing, present now: {gained}"
     assert set(MISSING) <= set(names)
-    assert set(MISSING.values()) <= {"21d", "21e", "22", "none"}
+    assert set(MISSING.values()) <= {"22", "none"}
 
 
 def test_slice_21c_names_are_exported():
@@ -71,3 +68,23 @@ def test_slice_21c_names_are_exported():
     b = port.create_parameter([3], "float32", is_bias=True)
     assert float(b.detach().abs().sum()) == 0.0
     assert port_checkpoint.train_epoch_range and port_datasets.FakeData
+
+
+def test_slice_21d_21e_names_are_exported():
+    import torch
+    for name in SLICE_21D_21E:
+        assert hasattr(port, name), name
+        assert hasattr(ref, name), name
+    assert port.get_flags is port.framework.flags.get_flags
+    assert port.CUDAPlace is port.device.CUDAPlace
+    assert port.VarBase is torch.Tensor and port.dtype is torch.dtype
+    assert port.bool is torch.bool
+    assert (port.numpy(torch.tensor([1.5], dtype=torch.bfloat16))
+            == [1.5]).all()
+    assert port.CPUPlace().torch_device == torch.device("cpu")
+    assert port.is_compiled_with_cuda() == (torch.version.cuda is not None)
+    for name in ("tpu", "xpu", "npu", "rocm"):
+        assert getattr(port, f"is_compiled_with_{name}")() is False
+    assert port.monkey_patch_math_varbase() is None
+    assert port.monkey_patch_variable() is None
+    assert port.onnx.export and port.utils.run_check
